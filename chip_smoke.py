@@ -3,34 +3,43 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
 hand-written neighbor-pass kernel (cpp_fluid_particles_tpu_torch/csrc/
-column_pass.cu) with nvcc, holds each kernel instance against the plain
-torch executor on the card, then drives the port's main path —
-``Simulation(solver="wcsph", cfg=dam_break_config(mode="parity"),
-device="cuda")`` on the full 20,736-particle dam — for 300 frames at the
-reference benchmark's dt, and checks that every frame went through the
-kernel. Phases:
+column_pass.cu) with nvcc, holds each of its eleven instances against the
+plain torch executor on the card, then drives the port's paths on the full
+20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
+each with the launch counts reset just before it and read just after:
+WCSPH and DFSPH for 300 frames each at the reference benchmark's dt, and
+both solvers with surface effects off for a short run. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc build of the kernel, seconds taken
+  2. build    nvcc build of the kernel, seconds taken, and ptxas's
+              registers and spills for every instance
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
-              the main path gives it, at frame 0 and after phase 5;
+              its path gives it, at frame 0 and after the path's run;
               per-row tolerance rtol 2e-5, atol 2e-5 x the row's max;
               two launches must agree bitwise
-  4. step     one wcsph_step with the kernel vs with the plain executor
-              (pos atol 2e-6, vel atol 2e-3), and the drift after 5 steps
-  5. slice    300 frames through the constructor, run() and run_scan();
-              physics and launch-count checks, ms/frame from CUDA events
-  6. timing   kernel vs plain executor per pass at the phase-5 shapes
+  4. step     one solver step with the kernel vs with the plain executor
+              (pos atol 2e-6, vel atol 2e-3), and the drift after 5 steps;
+              for DFSPH both runs' iteration counts
+  5. slice    WCSPH: 300 frames at dt 0.001 through the constructor,
+              run() and run_scan(); physics and launch-count checks,
+              ms/frame from CUDA events
+  5b. dfsph   the same for DFSPH at dt 0.004, plus iteration bounds, the
+              mean iterations and the host syncs per frame
+  5c. off     WCSPH and DFSPH with surface tension and air pressure off,
+              a short run each: the surface-off instances' launches
+  6. timing   kernel vs plain executor per pass at the shapes of its
+              path's final state
 
-Each phase prints one line. Before the last line it prints the JSON kernel
-table; the last line is ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero without that line. JAX is not imported. Details go to
-``chiprun_out/chip_smoke.json``.
+Each phase prints one line per item. Before the last line it prints the
+JSON kernel table, then the card's nvidia-smi line; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
+line. JAX is not imported. Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -39,6 +48,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FRAMES = 300
+OFF_FRAMES = 50          # the surface-off runs of phase 5c
 CHUNK = 25
 PASS_BAR = 2e-5          # pass outputs: rtol, and atol x the row's max
 STEP_POS_ATOL = 2e-6
@@ -72,29 +82,45 @@ def import_port():
 
 
 class Recorder:
-    """An executor that records the operands of every pass and runs the
-    plain executor on them."""
+    """An executor that records the operands of the first call of every
+    pass and runs the plain executor on all calls."""
 
     def __init__(self, plain):
         self.plain = plain
-        self.calls = []
+        self.calls = {}
 
     def __call__(self, name, fl, bd, dims, dims_b, cfg):
-        self.calls.append((name, fl, bd, dims, dims_b))
+        self.calls.setdefault(name, (name, fl, bd, dims, dims_b))
         return self.plain(name, fl, bd, dims, dims_b, cfg)
 
 
+def surface_off(cfg):
+    return cfg.replace(surface_tension=0.0, air_pressure=0.0)
+
+
 def capture(sim, ds, pp, dt):
-    """The operands the main path gives each pass instance: the scene
-    build's density pass, and one WCSPH step's two passes from sim.state."""
+    """The operands the main path gives each pass instance from sim.state:
+    WCSPH: the scene build's density pass and one step's two passes.
+    DFSPH: one step's five passes, then one surface-off WCSPH step and one
+    surface-off DFSPH step on the same state for the surface-off
+    instances."""
     from cpp_fluid_particles_tpu_torch.state import boundary_positions
     rec = Recorder(pp.column_pass_plain)
-    ds.build_dense_scene(sim.cfg, boundary_positions(sim.cfg), sim._kb,
-                         sim.device, executor=rec)
     dims, dims_b = sim._dims()
-    ds.wcsph_step(sim.state, (), sim.scene, sim.cfg, dt, dims, dims_b,
-                  sim.box, executor=rec)
-    return rec.calls
+    if sim.solver_name == "wcsph":
+        ds.build_dense_scene(sim.cfg, boundary_positions(sim.cfg), sim._kb,
+                             sim.device, executor=rec)
+        ds.wcsph_step(sim.state, (), sim.scene, sim.cfg, dt, dims, dims_b,
+                      sim.box, executor=rec)
+    else:
+        off = surface_off(sim.cfg)
+        ds.dfsph_step(sim.state, sim.carry, sim.scene, sim.cfg, dt, dims,
+                      dims_b, sim.box, executor=rec)
+        ds.wcsph_step(sim.state, (), sim.scene, off, dt, dims, dims_b,
+                      sim.box, executor=rec)
+        ds.dfsph_step(sim.state, sim.carry, sim.scene, off, dt, dims,
+                      dims_b, sim.box, executor=rec)
+    return list(rec.calls.values())
 
 
 def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
@@ -121,32 +147,176 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
         e = errs.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         e["max_abs_err"] = max(e["max_abs_err"], max_abs)
         e["max_rel_err"] = max(e["max_rel_err"], worst_rel)
-        log("kernel", f"{tag} {name} K={dims.k} Kb={dims_b.k} "
+        kb = dims_b.k if dims_b is not None else 0
+        log("kernel", f"{tag} {name} K={dims.k} Kb={kb} "
             f"grid={dims.gx}x{dims.gy}x{dims.gz} max_abs_err={max_abs:.3e} "
             f"max_err/row_max={worst_rel:.3e} bitwise_repeat=yes")
 
 
+def iters(m) -> str:
+    if "divergence_iters" not in m:
+        return ""
+    return (f" iters div/den={int(m['divergence_iters'])}/"
+            f"{int(m['density_iters'])}")
+
+
 def step_vs_plain(sim, ds, pp, torch, dt, n_drift=5):
     dims, dims_b = sim._dims()
+    step = ds.DENSE_STEPS[sim.solver_name]
 
     def run(executor, n):
-        st = sim.state
+        st, ca, m = sim.state, sim.carry, {}
         for _ in range(n):
-            st, _, _ = ds.wcsph_step(st, (), sim.scene, sim.cfg, dt, dims,
-                                     dims_b, sim.box, executor=executor)
-        return st
+            st, ca, m = step(st, ca, sim.scene, sim.cfg, dt, dims, dims_b,
+                             sim.box, executor=executor)
+        return st, m
 
-    a, b = run(None, 1), run(pp.column_pass_plain, 1)
+    (a, ma), (b, mb) = run(None, 1), run(pp.column_pass_plain, 1)
     dpos = float((a.pos - b.pos).abs().max())
     dvel = float((a.vel - b.vel).abs().max())
     if not (dpos <= STEP_POS_ATOL and dvel <= STEP_VEL_ATOL):
         raise AssertionError(f"step: kernel vs plain dpos={dpos} "
                              f"dvel={dvel} over the bars")
-    a, b = run(None, n_drift), run(pp.column_pass_plain, n_drift)
-    log("step", f"one step kernel vs plain: dpos={dpos:.3e} (bar "
-        f"{STEP_POS_ATOL}) dvel={dvel:.3e} (bar {STEP_VEL_ATOL}); after "
-        f"{n_drift} steps: dpos={float((a.pos - b.pos).abs().max()):.3e} "
+    (a, _), (b, _) = run(None, n_drift), run(pp.column_pass_plain, n_drift)
+    log("step", f"{sim.solver_name} one step kernel vs plain: dpos={dpos:.3e}"
+        f" (bar {STEP_POS_ATOL}) dvel={dvel:.3e} (bar {STEP_VEL_ATOL});"
+        f" kernel{iters(ma)} plain{iters(mb)}; after {n_drift} steps: "
+        f"dpos={float((a.pos - b.pos).abs().max()):.3e} "
         f"dvel={float((a.vel - b.vel).abs().max()):.3e}")
+
+
+class Tally:
+    """Wraps a Simulation's step to keep every frame's metrics (frames
+    re-run by a capacity retry included), read once at the end."""
+
+    def __init__(self, sim):
+        self.frames = []
+        step = sim._step_fn
+
+        def tallied(*args, **kwargs):
+            out = step(*args, **kwargs)
+            self.frames.append(out[2])
+            return out
+        sim._step_fn = tallied
+
+    def column(self, key, torch):
+        return torch.stack([m[key] for m in self.frames]).cpu().tolist()
+
+
+def drive(cfp, cc, torch, cfg, solver, dt, frames, tally=False):
+    """Construct, run() one chunk, then run_scan() chunks, from the dam
+    start: -> (sim, stats). The launch counts are reset before the
+    constructor and read after the last chunk."""
+    cc.reset_launch_counts()
+    t_run = time.perf_counter()
+    sim = cfp.Simulation(solver=solver, cfg=cfg, device="cuda")
+    tl = Tally(sim) if tally else None
+    y0 = float(torch.as_tensor(cfp.dam_break_positions(cfg))[:, 1].mean())
+    rerun_frames = 1 + sim.retries               # warm-up step + retries
+    ctor_frames = rerun_frames                   # not tallied
+    r0 = sim.retries
+    chunk = min(CHUNK, frames)
+    step_ms = sim.run(chunk, dt)["ms_per_frame"] * chunk
+    rerun_frames += chunk + (sim.retries - r0)
+    scan_ms = 0.0
+    chunks = []                  # per chunk: last frame, ms/frame, K, box
+    for _ in range((frames - chunk) // chunk):
+        r0 = sim.retries
+        ms = sim.run_scan(chunk, dt)
+        scan_ms += ms * chunk
+        rerun_frames += chunk * (1 + sim.retries - r0)
+        chunks.append([sim.frame, ms, sim.max_per_cell, list(sim.box)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_run
+    launches = dict(cc.LAUNCHES)
+
+    pos = sim.state.pos
+    space = torch.tensor(cfg.space_size, device=pos.device)
+    if sim.frame != frames:
+        raise AssertionError(f"ran {sim.frame} frames, not {frames}")
+    if not bool(torch.isfinite(pos).all()):
+        raise AssertionError("non-finite positions")
+    if not bool(((pos >= 0) & (pos <= 0.99 * space)).all()):
+        raise AssertionError("positions outside [0, 0.99*space]")
+    y1 = float(pos[:, 1].mean())
+    if not y1 < y0:
+        raise AssertionError(f"mean y did not decrease: {y0} -> {y1}")
+    if sim.dropped_frames != 0:
+        raise AssertionError(f"dropped_frames={sim.dropped_frames}")
+    stats = {
+        "solver": solver, "frames": frames, "dt": dt,
+        "surface": cfg.surface_tension > 0 or cfg.air_pressure > 0,
+        "fluid": sim.fluid_size, "boundary": sim.boundary_size,
+        "K": sim.max_per_cell, "box": list(sim.box), "retries": sim.retries,
+        "dropped_frames": sim.dropped_frames, "rerun_frames": rerun_frames,
+        "launches": launches, "ms_per_frame": (step_ms + scan_ms) / frames,
+        "ms_per_frame_step": step_ms / chunk,
+        "ms_per_frame_run_scan": scan_ms / max(frames - chunk, 1),
+        "wall_s": wall_s, "mean_y": [y0, y1], "run_scan_chunks": chunks}
+    if tl is not None:
+        for key in ("divergence_iters", "density_iters", "host_syncs"):
+            stats[key] = tl.column(key, torch)
+        if len(stats["host_syncs"]) != rerun_frames - ctor_frames:
+            raise AssertionError(f"tallied {len(stats['host_syncs'])} "
+                                 f"frames, expected "
+                                 f"{rerun_frames - ctor_frames}")
+    return sim, stats
+
+
+def expect_launches(stats, want):
+    """want: pass name -> exact count, or (lo, None) for a lower bound;
+    names not listed must not have launched, apart from density, which
+    the scene build launches once."""
+    got = stats["launches"]
+    bad = []
+    for name, n in got.items():
+        w = want.get(name, 1 if name == "density" else 0)
+        ok = n >= w[0] if isinstance(w, tuple) else n == w
+        if not ok:
+            bad.append(f"{name}={n} (want {w})")
+    if bad:
+        raise AssertionError(f"{stats['solver']} launch counts: "
+                             + ", ".join(bad))
+
+
+def slice_line(stats, card):
+    return (f"{stats['fluid']} fluid + {stats['boundary']} boundary, "
+            f"{stats['frames']} frames at dt {stats['dt']}: K={stats['K']} "
+            f"box={tuple(stats['box'])} retries={stats['retries']} "
+            f"dropped_frames=0 mean_y {stats['mean_y'][0]:.4f}->"
+            f"{stats['mean_y'][1]:.4f} launches="
+            f"{ {k: v for k, v in stats['launches'].items() if v} } | "
+            f"{stats['ms_per_frame']:.3f} ms/frame (CUDA events; step() "
+            f"{stats['ms_per_frame_step']:.3f}, run_scan "
+            f"{stats['ms_per_frame_run_scan']:.3f}) wall "
+            f"{stats['wall_s']:.1f} s | {card}")
+
+
+def ptxas_report(log_text):
+    """-> {mangled kernel entry: (registers, spill bytes)} from ptxas -v;
+    the entry's name holds its pass functor."""
+    out, entry, spill = {}, None, 0
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), spill)
+            entry = None
+    return out
+
+
+def functor(name):
+    """pass name -> its functor in csrc/column_pass.cu (density_visc ->
+    DensityViscPass)."""
+    return "".join(w.capitalize() for w in name.split("_")) + "Pass"
 
 
 def time_ms(fn, torch, reps, warm=2):
@@ -161,6 +331,32 @@ def time_ms(fn, torch, reps, warm=2):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def time_passes(calls, cfg, pp, cc, torch, card, times):
+    for name, fl, bd, dims, dims_b in calls:
+        if name in times:
+            continue
+
+        def kern():
+            cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
+
+        def plain():
+            pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
+        # plain, kernel, kernel, plain: compared within one call
+        p1 = time_ms(plain, torch, 5)
+        k1 = time_ms(kern, torch, 50)
+        k2 = time_ms(kern, torch, 50)
+        p2 = time_ms(plain, torch, 5)
+        kb = dims_b.k if dims_b is not None else 0
+        times[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                       "runs_ms": [p1, k1, k2, p2],
+                       "grid": [dims.gx, dims.gy, dims.gz], "K": dims.k,
+                       "Kb": kb}
+        log("timing", f"{name} K={dims.k} Kb={kb} grid={dims.gx}x{dims.gy}x"
+            f"{dims.gz}: kernel {min(k1, k2):.4f} ms, plain "
+            f"{min(p1, p2):.4f} ms (plain,kernel,kernel,plain = "
+            f"{p1:.4f},{k1:.4f},{k2:.4f},{p2:.4f}) | {card}")
 
 
 def main() -> int:
@@ -187,115 +383,119 @@ def main() -> int:
     lib = cc.build()
     cc._library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
-    record["build_s"], record["ptxas"] = build_s, ptxas
+    build_log = lib.with_suffix(".log").read_text()
+    ptxas = ptxas_report(build_log)
+    regs = {}
+    for name in cc.PASS_IDS:
+        hits = [v for k, v in ptxas.items() if f"{len(functor(name))}"
+                f"{functor(name)}" in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas report has {len(hits)} entries "
+                                 f"for {functor(name)}")
+        regs[name] = {"registers": hits[0][0], "spill_bytes": hits[0][1]}
+    record["build_s"], record["ptxas"] = build_s, regs
     log("build", f"{KERNEL_SRC} -> {lib.name} in {build_s:.1f} s; "
-        + "; ".join(ln for ln in ptxas if "registers" in ln))
+        "registers/spill bytes: " + "; ".join(
+            f"{n} {r['registers']}/{r['spill_bytes']}"
+            for n, r in regs.items()))
 
     cfg = cfp.dam_break_config(mode="parity")
-    dt = cfp.BENCH_DT["wcsph"]
-    errs = {}
+    errs, times, paths = {}, {}, {}
 
-    # 3 + 4 at frame 0 (the state after the constructor's warm-up step)
-    probe = cfp.Simulation(solver="wcsph", cfg=cfg, device="cuda")
-    compare_passes("frame0", capture(probe, ds, pp, dt), cfg, pp, cc,
-                   torch, errs)
-    step_vs_plain(probe, ds, pp, torch, dt)
-    del probe
+    for solver, phase in (("wcsph", "slice"), ("dfsph", "dfsph")):
+        dt = cfp.BENCH_DT[solver]
+        # 3 + 4 at frame 0 (the state after the constructor's warm-up)
+        probe = cfp.Simulation(solver=solver, cfg=cfg, device="cuda")
+        compare_passes(f"{solver} frame0", capture(probe, ds, pp, dt), cfg,
+                       pp, cc, torch, errs)
+        step_vs_plain(probe, ds, pp, torch, dt)
+        del probe
 
-    # 5. the slice
-    cc.reset_launch_counts()
-    t_run = time.perf_counter()
-    sim = cfp.Simulation(solver="wcsph", cfg=cfg, device="cuda")
-    y0 = float(torch.as_tensor(cfp.dam_break_positions(cfg))[:, 1].mean())
-    rerun_frames = 1 + sim.retries               # warm-up step + retries
-    r0 = sim.retries
-    stats = sim.run(CHUNK, dt)
-    rerun_frames += CHUNK + (sim.retries - r0)
-    step_ms = stats["ms_per_frame"] * CHUNK
-    scan_ms = 0.0
-    chunks = []                  # per chunk: last frame, ms/frame, K, box
-    for _ in range((FRAMES - CHUNK) // CHUNK):
-        r0 = sim.retries
-        ms = sim.run_scan(CHUNK, dt)
-        scan_ms += ms * CHUNK
-        rerun_frames += CHUNK * (1 + sim.retries - r0)
-        chunks.append([sim.frame, ms, sim.max_per_cell, list(sim.box)])
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t_run
-    launches = dict(cc.LAUNCHES)
+        # 5 / 5b. the path
+        sim, st = drive(cfp, cc, torch, cfg, solver, dt, FRAMES,
+                        tally=(solver == "dfsph"))
+        frames_run = st["rerun_frames"]
+        if solver == "wcsph":
+            # each frame run (warm-up, retries included) launches both
+            # WCSPH passes once, plus the scene build's density launch
+            expect_launches(st, {"density_colorgrad_visc": frames_run,
+                                 "surface_pressure": frames_run})
+            log(phase, slice_line(st, card))
+        else:
+            # per frame run: one density_alpha_colorgrad, viscosity and
+            # surface; divergence == stiffness_accel (the divergence warm
+            # start is on), at least 5 (1 + 1 + >= 1 divergence iterations
+            # and 1 + 1 + >= 2 density iterations of each)
+            expect_launches(st, {"density_alpha_colorgrad": frames_run,
+                                 "viscosity": frames_run,
+                                 "surface": frames_run,
+                                 "divergence": (5 * frames_run, None),
+                                 "stiffness_accel": (5 * frames_run, None)})
+            la = st["launches"]
+            if la["divergence"] != la["stiffness_accel"]:
+                raise AssertionError(f"divergence {la['divergence']} != "
+                                     f"stiffness_accel "
+                                     f"{la['stiffness_accel']}")
+            cap = cfg.dfsph_max_iter
+            di, ni = st["divergence_iters"], st["density_iters"]
+            if not (min(di) >= 1 and max(di) <= cap and min(ni) >= 2
+                    and max(ni) <= cap):
+                raise AssertionError(f"iterations out of bounds: divergence "
+                                     f"{min(di)}-{max(di)}, density "
+                                     f"{min(ni)}-{max(ni)}, cap {cap}")
+            # over the frames run after the constructor's warm-up
+            st["mean_iters"] = [sum(di) / len(di), sum(ni) / len(ni)]
+            st["host_syncs_per_frame"] = (sum(st["host_syncs"])
+                                          / len(st["host_syncs"]))
+            log(phase, slice_line(st, card) + f" | per frame run: "
+                f"divergence iters {st['mean_iters'][0]:.2f} "
+                f"({min(di)}-{max(di)}), density iters "
+                f"{st['mean_iters'][1]:.2f} ({min(ni)}-{max(ni)}), Jacobi "
+                f"host syncs {st['host_syncs_per_frame']:.2f} (plus one "
+                f"capacity fetch per chunk)")
+        for key in ("divergence_iters", "density_iters", "host_syncs"):
+            st.pop(key, None)
+        paths[solver] = st
 
-    pos = sim.state.pos
-    space = torch.tensor(cfg.space_size, device=pos.device)
-    if sim.frame != FRAMES:
-        raise AssertionError(f"ran {sim.frame} frames, not {FRAMES}")
-    if not bool(torch.isfinite(pos).all()):
-        raise AssertionError("non-finite positions")
-    if not bool(((pos >= 0) & (pos <= 0.99 * space)).all()):
-        raise AssertionError("positions outside [0, 0.99*space]")
-    y1 = float(pos[:, 1].mean())
-    if not y1 < y0:
-        raise AssertionError(f"mean y did not decrease: {y0} -> {y1}")
-    if sim.dropped_frames != 0:
-        raise AssertionError(f"dropped_frames={sim.dropped_frames}")
-    # each frame run (warm-up, retries included) launches both WCSPH
-    # passes once: 2 x rerun_frames main-path launches, plus the scene
-    # build's one density launch
-    if (launches["density_colorgrad_visc"] != rerun_frames
-            or launches["surface_pressure"] != rerun_frames
-            or launches["density"] != 1):
-        raise AssertionError(f"launch counts {launches}; expected "
-                             f"{rerun_frames} per WCSPH pass and 1 density")
-    ms_frame = (step_ms + scan_ms) / FRAMES
-    record["slice"] = {
-        "frames": FRAMES, "dt": dt, "fluid": sim.fluid_size,
-        "boundary": sim.boundary_size, "K": sim.max_per_cell,
-        "box": list(sim.box), "retries": sim.retries,
-        "dropped_frames": sim.dropped_frames, "launches": launches,
-        "ms_per_frame": ms_frame, "ms_per_frame_step": step_ms / CHUNK,
-        "ms_per_frame_run_scan": scan_ms / (FRAMES - CHUNK),
-        "wall_s": wall_s, "mean_y": [y0, y1], "run_scan_chunks": chunks}
-    log("slice", f"{sim.fluid_size} fluid + {sim.boundary_size} boundary, "
-        f"{FRAMES} frames at dt {dt}: K={sim.max_per_cell} box={sim.box} "
-        f"retries={sim.retries} dropped_frames=0 mean_y {y0:.4f}->{y1:.4f} "
-        f"launches={launches} | {ms_frame:.3f} ms/frame (CUDA events; "
-        f"step() {step_ms / CHUNK:.3f}, run_scan "
-        f"{scan_ms / (FRAMES - CHUNK):.3f}) wall {wall_s:.1f} s | {card}")
+        # 3 (after the run) and 6 at the path's final shapes
+        calls = capture(sim, ds, pp, dt)
+        compare_passes(f"{solver} frame{FRAMES}", calls, cfg, pp, cc, torch,
+                       errs)
+        time_passes(calls, cfg, pp, cc, torch, card, times)
+        del sim, calls
 
-    # 3 (post-impact) and 6 at the phase-5 shapes
-    calls = capture(sim, ds, pp, dt)
-    compare_passes(f"frame{FRAMES}", calls, cfg, pp, cc, torch, errs)
-    times = {}
-    for name, fl, bd, dims, dims_b in calls:
-        def kern():
-            cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
+    # 5c. the surface-off instances on their own paths
+    for solver, want in (("wcsph", ("density_visc", "pressure_force")),
+                         ("dfsph", ("density_alpha",))):
+        dt = cfp.BENCH_DT[solver]
+        sim, st = drive(cfp, cc, torch, surface_off(cfg), solver, dt,
+                        OFF_FRAMES)
+        frames_run = st["rerun_frames"]
+        expected = {n: frames_run for n in want}
+        if solver == "dfsph":
+            expected.update(viscosity=frames_run,
+                            divergence=(5 * frames_run, None),
+                            stiffness_accel=(5 * frames_run, None))
+        expect_launches(st, expected)
+        paths[f"{solver}_surface_off"] = st
+        log("off", f"{solver} surface off: " + slice_line(st, card))
+        del sim
 
-        def plain():
-            pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
-        # plain, kernel, kernel, plain: compared within one call
-        p1 = time_ms(plain, torch, 5)
-        k1 = time_ms(kern, torch, 50)
-        k2 = time_ms(kern, torch, 50)
-        p2 = time_ms(plain, torch, 5)
-        times[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                       "runs_ms": [p1, k1, k2, p2],
-                       "grid": [dims.gx, dims.gy, dims.gz], "K": dims.k,
-                       "Kb": dims_b.k}
-        log("timing", f"{name} K={dims.k} grid={dims.gx}x{dims.gy}x"
-            f"{dims.gz}: kernel {min(k1, k2):.4f} ms, plain "
-            f"{min(p1, p2):.4f} ms (plain,kernel,kernel,plain = "
-            f"{p1:.4f},{k1:.4f},{k2:.4f},{p2:.4f}) | {card}")
-    record["times"], record["errors"] = times, errs
-
+    record["paths"], record["times"], record["errors"] = paths, times, errs
+    owner = {"density": "wcsph", "density_colorgrad_visc": "wcsph",
+             "surface_pressure": "wcsph", "density_visc": "wcsph_surface_off",
+             "pressure_force": "wcsph_surface_off",
+             "density_alpha": "dfsph_surface_off"}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SRC,
-         "replaces": TPU_KERNEL, "launches": launches[name],
+         "replaces": TPU_KERNEL,
+         "launches": paths[owner.get(name, "dfsph")]["launches"][name],
          "max_abs_err": errs[name]["max_abs_err"],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]}
         for name in cc.PASS_IDS]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    (out_dir / "column_pass_build.log").write_text(build_log)
     (out_dir / "chip_smoke.json").write_text(
         json.dumps(dict(record, table=table), indent=1))
     print(json.dumps(table), flush=True)

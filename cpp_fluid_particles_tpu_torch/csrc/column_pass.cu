@@ -5,13 +5,18 @@
 // (the Pallas kernel that evaluates a pass body over (CZ, K_i, 27K_j) pair
 // blocks per (x, y) cell column). It computes what that kernel computes with
 // `_std_body` (pallas_passes.py:780): the one-sided 27-cell fluid pair sum
-// plus the boundary term, for three pass instances (template functors
-// below): density, density_colorgrad_visc and surface_pressure.
+// plus the boundary term, for eleven pass instances (template functors
+// below). WCSPH: density, density_colorgrad_visc, surface_pressure and,
+// with surface effects off, density_visc and pressure_force. DFSPH:
+// density_alpha_colorgrad (density_alpha with surface effects off),
+// divergence, stiffness_accel, and the fluid-only viscosity and surface.
 //
 // Layout (ops/dense.py): fl (Fi, K, G) and bd (Fb=4, Kb, G), float32,
 // contiguous, G = GX*GY*GZ the flattened ghosted cell axis (x-major). Slot k
 // of cell c holds the particle of rank k; ranks fill slots contiguously
-// from 0 and empty slots hold POS_PAD positions. Output (n_out, K, G).
+// from 0 and empty slots hold POS_PAD positions. Output (n_out, K, G). A
+// fluid-only pass (kBoundary false) takes no boundary operand: the wrapper
+// passes bd = nullptr and kb = 0, and the boundary loop is compiled out.
 //
 // Design. One thread per (k_i, c), t = k_i*G + c, so neighbouring threads
 // read neighbouring cells and the i loads and the j loads at c+d coalesce.
@@ -23,8 +28,12 @@
 //
 // Bound: pair evaluations (about 27*K per real i slot, cut at each cell's
 // occupancy by the early exit) and the neighbour loads, which hit L2 — each
-// j cell is re-read by the 27 cells around it. A shared-memory halo tile
-// (the plan of exp/flat_pallas_proto.py) is the next step for this kernel.
+// j cell is re-read by the 27 cells around it. Every instance shares that
+// traversal; they differ in the rows loaded per pair (4 to 9 floats) and
+// in the sums kept in registers (1 to 9, density_alpha_colorgrad the most),
+// which sets the register count and so the occupancy. A shared-memory halo
+// tile (the plan of exp/flat_pallas_proto.py) is the next step for this
+// kernel.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -95,17 +104,49 @@ __device__ __forceinline__ bool in_support(float r, const Consts& c) {
   return (2.f * r / c.h <= 2.f) || (r <= c.h);
 }
 
-// --- pass functors. Row r of a grid with slot stride kg is at r*kg + t. ---
+// --- pass functors. Row r of a grid with slot stride kg is at r*kg + t.
+// kBoundary: whether the pass sums over the boundary operand (bdry). ---
+
+// p / max(eps, rho^2) from rows [.., rho (4), p (5)]
+__device__ __forceinline__ float p_over_rho2(const float* f, int64_t t,
+                                             int64_t kg, const Consts& c) {
+  const float rho = f[4 * kg + t];
+  return f[5 * kg + t] / fmaxf(c.eps, rho * rho);
+}
+
+// |cg|^2 from the three rows starting at row
+__device__ __forceinline__ float cg2(const float* f, int64_t t, int64_t kg,
+                                     int row) {
+  const float gx = f[row * kg + t], gy = f[(row + 1) * kg + t],
+              gz = f[(row + 2) * kg + t];
+  return gx * gx + gy * gy + gz * gz;
+}
+
+// i-side loads shared by the instances below
+struct Pos {
+  float x, y, z;
+};
+struct PosVel {
+  float x, y, z, vx, vy, vz;
+};
+__device__ __forceinline__ Pos load_pos(const float* fl, int64_t t,
+                                        int64_t kg) {
+  return {fl[t], fl[kg + t], fl[2 * kg + t]};
+}
+__device__ __forceinline__ PosVel load_pos_vel(const float* fl, int64_t t,
+                                               int64_t kg) {
+  return {fl[t],          fl[kg + t],     fl[2 * kg + t],
+          fl[4 * kg + t], fl[5 * kg + t], fl[6 * kg + t]};
+}
 
 // rho = sum m_j W (pallas_passes.py:874); fl = bd = [pos3, mass].
 struct DensityPass {
   static constexpr int kOut = 1;
-  struct I {
-    float x, y, z;
-  };
+  static constexpr bool kBoundary = true;
+  using I = Pos;
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts&) {
-    return {fl[t], fl[kg + t], fl[2 * kg + t]};
+    return load_pos(fl, t, kg);
   }
   __device__ static void fluid(float* acc, const I&, const float* fl,
                                int64_t tj, int64_t kg, float, float, float,
@@ -123,13 +164,11 @@ struct DensityPass {
 // Outputs [rho, numx, numy, numz, den, dvx, dvy, dvz].
 struct DensityColorgradViscPass {
   static constexpr int kOut = 8;
-  struct I {
-    float x, y, z, vx, vy, vz;
-  };
+  static constexpr bool kBoundary = true;
+  using I = PosVel;
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts&) {
-    return {fl[t],          fl[kg + t],     fl[2 * kg + t],
-            fl[4 * kg + t], fl[5 * kg + t], fl[6 * kg + t]};
+    return load_pos_vel(fl, t, kg);
   }
   __device__ static void fluid(float* acc, const I& i, const float* fl,
                                int64_t tj, int64_t kg, float dx, float dy,
@@ -168,34 +207,26 @@ struct DensityColorgradViscPass {
 // cg3]. Outputs [sax, say, saz, pax, pay, paz] (pa before the MAX_A clamp).
 struct SurfacePressurePass {
   static constexpr int kOut = 6;
+  static constexpr bool kBoundary = true;
   struct I {
     float x, y, z, c2, gate, p_rho2;
   };
-  __device__ static float p_rho2(const float* f, int64_t t, int64_t kg,
-                               const Consts& c) {
-    const float rho = f[4 * kg + t];
-    return f[5 * kg + t] / fmaxf(c.eps, rho * rho);
-  }
-  __device__ static float cg2(const float* f, int64_t t, int64_t kg) {
-    const float gx = f[6 * kg + t], gy = f[7 * kg + t], gz = f[8 * kg + t];
-    return gx * gx + gy * gy + gz * gz;
-  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts& c) {
-    const float c2 = cg2(fl, t, kg);
+    const float c2 = cg2(fl, t, kg, 6);
     const float n = sqrtf(c2);
     return {fl[t], fl[kg + t], fl[2 * kg + t], c2, n / fmaxf(c.eps, n),
-            p_rho2(fl, t, kg, c)};
+            p_over_rho2(fl, t, kg, c)};
   }
   __device__ static void fluid(float* acc, const I& i, const float* fl,
                                int64_t tj, int64_t kg, float dx, float dy,
                                float dz, float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
     const float cw = grad_w_cubic_coef(r, c);
-    const float st = c.st_coef * (i.c2 + cg2(fl, tj, kg)) *
+    const float st = c.st_coef * (i.c2 + cg2(fl, tj, kg, 6)) *
                      grad_w_surface_coef(r, c);
     const float ms = mj * (st + c.air_coef * i.gate * cw);
-    const float mp = mj * ((i.p_rho2 + p_rho2(fl, tj, kg, c)) * cw);
+    const float mp = mj * ((i.p_rho2 + p_over_rho2(fl, tj, kg, c)) * cw);
     acc[0] += ms * dx;
     acc[1] += ms * dy;
     acc[2] += ms * dz;
@@ -210,6 +241,267 @@ struct SurfacePressurePass {
     acc[3] += coefb * dx;
     acc[4] += coefb * dy;
     acc[5] += coefb * dz;
+  }
+};
+
+// DFSPH [rho, gsumx, gsumy, gsumz, slam] (src/DFSPHSolver.cu:212-249) into
+// acc[0..4]; slam is a fluid-only sum.
+__device__ __forceinline__ void alpha_fluid(float* acc, float mj, float w,
+                                            float cw, float dx, float dy,
+                                            float dz) {
+  const float mcj = mj * cw;
+  acc[0] += mj * w;
+  acc[1] += mcj * dx;
+  acc[2] += mcj * dy;
+  acc[3] += mcj * dz;
+  acc[4] += mj * mj * (cw * cw * (dx * dx + dy * dy + dz * dz));
+}
+__device__ __forceinline__ void alpha_bdry(float* acc, float mb, float w,
+                                           float cw, float dx, float dy,
+                                           float dz) {
+  const float mcb = mb * cw;
+  acc[0] += mb * w;
+  acc[1] += mcb * dx;
+  acc[2] += mcb * dy;
+  acc[3] += mcb * dz;
+}
+
+// He-2014 color-field sums [numx, numy, numz, den] into acc[0..3]
+__device__ __forceinline__ void colorgrad(float* acc, float m, float rho_ref,
+                                          float w, float cw, float dx,
+                                          float dy, float dz) {
+  const float vol = m / rho_ref;
+  const float cj = vol * cw;
+  acc[0] += cj * dx;
+  acc[1] += cj * dy;
+  acc[2] += cj * dz;
+  acc[3] += vol * w;
+}
+
+// DFSPH density + alpha terms (pallas_passes.py:1047): fl = bd = [pos3,
+// mass]. Outputs [rho, gsumx, gsumy, gsumz, slam].
+struct DensityAlphaPass {
+  static constexpr int kOut = 5;
+  static constexpr bool kBoundary = true;
+  using I = Pos;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    alpha_fluid(acc, fl[3 * kg + tj], w_cubic(r, c), grad_w_cubic_coef(r, c),
+                dx, dy, dz);
+  }
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    alpha_bdry(acc, bd[3 * kbg + tj], w_cubic(r, c), grad_w_cubic_coef(r, c),
+               dx, dy, dz);
+  }
+};
+
+// DFSPH rho+alpha terms + color field (pallas_passes.py:1416): fl = bd =
+// [pos3, mass]. Outputs [rho, gsumx, gsumy, gsumz, slam, numx, numy, numz,
+// den].
+struct DensityAlphaColorgradPass {
+  static constexpr int kOut = 9;
+  static constexpr bool kBoundary = true;
+  using I = Pos;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    const float mj = fl[3 * kg + tj];
+    const float w = w_cubic(r, c);
+    const float cw = grad_w_cubic_coef(r, c);
+    alpha_fluid(acc, mj, w, cw, dx, dy, dz);
+    colorgrad(acc + 5, mj, c.rho0, w, cw, dx, dy, dz);
+  }
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    const float mb = bd[3 * kbg + tj];
+    const float w = w_cubic(r, c);
+    const float cw = grad_w_cubic_coef(r, c);
+    alpha_bdry(acc, mb, w, cw, dx, dy, dz);
+    colorgrad(acc + 5, mb, c.rho_b, w, cw, dx, dy, dz);
+  }
+};
+
+// Velocity divergence (src/DFSPHSolver.cu:74-92; pallas_passes.py:1097):
+// fl = [pos3, mass, vel3]. sum_f m_j (v_i - v_j).gradW + sum_b m_b
+// v_i.gradW.
+struct DivergencePass {
+  static constexpr int kOut = 1;
+  static constexpr bool kBoundary = true;
+  using I = PosVel;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos_vel(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    const float t = grad_w_cubic_coef(r, c) *
+                    ((i.vx - fl[4 * kg + tj]) * dx +
+                     (i.vy - fl[5 * kg + tj]) * dy +
+                     (i.vz - fl[6 * kg + tj]) * dz);
+    acc[0] += fl[3 * kg + tj] * t;
+  }
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    const float cwb = bd[3 * kbg + tj] * grad_w_cubic_coef(r, c);
+    acc[0] += cwb * (i.vx * dx + i.vy * dy + i.vz * dz);
+  }
+};
+
+// Stiffness acceleration (src/DFSPHSolver.cu:118-136; pallas_passes.py:
+// 1124): fl = [pos3, mass, stiff]. sum_f m_j (s_i + s_j) gradW + sum_b m_b
+// s_i gradW.
+struct StiffnessAccelPass {
+  static constexpr int kOut = 3;
+  static constexpr bool kBoundary = true;
+  struct I {
+    float x, y, z, s;
+  };
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return {fl[t], fl[kg + t], fl[2 * kg + t], fl[4 * kg + t]};
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    const float mj = fl[3 * kg + tj];
+    const float s = (i.s + fl[4 * kg + tj]) * grad_w_cubic_coef(r, c);
+    acc[0] += mj * (s * dx);
+    acc[1] += mj * (s * dy);
+    acc[2] += mj * (s * dz);
+  }
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    const float coefb = bd[3 * kbg + tj] * i.s * grad_w_cubic_coef(r, c);
+    acc[0] += coefb * dx;
+    acc[1] += coefb * dy;
+    acc[2] += coefb * dz;
+  }
+};
+
+// Mueller viscosity sum over v_j - v_i into acc[0..2]
+__device__ __forceinline__ void visc(float* acc, const PosVel& i,
+                                     const float* fl, int64_t tj, int64_t kg,
+                                     float mj, float r, const Consts& c) {
+  const float lap = w_visc_laplacian(r, c) / c.rho0;
+  acc[0] += mj * (lap * (fl[4 * kg + tj] - i.vx));
+  acc[1] += mj * (lap * (fl[5 * kg + tj] - i.vy));
+  acc[2] += mj * (lap * (fl[6 * kg + tj] - i.vz));
+}
+
+// Mueller viscosity (src/BasicSPHSolver.cu:183-225; pallas_passes.py:929),
+// fluid only: fl = [pos3, mass, vel3]. Outputs [dvx, dvy, dvz].
+struct ViscosityPass {
+  static constexpr int kOut = 3;
+  static constexpr bool kBoundary = false;
+  using I = PosVel;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos_vel(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float, float, float,
+                               float r, const Consts& c) {
+    visc(acc, i, fl, tj, kg, fl[3 * kg + tj], r, c);
+  }
+};
+
+// Surface tension + air pressure from a carried color gradient
+// (src/BasicSPHSolver.cu:332-370; pallas_passes.py:1013), fluid only:
+// fl = [pos3, mass, cg3]. Outputs [sax, say, saz].
+struct SurfacePass {
+  static constexpr int kOut = 3;
+  static constexpr bool kBoundary = false;
+  struct I {
+    float x, y, z, c2, gate;
+  };
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts& c) {
+    const float c2 = cg2(fl, t, kg, 4);
+    const float n = sqrtf(c2);
+    return {fl[t], fl[kg + t], fl[2 * kg + t], c2, n / fmaxf(c.eps, n)};
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    const float st = c.st_coef * (i.c2 + cg2(fl, tj, kg, 4)) *
+                     grad_w_surface_coef(r, c);
+    const float ms =
+        fl[3 * kg + tj] * (st + c.air_coef * i.gate * grad_w_cubic_coef(r, c));
+    acc[0] += ms * dx;
+    acc[1] += ms * dy;
+    acc[2] += ms * dz;
+  }
+};
+
+// rho + Mueller viscosity (pallas_passes.py:1284), the surface-off WCSPH
+// traversal 1: fl = [pos3, mass, vel3]. Outputs [rho, dvx, dvy, dvz]; the
+// boundary contributes to rho only.
+struct DensityViscPass {
+  static constexpr int kOut = 4;
+  static constexpr bool kBoundary = true;
+  using I = PosVel;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos_vel(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float, float, float,
+                               float r, const Consts& c) {
+    const float mj = fl[3 * kg + tj];
+    acc[0] += mj * w_cubic(r, c);
+    visc(acc + 1, i, fl, tj, kg, mj, r, c);
+  }
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float, float, float,
+                              float r, const Consts& c) {
+    acc[0] += bd[3 * kbg + tj] * w_cubic(r, c);
+  }
+};
+
+// Symmetric pressure acceleration (src/BasicSPHSolver.cu:113-165;
+// pallas_passes.py:893), the surface-off WCSPH traversal 2: fl = [pos3,
+// mass, rho, p]. Outputs [pax, pay, paz] before the MAX_A clamp.
+struct PressureForcePass {
+  static constexpr int kOut = 3;
+  static constexpr bool kBoundary = true;
+  struct I {
+    float x, y, z, p_rho2;
+  };
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts& c) {
+    return {fl[t], fl[kg + t], fl[2 * kg + t], p_over_rho2(fl, t, kg, c)};
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    const float s = (i.p_rho2 + p_over_rho2(fl, tj, kg, c)) * grad_w_cubic_coef(r, c);
+    const float mj = fl[3 * kg + tj];
+    acc[0] -= mj * (s * dx);
+    acc[1] -= mj * (s * dy);
+    acc[2] -= mj * (s * dz);
+  }
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    const float coefb = -bd[3 * kbg + tj] * i.p_rho2 * grad_w_cubic_coef(r, c);
+    acc[0] += coefb * dx;
+    acc[1] += coefb * dy;
+    acc[2] += coefb * dz;
   }
 };
 
@@ -250,15 +542,18 @@ __global__ void __launch_bounds__(kThreads)
         const float r = sqrtf(dx * dx + dy * dy + dz * dz);
         if (in_support(r, c)) P::fluid(acc, iv, fl, tj, kg, dx, dy, dz, r, c);
       }
-      for (int s = 0; s < kb; ++s) {
-        const int64_t tj = s * g + cj;
-        const float xj = bd[tj];
-        if (!(xj < c.pos_guard)) break;
-        const float dx = iv.x - xj;
-        const float dy = iv.y - bd[kbg + tj];
-        const float dz = iv.z - bd[2 * kbg + tj];
-        const float r = sqrtf(dx * dx + dy * dy + dz * dz);
-        if (in_support(r, c)) P::bdry(acc, iv, bd, tj, kbg, dx, dy, dz, r, c);
+      if constexpr (P::kBoundary) {
+        for (int s = 0; s < kb; ++s) {
+          const int64_t tj = s * g + cj;
+          const float xj = bd[tj];
+          if (!(xj < c.pos_guard)) break;
+          const float dx = iv.x - xj;
+          const float dy = iv.y - bd[kbg + tj];
+          const float dz = iv.z - bd[2 * kbg + tj];
+          const float r = sqrtf(dx * dx + dy * dy + dz * dz);
+          if (in_support(r, c))
+            P::bdry(acc, iv, bd, tj, kbg, dx, dy, dz, r, c);
+        }
       }
     }
   }
@@ -303,6 +598,23 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
                                               c, s);
     case 2:
       return launch<SurfacePressurePass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 3:
+      return launch<DensityAlphaColorgradPass>(fl, bd, out, k, kb, gx, gy, gz,
+                                               c, s);
+    case 4:
+      return launch<DivergencePass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 5:
+      return launch<StiffnessAccelPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 6:
+      return launch<ViscosityPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 7:
+      return launch<SurfacePass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 8:
+      return launch<DensityAlphaPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 9:
+      return launch<DensityViscPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 10:
+      return launch<PressureForcePass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,10 +1,11 @@
 """Sliding-box solver steps — the main path.
 
-Port of the WCSPH part of ``cpp_fluid_particles_tpu/models/dense_step.py``
-for the default engine ``xlab``: the per-step state lives in the lane-major
-grid of the fluid's sliding bounding box (ops/box.py), with one stacked
-scatter in, every neighbor pass through ops/passes.py, every intermediate
-update elementwise in grid space, and one stacked gather out.
+Port of the WCSPH and DFSPH parts of
+``cpp_fluid_particles_tpu/models/dense_step.py`` for the default engine
+``xlab``: the per-step state lives in the lane-major grid of the fluid's
+sliding bounding box (ops/box.py), with one stacked scatter in, every
+neighbor pass through ops/passes.py, every intermediate update elementwise
+in grid space, and one stacked gather out.
 
 Safety invariants used throughout: empty slots carry POS_PAD positions and
 zero masses, so (a) every pair term vanishes against them, and (b) a slot
@@ -14,6 +15,11 @@ position clamps.
 Scalars that JAX computes in float32 from a float32 ``dt`` (``visc*dt``,
 ``dt*gravity``, the fallback's wall) are computed here on the host with
 numpy float32, so both packages multiply by the same float.
+
+DFSPH's two Jacobi loops run on the device in the JAX package
+(``lax.while_loop``). Here the host drives them: each loop condition reads
+the iteration's error sum back to the host, one sync per iteration, as the
+reference does with its ``thrust::reduce`` (src/DFSPHSolver.cu:206,360).
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from ..ops.dense import (DenseDims, build_dense_index, dims_for, fill_dense,
                          read_dense)
 from ..ops.grid import POS_PAD
 from ..state import FluidState
+from . import dfsph as dfsph_mod
+from .common import cheb_next
 
 F32 = torch.float32
 POS_GUARD = POS_PAD / 2.0
@@ -171,10 +179,66 @@ def _uniform_mass_row(pos_d, cfg):
     return (_real_slot(pos_d).to(F32) * _f32(cfg.m0))[None]
 
 
+def _grav(vel_d, cfg, dt):
+    """vel += dt * G (src/BasicSPHSolver.cu:227-235), each product taken
+    in float32 as JAX takes it from a float32 dt."""
+    dt32 = np.float32(dt)
+    return torch.stack([vel_d[c] + _f32(dt32 * np.float32(cfg.gravity[c]))
+                        for c in range(3)])
+
+
+def _visc_dt(cfg, dt) -> float:
+    return _f32(np.float32(cfg.visc) * np.float32(dt))
+
+
+def _surface_on(cfg) -> bool:
+    return cfg.surface_tension > cfg.epsilon or cfg.air_pressure > cfg.epsilon
+
+
+def _fill(lo: Layout, state: FluidState, cfg, extra=()):
+    """One scatter of [pos3, (mass), vel3, *extra] into the box grid ->
+    (pos_d, mass_d, vel_d, extra rows). With cfg.uniform_fluid_mass the
+    mass row comes from slot occupancy instead of the scatter."""
+    rows = [state.pos[:, c] for c in range(3)]
+    vel = [state.vel[:, c] for c in range(3)]
+    extra = list(extra)
+    pads = [POS_PAD] * 3
+    if cfg.uniform_fluid_mass:
+        base = lo.fill(rows + vel + extra, pads + [0.0] * (3 + len(extra)))
+        pos_d, vel_d, rest = base[0:3], base[3:6], base[6:]
+        return pos_d, _uniform_mass_row(pos_d, cfg), vel_d, rest
+    base = lo.fill(rows + [state.mass] + vel + extra,
+                   pads + [0.0] * (4 + len(extra)))
+    return base[0:3], base[3:4], base[4:7], base[7:]
+
+
+def _advect_read(lo: Layout, state: FluidState, cfg, dt, pos_d, vel_d,
+                 rows):
+    """Advect + wall clamp in grid space, then one gather of [pos3, vel3,
+    *rows] -> (pos, vel, the gathered rows); particles out of the grid
+    take the fallback trajectory."""
+    pos_d = pos_d + dt * vel_d
+    pos_d, vel_d = _clamp_pos_vel(pos_d, vel_d, cfg)
+    out = lo.read(torch.cat([pos_d, vel_d] + [r[None] for r in rows], 0))
+    fb_pos, fb_vel = _fallback(state, cfg, dt)
+    pos, vel = _merge_back(lo.idx, out, fb_pos, fb_vel)
+    return pos, vel, out[6:]
+
+
+def _touch(bdx) -> torch.Tensor:
+    return (bdx[0] < POS_GUARD).sum().to(torch.int32)
+
+
 def _pow7(x):
     """x**7 as the products JAX's integer_pow lowers to."""
     x2 = x * x
     return (x * x2) * (x2 * x2)
+
+
+def _eos(rho, cfg):
+    """Tait pressure, clamped at 0 (src/BasicSPHSolver.cu:103-111)."""
+    return torch.clamp(cfg.stiff * (_pow7(rho / _const(cfg.rho0, rho)) - 1.0),
+                       min=0.0)
 
 
 def _fallback(state: FluidState, cfg, dt):
@@ -210,59 +274,193 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
                dims_b: DenseDims, box, executor: Optional[pp.Executor] = None):
     """One WCSPH frame over the sliding box of size ``box``. ``executor``
     runs the neighbor passes; None dispatches by device (ops/passes.py)."""
-    if not (cfg.surface_tension > cfg.epsilon
-            or cfg.air_pressure > cfg.epsilon):
-        raise NotImplementedError(
-            "WCSPH with surface tension and air pressure off needs "
-            "density_visc_pass and pressure_force_pass, not ported yet "
-            "(ROADMAP.md Queue 2 item 1d)")
     lo = _layout(state.pos, cfg, dims, dims_b, scene_d, box)
-    idx, dims, dims_b, bdx = lo.idx, lo.dims, lo.dims_b, lo.bd
-    pads3 = [POS_PAD, POS_PAD, POS_PAD]
-    if cfg.uniform_fluid_mass:
-        base = lo.fill([state.pos[:, 0], state.pos[:, 1], state.pos[:, 2],
-                        state.vel[:, 0], state.vel[:, 1], state.vel[:, 2]],
-                       pads3 + [0.0] * 3)
-        pos_d, vel_d = base[0:3], base[3:6]
-        mass_d = _uniform_mass_row(pos_d, cfg)
-    else:
-        base = lo.fill([state.pos[:, 0], state.pos[:, 1], state.pos[:, 2],
-                        state.mass, state.vel[:, 0], state.vel[:, 1],
-                        state.vel[:, 2]], pads3 + [0.0] * 4)
-        pos_d, mass_d, vel_d = base[0:3], base[3:4], base[4:7]
+    dims, dims_b, bdx = lo.dims, lo.dims_b, lo.bd
+    pos_d, mass_d, vel_d, _ = _fill(lo, state, cfg)
 
     # Two traversals per frame (vs the reference's 7 neighbor kernels): T1
     # fuses every sum that reads [pos, mass, vel] (rho, color field,
     # viscosity); T2 every sum that also reads fields derived from T1
     # (surface + pressure). Velocity-update order (gravity, viscosity,
     # surface, pressure) matches the reference.
-    dt32 = np.float32(dt)
-    vel_d = torch.stack([vel_d[c] + _f32(dt32 * np.float32(cfg.gravity[c]))
-                         for c in range(3)])
+    vel_d = _grav(vel_d, cfg, dt)
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
-    o = pp.density_colorgrad_visc_pass(pmv, bdx, dims, dims_b, cfg, executor)
-    rho = o[0]
-    cg = o[1:4] / torch.clamp(o[4], min=cfg.epsilon)[None]
-    vel_d = vel_d + o[5:8] * _f32(np.float32(cfg.visc) * dt32)
-    p = torch.clamp(cfg.stiff * (_pow7(rho / _const(cfg.rho0, rho)) - 1.0),
-                    min=0.0)
-    sp = pp.surface_pressure_pass(
-        torch.cat([pos_d, mass_d, rho[None], p[None], cg], 0),
-        bdx, dims, dims_b, cfg, executor)
-    vel_d = vel_d + sp[0:3] * dt
-    vel_d = vel_d + _accel_clamp(sp[3:6], cfg) * dt
+    if _surface_on(cfg):
+        o = pp.density_colorgrad_visc_pass(pmv, bdx, dims, dims_b, cfg,
+                                           executor)
+        rho = o[0]
+        cg = o[1:4] / torch.clamp(o[4], min=cfg.epsilon)[None]
+        vel_d = vel_d + o[5:8] * _visc_dt(cfg, dt)
+        p = _eos(rho, cfg)
+        sp = pp.surface_pressure_pass(
+            torch.cat([pos_d, mass_d, rho[None], p[None], cg], 0),
+            bdx, dims, dims_b, cfg, executor)
+        vel_d = vel_d + sp[0:3] * dt
+        vel_d = vel_d + _accel_clamp(sp[3:6], cfg) * dt
+    else:
+        o = pp.density_visc_pass(pmv, bdx, dims, dims_b, cfg, executor)
+        rho = o[0]
+        vel_d = vel_d + o[1:4] * _visc_dt(cfg, dt)
+        p = _eos(rho, cfg)
+        a = pp.pressure_force_pass(
+            torch.cat([pos_d, mass_d, rho[None], p[None]], 0),
+            bdx, dims, dims_b, cfg, executor)
+        vel_d = vel_d + _accel_clamp(a, cfg) * dt
 
-    pos_d = pos_d + dt * vel_d
-    pos_d, vel_d = _clamp_pos_vel(pos_d, vel_d, cfg)
-
-    out = lo.read(torch.cat([pos_d, vel_d, rho[None], p[None]], 0))
-    fb_pos, fb_vel = _fallback(state, cfg, dt)
-    pos, vel = _merge_back(idx, out, fb_pos, fb_vel)
-    new_state = state._replace(pos=pos, vel=vel, density=out[6],
-                               pressure=out[7])
-    touch = (bdx[0] < POS_GUARD).sum().to(torch.int32)
-    return new_state, carry, _base_metrics(idx, touch)
+    pos, vel, out = _advect_read(lo, state, cfg, dt, pos_d, vel_d, [rho, p])
+    new_state = state._replace(pos=pos, vel=vel, density=out[0],
+                               pressure=out[1])
+    return new_state, carry, _base_metrics(lo.idx, _touch(bdx))
 
 
-# WCSPH carries no cross-step per-particle state (models/wcsph.py:22-24)
-DENSE_STEPS = {"wcsph": wcsph_step}
+# ----------------------------------------------------------------------
+# DFSPH (src/DFSPHSolver.cu:33-72)
+# ----------------------------------------------------------------------
+
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+class _Jacobi(NamedTuple):
+    """The result of one host-driven Jacobi solve."""
+
+    iters: int
+    vel: torch.Tensor
+    warm: torch.Tensor       # the accumulated stiffness
+    total: torch.Tensor      # the last error sum compared (0-d)
+    syncs: int               # error sums read back to the host
+
+
+def _jacobi(vel, stiff0, correct, error, tau: float, min_iters: int,
+            cheb2: float, cfg) -> _Jacobi:
+    """The loop of both DFSPH solves (dense_step.py:426-526 of the JAX
+    package): iterate while ``iters < min_iters or total > tau``, at most
+    cfg.dfsph_max_iter times. ``total`` is the error sum of the last
+    iterate, taken once ``iters >= min_iters``. With cheb2 > 0 the
+    velocity iterate is Chebyshev-extrapolated. ``tau`` is a float32
+    value: the host compares the float32 sum it reads back exactly."""
+    v = v_prev = vel
+    s = w = stiff0
+    omega = np.float32(1.0)
+    total = torch.full((), F32_MAX, dtype=vel.dtype, device=vel.device)
+    it = syncs = 0
+    while it < cfg.dfsph_max_iter:
+        if it >= min_iters:
+            syncs += 1
+            if not total.item() > tau:
+                break
+        v_new = v + correct(s)
+        if cheb2 > 0.0:
+            omega = cheb_next(it + 1, omega, cheb2, cfg.chebyshev_start)
+            v_new = float(omega) * (v_new - v_prev) + v_prev
+            v_prev = v
+        v = v_new
+        err, s = error(v)
+        w = w + s
+        it += 1
+        if it >= min_iters:
+            total = torch.sum(torch.abs(err))
+    return _Jacobi(it, v, w, total, syncs)
+
+
+def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
+               scene_d: DenseScene, cfg: SimConfig, dt: float,
+               dims: DenseDims, dims_b: DenseDims, box,
+               executor: Optional[pp.Executor] = None):
+    """One DFSPH frame over the sliding box of size ``box``: divergence
+    solve, non-pressure forces, density solve with warm start, advect.
+    Metrics add the iteration counts and last error sums of both solves,
+    and ``host_syncs``, the error sums the loops read back to the host."""
+    lo = _layout(state.pos, cfg, dims, dims_b, scene_d, box)
+    dims, dims_b, bdx = lo.dims, lo.dims_b, lo.bd
+    pos_d, mass_d, vel_d, (warm_d, divwarm_d) = _fill(
+        lo, state, cfg, [carry.warm_stiff, carry.div_warm])
+    pm = torch.cat([pos_d, mass_d], 0)
+
+    surface_on = _surface_on(cfg)
+    if surface_on:
+        # fused traversal: rho/alpha + color-field sums share [pos, mass]
+        da = pp.density_alpha_colorgrad_pass(pm, bdx, dims, dims_b, cfg,
+                                             executor)
+        cg = da[5:8] / torch.clamp(da[8], min=cfg.epsilon)[None]
+    else:
+        da = pp.density_alpha_pass(pm, bdx, dims, dims_b, cfg, executor)
+    rho = da[0]
+    alpha = _const(-1.0, rho) / torch.clamp(
+        da[1] * da[1] + da[2] * da[2] + da[3] * da[3] + da[4],
+        min=cfg.epsilon)
+    dt_d = _const(dt, rho)
+    n = state.n
+
+    def div_pass(v_d):
+        return pp.divergence_pass((pm, v_d), bdx, dims, dims_b, cfg,
+                                  executor)
+
+    def sa_pass(s_d):
+        return pp.stiffness_accel_pass((pm, s_d[None]), bdx, dims, dims_b,
+                                       cfg, executor)
+
+    # --- divergence solve (src/DFSPHSolver.cu:331-363) ---
+    def div_error(v_d):
+        err = torch.clamp(div_pass(v_d), min=0.0)
+        err = torch.where((rho + dt * err < cfg.rho0) & (rho <= cfg.rho0),
+                          0.0, err)
+        # over-relaxed Jacobi (cfg.dfsph_sor; exact at the fixed point)
+        return err, err * alpha * cfg.dfsph_sor
+
+    # optional divergence warm start (cfg.dfsph_warm_divergence > 0; the
+    # JAX package's extension — the reference warm-starts only the density
+    # solve): last frame's accumulated stiffness before the first error
+    if cfg.dfsph_warm_divergence > 0.0:
+        vel_d = vel_d + sa_pass(divwarm_d * cfg.dfsph_warm_divergence)
+    _, stiff0 = div_error(vel_d)
+    cheb2 = float(cfg.dfsph_chebyshev_rho) ** 2
+    div = _jacobi(vel_d, stiff0, sa_pass, div_error,
+                  _f32(cfg.dfsph_divergence_threshold * n * cfg.rho0), 1,
+                  0.0 if cfg.dfsph_cheb_density_only else cheb2, cfg)
+    vel_d = div.vel
+
+    # --- non-pressure forces ---
+    vel_d = _grav(vel_d, cfg, dt)
+    vel_d = vel_d + pp.viscosity_pass((pm, vel_d), dims, cfg,
+                                      executor) * _visc_dt(cfg, dt)
+    if surface_on:
+        # cg came fused with the density/alpha traversal above
+        sa = pp.surface_pass(torch.cat([pos_d, mass_d, cg], 0), dims, cfg,
+                             executor)
+        vel_d = vel_d + sa * dt
+
+    # --- density solve with warm start (src/DFSPHSolver.cu:160-210) ---
+    def den_error(v_d):
+        err = torch.clamp(dt * div_pass(v_d) + rho - cfg.rho0, min=0.0)
+        return err, err * alpha * cfg.dfsph_sor
+
+    # warm start applies through the same correction scale as in-loop
+    # iterations: vel += a/dt (src/DFSPHSolver.cu correctDensityError_CUDA)
+    vel_d = vel_d + sa_pass(warm_d) / dt_d
+    _, stiff0 = den_error(vel_d)
+    den = _jacobi(vel_d, stiff0, lambda s_d: sa_pass(s_d) / dt_d, den_error,
+                  _f32(cfg.dfsph_density_threshold * n * cfg.rho0), 2,
+                  cheb2, cfg)
+
+    pos, vel, out = _advect_read(lo, state, cfg, dt, pos_d, den.vel,
+                                 [rho, den.warm, div.warm])
+    new_state = state._replace(pos=pos, vel=vel, density=out[0])
+    new_carry = dfsph_mod.DFSPHCarry(warm_stiff=out[1], div_warm=out[2])
+
+    def count(x):
+        return torch.full((), x, dtype=torch.int32, device=rho.device)
+
+    metrics = {
+        **_base_metrics(lo.idx, _touch(bdx)),
+        "divergence_iters": count(div.iters),
+        "density_iters": count(den.iters),
+        "divergence_error": div.total,
+        "density_error": den.total,
+        "host_syncs": count(div.syncs + den.syncs),
+    }
+    return new_state, new_carry, metrics
+
+
+# solver name -> step; WCSPH carries nothing across steps
+# (models/wcsph.py:22-24), DFSPH its warm starts (models/dfsph.py)
+DENSE_STEPS = {"wcsph": wcsph_step, "dfsph": dfsph_step}

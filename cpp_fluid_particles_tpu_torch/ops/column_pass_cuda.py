@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -37,7 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # pass name -> template instance in column_pass_launch (csrc/column_pass.cu)
-PASS_IDS = {"density": 0, "density_colorgrad_visc": 1, "surface_pressure": 2}
+PASS_IDS = {"density": 0, "density_colorgrad_visc": 1, "surface_pressure": 2,
+            "density_alpha_colorgrad": 3, "divergence": 4,
+            "stiffness_accel": 5, "viscosity": 6, "surface": 7,
+            "density_alpha": 8, "density_visc": 9, "pressure_force": 10}
 
 # launches per pass instance; bumped once per successful launch
 LAUNCHES = {name: 0 for name in PASS_IDS}
@@ -115,27 +119,38 @@ def _check(t: torch.Tensor, what: str, shape) -> None:
                          f"{tuple(t.shape)}, expected {shape}")
 
 
-def column_pass_cuda(name: str, fl: torch.Tensor, bd: torch.Tensor,
-                     dims: DenseDims, dims_b: DenseDims,
+def column_pass_cuda(name: str, fl: torch.Tensor,
+                     bd: Optional[torch.Tensor], dims: DenseDims,
+                     dims_b: Optional[DenseDims],
                      cfg: SimConfig) -> torch.Tensor:
     """Launch pass ``name`` on ``fl`` (Fi, K, G) and ``bd`` (4, Kb, G) on
-    the current stream of their device; returns (n_out, K, G)."""
+    the current stream of their device; returns (n_out, K, G). A
+    fluid-only pass (``has_bd`` False) takes ``bd=None, dims_b=None``, and
+    the kernel gets a null boundary pointer and Kb = 0."""
     spec = PASSES[name]
-    if dims_b[:3] != dims[:3]:
-        raise ValueError("column_pass_cuda: fluid and boundary grids must "
-                         "share the ghosted cell geometry")
     _check(fl, "fl", (spec.fi, dims.k, dims.g))
-    _check(bd, "bd", (BOUNDARY_ROWS, dims_b.k, dims.g))
-    if bd.device != fl.device:
-        raise ValueError("column_pass_cuda: fl and bd on different devices")
+    if spec.has_bd != (bd is not None):
+        raise ValueError(f"column_pass_cuda: pass {name} takes "
+                         + ("a boundary operand" if spec.has_bd
+                            else "no boundary operand (bd=None)"))
+    bd_ptr, kb = None, 0
+    if bd is not None:
+        if dims_b[:3] != dims[:3]:
+            raise ValueError("column_pass_cuda: fluid and boundary grids "
+                             "must share the ghosted cell geometry")
+        _check(bd, "bd", (BOUNDARY_ROWS, dims_b.k, dims.g))
+        if bd.device != fl.device:
+            raise ValueError("column_pass_cuda: fl and bd on different "
+                             "devices")
+        bd_ptr, kb = bd.data_ptr(), dims_b.k
     out = torch.empty((spec.n_out, dims.k, dims.g), dtype=torch.float32,
                       device=fl.device)
     consts = _consts(cfg)
     stream = torch.cuda.current_stream(fl.device).cuda_stream
     err = _library().column_pass_launch(
-        PASS_IDS[name], fl.data_ptr(), bd.data_ptr(), out.data_ptr(),
-        dims.k, dims_b.k, dims.gx, dims.gy, dims.gz, consts, len(consts),
-        fl.device.index, stream)
+        PASS_IDS[name], fl.data_ptr(), bd_ptr, out.data_ptr(), dims.k, kb,
+        dims.gx, dims.gy, dims.gz, consts, len(consts), fl.device.index,
+        stream)
     if err != 0:
         raise RuntimeError(f"column_pass_cuda: launching {name} failed "
                            f"with CUDA error {err}")

@@ -1,13 +1,14 @@
 """Neighbor-pass bodies, the plain executor, and the executor dispatch.
 
 Port of the parts of ``cpp_fluid_particles_tpu/ops/pallas_passes.py`` that
-the WCSPH main path runs. Each pass is defined by two TERM functions in
+the WCSPH and DFSPH steps run. Each pass is defined by two TERM functions in
 vector-component form over pair blocks ``(K_i, K_j, W)`` with the flat cell
 axis W minor:
 
   * ``fluid(i, j)`` — the one-sided fluid-fluid sums, reduced over j;
   * ``bdry(i, jb)`` — the fluid-boundary sums (boundary particles are static
-    and receive no forces).
+    and receive no forces), or None for a fluid-only pass, which takes no
+    boundary operand (``bd=None``, ``dims_b=None``).
 
 Executors (same signature, ``(name, fl, bd, dims, dims_b, cfg) -> (n_out,
 K, G)``):
@@ -169,24 +170,224 @@ def _surface_pressure_terms(cfg: SimConfig):
     return fluid, bdry
 
 
+def _pressure_force_terms(cfg: SimConfig):
+    """Symmetric pressure accel (src/BasicSPHSolver.cu:113-165) over
+    [pos3, mass, rho, p] (pallas_passes.py:893), WITHOUT the MAX_A clamp:
+    the surface-off WCSPH traversal 2."""
+    h, eps = cfg.radius, cfg.epsilon
+
+    def over(f):
+        return f[5] / torch.clamp(f[4] * f[4], min=eps)
+
+    def fluid(i, j):
+        g = _geom(i, j)
+        s = (_ii(over(i)) + _jb(over(j))) * kn.grad_w_cubic_coef(g.r, h)
+        mj = _jb(j[3])
+        return torch.stack([-_si(mj * (s * g.dx)), -_si(mj * (s * g.dy)),
+                            -_si(mj * (s * g.dz))])
+
+    def bdry(i, jb):
+        g = _geom(i, jb)
+        coefb = -_jb(jb[3]) * _ii(over(i)) * kn.grad_w_cubic_coef(g.r, h)
+        return torch.stack([_si(coefb * g.dx), _si(coefb * g.dy),
+                            _si(coefb * g.dz)])
+
+    return fluid, bdry
+
+
+def _viscosity_terms(cfg: SimConfig):
+    """Mueller viscosity sums (src/BasicSPHSolver.cu:183-225) over
+    [pos3, mass, vel3] (pallas_passes.py:929), fluid only; the caller
+    scales by visc*dt."""
+    h = cfg.radius
+
+    def fluid(i, j):
+        g = _geom(i, j)
+        lap = kn.w_visc_laplacian(g.r, h) / cfg.rho0
+        mj = _jb(j[3])
+        return torch.stack([_si(mj * (lap * (_jb(j[4 + c]) - _ii(i[4 + c]))))
+                            for c in range(3)])
+
+    return fluid, None
+
+
+def _surface_terms(cfg: SimConfig):
+    """Surface tension + air pressure accel (src/BasicSPHSolver.cu:332-370)
+    over [pos3, mass, cg3] (pallas_passes.py:1013), fluid only."""
+    h, eps = cfg.radius, cfg.epsilon
+    rho0sq = cfg.rho0 * cfg.rho0
+
+    def fluid(i, j):
+        ci2 = i[4] * i[4] + i[5] * i[5] + i[6] * i[6]
+        cj2 = j[4] * j[4] + j[5] * j[5] + j[6] * j[6]
+        ni = torch.sqrt(ci2)
+        gate_i = _ii(ni / torch.clamp(ni, min=eps))
+        g = _geom(i, j)
+        cw = kn.grad_w_cubic_coef(g.r, h)
+        st = (0.25 / rho0sq * cfg.surface_tension
+              * (_ii(ci2) + _jb(cj2)) * kn.grad_w_surface_coef(g.r, h))
+        si = st + (cfg.air_pressure / rho0sq) * gate_i * cw
+        mj = _jb(j[3])
+        return torch.stack([_si(mj * si * g.dx), _si(mj * si * g.dy),
+                            _si(mj * si * g.dz)])
+
+    return fluid, None
+
+
+def _alpha_terms(g, w, cw, mj):
+    """DFSPH [rho, gsumx, gsumy, gsumz, slam] fluid sums
+    (src/DFSPHSolver.cu:212-249)."""
+    r2c2 = cw * cw * (g.dx * g.dx + g.dy * g.dy + g.dz * g.dz)
+    mcj = mj * cw
+    return [_si(mj * w), _si(mcj * g.dx), _si(mcj * g.dy), _si(mcj * g.dz),
+            _si(mj * mj * r2c2)]
+
+
+def _alpha_bdry_terms(g, w, cw, mb):
+    """The boundary's share of the DFSPH sums: none to slam, which runs
+    over fluid neighbors only (pallas_passes.py:1081-1092)."""
+    mcb = mb * cw
+    rho = _si(mb * w)
+    return [rho, _si(mcb * g.dx), _si(mcb * g.dy), _si(mcb * g.dz),
+            torch.zeros_like(rho)]
+
+
+def _density_alpha_terms(cfg: SimConfig):
+    """DFSPH density + alpha terms over [pos3, mass] (pallas_passes.py:1047):
+    outputs [rho, gsumx, gsumy, gsumz, slam]; the caller computes alpha."""
+    h = cfg.radius
+
+    def fluid(i, j):
+        g = _geom(i, j)
+        return torch.stack(_alpha_terms(g, kn.w_cubic(g.r, h),
+                                        kn.grad_w_cubic_coef(g.r, h),
+                                        _jb(j[3])))
+
+    def bdry(i, jb):
+        g = _geom(i, jb)
+        return torch.stack(_alpha_bdry_terms(g, kn.w_cubic(g.r, h),
+                                             kn.grad_w_cubic_coef(g.r, h),
+                                             _jb(jb[3])))
+
+    return fluid, bdry
+
+
+def _density_alpha_colorgrad_terms(cfg: SimConfig):
+    """DFSPH rho+alpha terms + color field over [pos3, mass]
+    (pallas_passes.py:1416): outputs [rho, gsumx, gsumy, gsumz, slam, numx,
+    numy, numz, den]."""
+    h = cfg.radius
+
+    def fluid(i, j):
+        g = _geom(i, j)
+        w, cw = kn.w_cubic(g.r, h), kn.grad_w_cubic_coef(g.r, h)
+        return torch.stack(_alpha_terms(g, w, cw, _jb(j[3]))
+                           + _colorgrad_terms(j, g, w, cw, cfg.rho0))
+
+    def bdry(i, jb):
+        g = _geom(i, jb)
+        w, cw = kn.w_cubic(g.r, h), kn.grad_w_cubic_coef(g.r, h)
+        return torch.stack(_alpha_bdry_terms(g, w, cw, _jb(jb[3]))
+                           + _colorgrad_terms(jb, g, w, cw,
+                                              cfg.rho_boundary))
+
+    return fluid, bdry
+
+
+def _divergence_terms(cfg: SimConfig):
+    """e = sum_f m_j (v_i - v_j).gradW + sum_b m_b v_i.gradW over
+    [pos3, mass, vel3] (src/DFSPHSolver.cu:74-92; pallas_passes.py:1097)."""
+    h = cfg.radius
+
+    def fluid(i, j):
+        g = _geom(i, j)
+        t = kn.grad_w_cubic_coef(g.r, h) * (
+            (_ii(i[4]) - _jb(j[4])) * g.dx + (_ii(i[5]) - _jb(j[5])) * g.dy
+            + (_ii(i[6]) - _jb(j[6])) * g.dz)
+        return torch.stack([_si(_jb(j[3]) * t)])
+
+    def bdry(i, jb):
+        g = _geom(i, jb)
+        cwb = _jb(jb[3]) * kn.grad_w_cubic_coef(g.r, h)
+        return torch.stack([_si(cwb * (_ii(i[4]) * g.dx + _ii(i[5]) * g.dy
+                                       + _ii(i[6]) * g.dz))])
+
+    return fluid, bdry
+
+
+def _stiffness_accel_terms(cfg: SimConfig):
+    """a = sum_f m_j (s_i + s_j) gradW + sum_b m_b s_i gradW over
+    [pos3, mass, stiff] (src/DFSPHSolver.cu:118-136;
+    pallas_passes.py:1124)."""
+    h = cfg.radius
+
+    def fluid(i, j):
+        g = _geom(i, j)
+        s = (_ii(i[4]) + _jb(j[4])) * kn.grad_w_cubic_coef(g.r, h)
+        mj = _jb(j[3])
+        return torch.stack([_si(mj * (s * g.dx)), _si(mj * (s * g.dy)),
+                            _si(mj * (s * g.dz))])
+
+    def bdry(i, jb):
+        g = _geom(i, jb)
+        coefb = _jb(jb[3]) * _ii(i[4]) * kn.grad_w_cubic_coef(g.r, h)
+        return torch.stack([_si(coefb * g.dx), _si(coefb * g.dy),
+                            _si(coefb * g.dz)])
+
+    return fluid, bdry
+
+
+def _density_visc_terms(cfg: SimConfig):
+    """rho + Mueller viscosity over [pos3, mass, vel3]
+    (pallas_passes.py:1284), the surface-off WCSPH traversal 1: outputs
+    [rho, dvx, dvy, dvz]; the boundary contributes to rho only."""
+    h = cfg.radius
+
+    def fluid(i, j):
+        g = _geom(i, j)
+        lap = kn.w_visc_laplacian(g.r, h) / cfg.rho0
+        mj = _jb(j[3])
+        return torch.stack([_si(mj * kn.w_cubic(g.r, h))]
+                           + [_si(mj * (lap * (_jb(j[4 + c]) - _ii(i[4 + c]))))
+                              for c in range(3)])
+
+    def bdry(i, jb):
+        rho = _si(_jb(jb[3]) * kn.w_cubic(_geom(i, jb).r, h))
+        zero = torch.zeros_like(rho)
+        return torch.stack([rho, zero, zero, zero])
+
+    return fluid, bdry
+
+
 class PassSpec(NamedTuple):
     fi: int            # fluid field rows read
     n_out: int         # output rows
     terms: Callable    # cfg -> (fluid, bdry)
+    has_bd: bool = True  # False: fluid only, no boundary operand
 
 
-# the kernel instances of the main path; the CUDA kernel binds one
-# template instance per entry
+# the kernel instances of the WCSPH and DFSPH steps; the CUDA kernel binds
+# one template instance per entry
 PASSES = {
     "density": PassSpec(4, 1, _density_terms),
     "density_colorgrad_visc": PassSpec(7, 8, _density_colorgrad_visc_terms),
     "surface_pressure": PassSpec(9, 6, _surface_pressure_terms),
+    "density_alpha_colorgrad": PassSpec(4, 9,
+                                        _density_alpha_colorgrad_terms),
+    "divergence": PassSpec(7, 1, _divergence_terms),
+    "stiffness_accel": PassSpec(5, 3, _stiffness_accel_terms),
+    "viscosity": PassSpec(7, 3, _viscosity_terms, has_bd=False),
+    "surface": PassSpec(7, 3, _surface_terms, has_bd=False),
+    "density_alpha": PassSpec(4, 5, _density_alpha_terms),
+    "density_visc": PassSpec(7, 4, _density_visc_terms),
+    "pressure_force": PassSpec(6, 3, _pressure_force_terms),
 }
 BOUNDARY_ROWS = 4      # [pos3, mass]
 
 
-def column_pass_plain(name: str, fl: torch.Tensor, bd: torch.Tensor,
-                      dims: DenseDims, dims_b: DenseDims,
+def column_pass_plain(name: str, fl: torch.Tensor,
+                      bd: Optional[torch.Tensor], dims: DenseDims,
+                      dims_b: Optional[DenseDims],
                       cfg: SimConfig) -> torch.Tensor:
     """Plain 27-offset lane-major executor: the ghost ring makes every
     stencil offset ONE contiguous slice of the flat cell axis, and the
@@ -194,14 +395,16 @@ def column_pass_plain(name: str, fl: torch.Tensor, bd: torch.Tensor,
     trailing P = flat_p ghost cells; the interior ghost cells compute
     zeros (their slots hold POS_PAD / zero mass), and the trimmed ends are
     padded back with zeros. fl: (Fi, K, G); bd: (Fb, Kb, G) with the same
-    ghosted cell geometry."""
+    ghosted cell geometry, or None for a fluid-only pass."""
     fluid, bdry = PASSES[name].terms(cfg)
     p = dims.flat_p
     w = dims.g - 2 * p
     i_flat = fl[:, :, p:p + w]
     acc = None
     for s in (_flat_offsets(dims) + p).tolist():
-        out = fluid(i_flat, fl[:, :, s:s + w]) + bdry(i_flat, bd[:, :, s:s + w])
+        out = fluid(i_flat, fl[:, :, s:s + w])
+        if bdry is not None:
+            out = out + bdry(i_flat, bd[:, :, s:s + w])
         acc = out if acc is None else acc + out
     return F.pad(acc, (p, p))
 
@@ -211,8 +414,12 @@ Executor = Callable[..., torch.Tensor]
 
 def column_pass(name: str, fl, bd, dims, dims_b, cfg,
                 executor: Optional[Executor] = None) -> torch.Tensor:
-    """Run pass ``name``. executor=None dispatches by the device of ``fl``:
-    the plain executor on the CPU, the CUDA kernel on a GPU."""
+    """Run pass ``name``. ``fl`` is the stacked field grid or a tuple of
+    field groups, stacked here (as the JAX package's ``_run`` does).
+    executor=None dispatches by the device of ``fl``: the plain executor on
+    the CPU, the CUDA kernel on a GPU."""
+    if isinstance(fl, tuple):
+        fl = torch.cat(fl, 0)
     if executor is None:
         if fl.device.type == "cpu":
             executor = column_pass_plain
@@ -239,3 +446,53 @@ def surface_pressure_pass(fl, bd, dims, dims_b, cfg, executor=None):
     """fl: [pos3, mass, rho, p, cg3]; bd: [pos3, mass]. Returns (6, K, G)."""
     return column_pass("surface_pressure", fl, bd, dims, dims_b, cfg,
                        executor)
+
+
+def density_visc_pass(fl, bd, dims, dims_b, cfg, executor=None):
+    """fl: [pos3, mass, vel3]; bd: [pos3, mass]. Returns (4, K, G):
+    [rho, dvx, dvy, dvz]."""
+    return column_pass("density_visc", fl, bd, dims, dims_b, cfg, executor)
+
+
+def pressure_force_pass(fl, bd, dims, dims_b, cfg, executor=None):
+    """fl: [pos3, mass, rho, p]; bd: [pos3, mass]. Returns (3, K, G)."""
+    return column_pass("pressure_force", fl, bd, dims, dims_b, cfg,
+                       executor)
+
+
+def density_alpha_pass(fl, bd, dims, dims_b, cfg, executor=None):
+    """fl, bd: [pos3, mass]. Returns (5, K, G):
+    [rho, gsumx, gsumy, gsumz, slam]."""
+    return column_pass("density_alpha", fl, bd, dims, dims_b, cfg, executor)
+
+
+def density_alpha_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None):
+    """fl, bd: [pos3, mass]. Returns (9, K, G): density_alpha's five rows,
+    then [numx, numy, numz, den]."""
+    return column_pass("density_alpha_colorgrad", fl, bd, dims, dims_b, cfg,
+                       executor)
+
+
+def divergence_pass(fl, bd, dims, dims_b, cfg, executor=None):
+    """fl: the field groups ([pos3, mass], vel3); bd: [pos3, mass].
+    Returns the (K, G) divergence grid."""
+    return column_pass("divergence", fl, bd, dims, dims_b, cfg,
+                       executor)[0]
+
+
+def stiffness_accel_pass(fl, bd, dims, dims_b, cfg, executor=None):
+    """fl: the field groups ([pos3, mass], stiff[None]); bd: [pos3, mass].
+    Returns (3, K, G)."""
+    return column_pass("stiffness_accel", fl, bd, dims, dims_b, cfg,
+                       executor)
+
+
+def viscosity_pass(fl, dims, cfg, executor=None):
+    """fl: the field groups ([pos3, mass], vel3); fluid only. Returns
+    (3, K, G); the caller scales by visc*dt."""
+    return column_pass("viscosity", fl, None, dims, None, cfg, executor)
+
+
+def surface_pass(fl, dims, cfg, executor=None):
+    """fl: [pos3, mass, cg3]; fluid only. Returns (3, K, G)."""
+    return column_pass("surface", fl, None, dims, None, cfg, executor)

@@ -50,14 +50,19 @@ def save_checkpoint(path: str, sim) -> None:
 
 
 def load_checkpoint(path: str, device="cuda"):
-    """Returns a fully reconstructed Simulation on ``device``."""
+    """Returns a fully reconstructed Simulation on ``device``. The carry is
+    rebuilt from the ``carry_<i>`` arrays in the solver's carry order; a
+    checkpoint that holds fewer arrays than the carry has leaves resumes
+    with the missing leaves at zero, their init value (as the JAX package
+    does)."""
     from ..simulation import Simulation
 
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         state_np = {k[len("state_"):]: z[k] for k in z.files
                     if k.startswith("state_")}
-        n_carry = sum(k.startswith("carry_") for k in z.files)
+        carry_np = [z[f"carry_{i}"] for i in range(
+            sum(k.startswith("carry_") for k in z.files))]
 
     cfg_d = meta["cfg"]
     for key in ("space_size", "gravity"):
@@ -65,9 +70,13 @@ def load_checkpoint(path: str, device="cuda"):
     cfg = SimConfig(**cfg_d)
     sim = Simulation(solver=meta["solver"], cfg=cfg,
                      fluid_pos=state_np["pos"], warmup=False, device=device)
-    if n_carry != len(sim.carry):
-        raise ValueError(f"checkpoint carries {n_carry} arrays; solver "
-                         f"{sim.solver_name!r} carries {len(sim.carry)}")
+    fresh = list(sim.carry)
+    if len(carry_np) > len(fresh):
+        raise ValueError(f"checkpoint carries {len(carry_np)} arrays; solver "
+                         f"{sim.solver_name!r} carries {len(fresh)}")
+    leaves = [torch.as_tensor(v, device=sim.device) for v in carry_np]
+    leaves += [torch.zeros_like(v) for v in fresh[len(leaves):]]
+    sim.carry = type(sim.carry)(*leaves)
     sim.state = state_from_numpy(state_np, sim.device)
     sim.frame = meta["frame"]
     return sim

@@ -42,23 +42,29 @@ def _block():
 
 @pytest.fixture(scope="module")
 def operands(dev):
-    """The operands the main path gives each pass: the scene build's
-    density pass and one WCSPH step's two passes."""
-    calls = []
+    """The operands the main paths give each pass: the scene build's
+    density pass, and one WCSPH and one DFSPH step, each with surface
+    effects on and off, after 3 frames of the solver."""
+    calls = {}
 
     def record(name, fl, bd, dims, dims_b, cfg):
-        calls.append((name, fl, bd, dims, dims_b))
+        calls.setdefault(name, (name, fl, bd, dims, dims_b))
         return pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
 
-    sim = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
-                       device=dev)
-    sim.run(3)
+    off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
+    for solver in ("wcsph", "dfsph"):
+        sim = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
+                           device=dev)
+        sim.run(3)
+        dims, dims_b = sim._dims()
+        for cfg in (CFG, off):
+            ds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, cfg,
+                                   CFG.dt, dims, dims_b, sim.box,
+                                   executor=record)
     ds.build_dense_scene(CFG, T.boundary_positions(CFG), sim._kb, dev,
                          executor=record)
-    dims, dims_b = sim._dims()
-    ds.wcsph_step(sim.state, (), sim.scene, CFG, CFG.dt, dims, dims_b,
-                  sim.box, executor=record)
-    return {c[0]: c for c in calls}
+    assert sorted(calls) == sorted(cc.PASS_IDS)
+    return calls
 
 
 @pytest.mark.parametrize("name", list(cc.PASS_IDS))
@@ -86,6 +92,11 @@ def test_wrapper_checks_operands(operands):
     with pytest.raises(ValueError, match="shape"):
         cc.column_pass_cuda(name, fl[:4].contiguous(), bd, dims, dims_b,
                             CFG)
+    # a fluid-only pass takes no boundary operand, the others need one
+    with pytest.raises(ValueError, match="no boundary operand"):
+        cc.column_pass_cuda("viscosity", fl, bd, dims, dims_b, CFG)
+    with pytest.raises(ValueError, match="a boundary operand"):
+        cc.column_pass_cuda("divergence", fl, None, dims, None, CFG)
 
 
 def test_simulation_runs_through_the_kernel(dev):
@@ -96,8 +107,9 @@ def test_simulation_runs_through_the_kernel(dev):
                        device=dev)
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
-    assert cc.LAUNCHES == {"density": 1, "density_colorgrad_visc": frames,
-                           "surface_pressure": frames}
+    assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
+        "density": 1, "density_colorgrad_visc": frames,
+        "surface_pressure": frames}
     cpu = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
                        device="cpu")
     cpu.run(3)
@@ -106,3 +118,41 @@ def test_simulation_runs_through_the_kernel(dev):
                                cpu.state.pos.numpy(), atol=2e-6)
     np.testing.assert_allclose(gpu.state.vel.cpu().numpy(),
                                cpu.state.vel.numpy(), atol=2e-3)
+
+
+def test_dfsph_simulation_runs_through_the_kernel(dev):
+    """Every pass of the card's DFSPH frames launched the kernel; then one
+    step from the state they reached agrees on the card and on the CPU at
+    the one-step bars, with equal iteration counts."""
+    cc.reset_launch_counts()
+    gpu = T.Simulation(solver="dfsph", cfg=CFG, fluid_pos=_block(),
+                       device=dev)
+    gpu.run(3)
+    frames = 4 + gpu.retries                    # warm-up + 3 + retries
+    la = cc.LAUNCHES
+    for name in ("density_alpha_colorgrad", "viscosity", "surface"):
+        assert la[name] == frames, (name, la)
+    assert la["divergence"] == la["stiffness_accel"] >= 5 * frames
+    assert la["density"] == 1
+    for name in ("density_colorgrad_visc", "surface_pressure",
+                 "density_alpha", "density_visc", "pressure_force"):
+        assert la[name] == 0, (name, la)
+
+    dims, dims_b = gpu._dims()
+
+    def step(state, carry, scene):
+        return ds.dfsph_step(state, carry, scene, CFG, CFG.dt, dims, dims_b,
+                             gpu.box)
+
+    def cpu(x):
+        return type(x)(*(t.cpu() for t in x))
+
+    g1, _, gm = step(gpu.state, gpu.carry, gpu.scene)
+    c1, _, cm = step(cpu(gpu.state), cpu(gpu.carry), cpu(gpu.scene))
+    assert int(gm["grid_overflow"]) == 0
+    for key in ("divergence_iters", "density_iters"):
+        assert int(gm[key]) == int(cm[key])
+    np.testing.assert_allclose(g1.pos.cpu().numpy(), c1.pos.numpy(),
+                               atol=2e-6)
+    np.testing.assert_allclose(g1.vel.cpu().numpy(), c1.vel.numpy(),
+                               atol=2e-3)

@@ -36,7 +36,7 @@ BOX = (5, 5, 5)
 
 # rows of the stacked grid built in setup()
 POS3, MASS, VEL3 = slice(0, 3), slice(3, 4), slice(4, 7)
-RHO, P, CG3 = slice(7, 8), slice(8, 9), slice(9, 12)
+RHO, P, CG3, STIFF = slice(7, 8), slice(8, 9), slice(9, 12), slice(12, 13)
 
 # pass name -> (JAX pass function, rows)
 PASSES = {
@@ -45,6 +45,15 @@ PASSES = {
                                (POS3, MASS, VEL3)),
     "surface_pressure": (jpp.surface_pressure_pass,
                          (POS3, MASS, RHO, P, CG3)),
+    "density_alpha_colorgrad": (jpp.density_alpha_colorgrad_pass,
+                                (POS3, MASS)),
+    "divergence": (jpp.divergence_pass, (POS3, MASS, VEL3)),
+    "stiffness_accel": (jpp.stiffness_accel_pass, (POS3, MASS, STIFF)),
+    "viscosity": (jpp.viscosity_pass, (POS3, MASS, VEL3)),
+    "surface": (jpp.surface_pass, (POS3, MASS, CG3)),
+    "density_alpha": (jpp.density_alpha_pass, (POS3, MASS)),
+    "density_visc": (jpp.density_visc_pass, (POS3, MASS, VEL3)),
+    "pressure_force": (jpp.pressure_force_pass, (POS3, MASS, RHO, P)),
 }
 
 
@@ -75,8 +84,9 @@ def setup():
             (1.0 + rng.uniform(0, 0.2, n)).astype(np.float32),
             rng.uniform(0, 2.0, n).astype(np.float32)]
     cg = rng.normal(0, 5.0, (n, 3)).astype(np.float32)
-    rows += [cg[:, 0], cg[:, 1], cg[:, 2]]
-    fills = [jdense.POS_PAD] * 3 + [0.0] * 9
+    rows += [cg[:, 0], cg[:, 1], cg[:, 2],
+             rng.normal(0, 1e-3, n).astype(np.float32)]     # stiffness
+    fills = [jdense.POS_PAD] * 3 + [0.0] * 10
 
     idx = jdense.build_dense_index(jnp.asarray(pos), cfg, dims)
     assert int(idx.overflow) == 0
@@ -102,10 +112,20 @@ def _operands(grid, rows):
     return fl, bd, dims, dims_b, colc
 
 
+def _jax(name, fl, bd, colc, dims, dims_b, engine):
+    """The JAX pass; fluid-only passes take no boundary operand."""
+    fn = PASSES[name][0]
+    if tpp.PASSES[name].has_bd:
+        return fn(fl, bd, colc, dims, dims_b, JCFG, engine=engine)
+    return fn(fl, colc, dims, JCFG, engine=engine)
+
+
 def _port(name, fl, bd, dims, dims_b):
-    td = tdense.DenseDims(*dims)
-    tdb = tdense.DenseDims(*dims_b)
-    out = tpp.column_pass_plain(name, _t(fl), _t(bd), td, tdb, TCFG)
+    tbd, tdb = None, None
+    if tpp.PASSES[name].has_bd:
+        tbd, tdb = _t(bd), tdense.DenseDims(*dims_b)
+    out = tpp.column_pass_plain(name, _t(fl), tbd, tdense.DenseDims(*dims),
+                                tdb, TCFG)
     assert out.shape == (tpp.PASSES[name].n_out, dims.k, dims.g)
     return out.numpy()
 
@@ -121,9 +141,9 @@ def _check(got, want):
                                          ("box", "xla")])
 @pytest.mark.parametrize("name", list(PASSES))
 def test_pass_matches_jax(setup, name, grid, engine):
-    fn, rows = PASSES[name]
-    fl, bd, dims, dims_b, colc = _operands(setup["grids"][grid], rows)
-    want = fn(fl, bd, colc, dims, dims_b, JCFG, engine=engine)
+    fl, bd, dims, dims_b, colc = _operands(setup["grids"][grid],
+                                           PASSES[name][1])
+    want = _jax(name, fl, bd, colc, dims, dims_b, engine)
     _check(_port(name, fl, bd, dims, dims_b), want)
 
 
@@ -158,10 +178,9 @@ def test_empty_slots_and_ghosts_are_zero(setup):
 @pytest.mark.parametrize("name", list(PASSES))
 def test_pass_matches_pallas_interpret(setup, name):
     """Against the Pallas kernel itself, run by the Pallas interpreter."""
-    fn, rows = PASSES[name]
-    fl, _, dims, dims_b, colc = _operands(setup["grids"]["full"], rows)
+    fl, _, dims, dims_b, colc = _operands(setup["grids"]["full"],
+                                          PASSES[name][1])
     scene = jds.build_dense_scene(JCFG, setup["bpos"], setup["kb"],
                                   engine="interpret")
-    want = fn(fl, scene.bd_jcols, colc, dims, dims_b, JCFG,
-              engine="interpret")
+    want = _jax(name, fl, scene.bd_jcols, colc, dims, dims_b, "interpret")
     _check(_port(name, fl, scene.bd, dims, dims_b), want)

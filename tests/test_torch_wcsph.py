@@ -64,28 +64,35 @@ def _states():
     return {"falling": (small_block(), None), "floor": (pos, vel)}
 
 
-@pytest.mark.parametrize("which", ["falling", "floor"])
-def test_one_step_matches_jax(scenes, which):
+def _one_step(scenes, which, jcfg, tcfg):
+    """One WCSPH step of each package from the same state; asserts the
+    step bars and returns the port's and JAX's (state, metrics)."""
     pos, vel = _states()[which]
-    js = J.make_fluid_state(pos, JCFG)
+    js = J.make_fluid_state(pos, jcfg)
     if vel is not None:
         js = js._replace(vel=js.vel + vel)
-    ts = T.make_fluid_state(pos, TCFG, "cpu")._replace(
+    ts = T.make_fluid_state(pos, tcfg, "cpu")._replace(
         vel=torch.as_tensor(np.array(js.vel)))
     k = 16
-    dims, dims_b = jdense.dims_for(JCFG, k), jdense.dims_for(JCFG,
+    dims, dims_b = jdense.dims_for(jcfg, k), jdense.dims_for(jcfg,
                                                              scenes["kb"])
-    j1, _, jm = jds.wcsph_step(js, (), scenes["jax"], JCFG,
-                               np.float32(JCFG.dt), dims, dims_b,
+    j1, _, jm = jds.wcsph_step(js, (), scenes["jax"], jcfg,
+                               np.float32(jcfg.dt), dims, dims_b,
                                engine="xlab", box=BOX)
-    t1, _, tm = tds.wcsph_step(ts, (), scenes["port"], TCFG, JCFG.dt,
-                               tdense.dims_for(TCFG, k),
-                               tdense.dims_for(TCFG, scenes["kb"]), BOX)
+    t1, _, tm = tds.wcsph_step(ts, (), scenes["port"], tcfg, tcfg.dt,
+                               tdense.dims_for(tcfg, k),
+                               tdense.dims_for(tcfg, scenes["kb"]), BOX)
     _assert_step_close(t1.pos.numpy(), t1.vel.numpy(), t1.density.numpy(),
                        np.asarray(j1.pos), np.asarray(j1.vel),
                        np.asarray(j1.density))
     np.testing.assert_allclose(t1.pressure.numpy(), np.asarray(j1.pressure),
                                rtol=1e-3, atol=1e-3)
+    return (t1, tm), (j1, jm)
+
+
+@pytest.mark.parametrize("which", ["falling", "floor"])
+def test_one_step_matches_jax(scenes, which):
+    (_, tm), (_, jm) = _one_step(scenes, which, JCFG, TCFG)
     # the capacity scalars up to bd_touch are exact; the occupancy-split
     # window fields are not ported and stay zero
     cap_j, cap_t = np.asarray(jm["capacity"]), tm["capacity"].numpy()
@@ -96,12 +103,14 @@ def test_one_step_matches_jax(scenes, which):
 
 
 def test_surface_off_step_not_ported(scenes):
-    cfg = TCFG.replace(surface_tension=0.0, air_pressure=0.0)
-    ts = T.make_fluid_state(small_block(), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.wcsph_step(ts, (), scenes["port"], cfg, cfg.dt,
-                       tdense.dims_for(cfg), tdense.dims_for(
-                           cfg, scenes["kb"]), BOX)
+    """The surface-off WCSPH step (density_visc + pressure_force passes)
+    against JAX's, one step on the floor block, at the step bars."""
+    off = dict(surface_tension=0.0, air_pressure=0.0)
+    (t1, _), (j1, _) = _one_step(scenes, "floor", JCFG.replace(**off),
+                                 TCFG.replace(**off))
+    # with surface effects on, the same step differs: the branch switched
+    (t_on, _), _ = _one_step(scenes, "floor", JCFG, TCFG)
+    assert not torch.equal(t_on.vel, t1.vel)
 
 
 def test_five_frames_vs_float64_oracle():
@@ -266,7 +275,7 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(solver="dfsph"), NotImplementedError),
+    (dict(solver="3"), NotImplementedError),
     (dict(solver="pbd"), NotImplementedError),
     (dict(solver="nope"), ValueError),
     (dict(cfg=TCFG.replace(engine="xla")), NotImplementedError),
