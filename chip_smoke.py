@@ -3,12 +3,13 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
 hand-written neighbor-pass kernel (cpp_fluid_particles_tpu_torch/csrc/
-column_pass.cu) with nvcc, holds each of its eleven instances against the
+column_pass.cu) with nvcc, holds each of its sixteen instances against the
 plain torch executor on the card, then drives the port's paths on the full
 20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
-WCSPH and DFSPH for 300 frames each at the reference benchmark's dt, and
-both solvers with surface effects off for a short run. Phases:
+WCSPH, DFSPH and PBD for 300 frames each at the reference benchmark's dt,
+PBD in its default fast mode as ``Simulation(device="cuda")`` builds it,
+and the three solvers with surface effects off for a short run. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of the kernel, seconds taken, and ptxas's
@@ -16,17 +17,24 @@ both solvers with surface effects off for a short run. Phases:
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
               its path gives it, at frame 0 and after the path's run;
               per-row tolerance rtol 2e-5, atol 2e-5 x the row's max;
-              two launches must agree bitwise
+              two launches must agree bitwise. color_gradient and
+              density_colorgrad, which no step runs, on PBD's [pos3, mass]
   4. step     one solver step with the kernel vs with the plain executor
-              (pos atol 2e-6, vel atol 2e-3), and the drift after 5 steps;
-              for DFSPH both runs' iteration counts
+              (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
+              the drift after 5 steps
   5. slice    WCSPH: 300 frames at dt 0.001 through the constructor,
               run() and run_scan(); physics and launch-count checks,
               ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004, plus iteration bounds, the
               mean iterations and the host syncs per frame
-  5c. off     WCSPH and DFSPH with surface tension and air pressure off,
-              a short run each: the surface-off instances' launches
+  5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
+              projection with its exact all-lambda-zero exit):
+              pbd_lambda == stiffness_accel == the sum of the frames'
+              iterations, xsph_colorgrad == surface == the frames run
+  5d. pbd_default  ``Simulation(device="cuda")`` as constructed (PBD in
+              fast mode: tolerance exit + Chebyshev) with the 5c checks
+  5e. off     the three solvers with surface tension and air pressure
+              off, a short run each: the surface-off instances' launches
   6. timing   kernel vs plain executor per pass at the shapes of its
               path's final state
 
@@ -48,13 +56,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FRAMES = 300
-OFF_FRAMES = 50          # the surface-off runs of phase 5c
+OFF_FRAMES = 50          # the surface-off runs of phase 5e
 CHUNK = 25
 PASS_BAR = 2e-5          # pass outputs: rtol, and atol x the row's max
 STEP_POS_ATOL = 2e-6
 STEP_VEL_ATOL = 2e-3
 TPU_KERNEL = "cpp_fluid_particles_tpu/ops/pallas_passes.py:107"
 KERNEL_SRC = "cpp_fluid_particles_tpu_torch/csrc/column_pass.cu"
+# instances that no step runs, in either package: held in phases 3 and 6
+# on the PBD path's own [pos3, mass] operands, never launched by a path
+OFF_PATH = {name: "no step runs it; held on the PBD path's [pos3, mass] "
+            "operands at frame 0 and after the PBD run"
+            for name in ("color_gradient", "density_colorgrad")}
 
 
 def log(phase: str, msg: str) -> None:
@@ -103,7 +116,10 @@ def capture(sim, ds, pp, dt):
     WCSPH: the scene build's density pass and one step's two passes.
     DFSPH: one step's five passes, then one surface-off WCSPH step and one
     surface-off DFSPH step on the same state for the surface-off
-    instances."""
+    instances. PBD: one step's four passes (stiffness_accel on lambda) and
+    one surface-off step's xsph; color_gradient and density_colorgrad,
+    which no step runs, on the first projection iteration's [pos3, mass]
+    operands."""
     from cpp_fluid_particles_tpu_torch.state import boundary_positions
     rec = Recorder(pp.column_pass_plain)
     dims, dims_b = sim._dims()
@@ -112,7 +128,7 @@ def capture(sim, ds, pp, dt):
                              sim.device, executor=rec)
         ds.wcsph_step(sim.state, (), sim.scene, sim.cfg, dt, dims, dims_b,
                       sim.box, executor=rec)
-    else:
+    elif sim.solver_name == "dfsph":
         off = surface_off(sim.cfg)
         ds.dfsph_step(sim.state, sim.carry, sim.scene, sim.cfg, dt, dims,
                       dims_b, sim.box, executor=rec)
@@ -120,6 +136,13 @@ def capture(sim, ds, pp, dt):
                       sim.box, executor=rec)
         ds.dfsph_step(sim.state, sim.carry, sim.scene, off, dt, dims,
                       dims_b, sim.box, executor=rec)
+    else:
+        for cfg in (sim.cfg, surface_off(sim.cfg)):
+            ds.pbd_step(sim.state, sim.carry, sim.scene, cfg, dt, dims,
+                        dims_b, sim.box, executor=rec)
+        _, fl, bd, pdims, pdims_b = rec.calls["pbd_lambda"]
+        for name in ("color_gradient", "density_colorgrad"):
+            rec.calls[name] = (name, fl, bd, pdims, pdims_b)
     return list(rec.calls.values())
 
 
@@ -153,11 +176,11 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
             f"max_err/row_max={worst_rel:.3e} bitwise_repeat=yes")
 
 
+ITER_KEYS = ("divergence_iters", "density_iters", "pbd_iters")
+
+
 def iters(m) -> str:
-    if "divergence_iters" not in m:
-        return ""
-    return (f" iters div/den={int(m['divergence_iters'])}/"
-            f"{int(m['density_iters'])}")
+    return "".join(f" {k}={int(m[k])}" for k in ITER_KEYS if k in m)
 
 
 def step_vs_plain(sim, ds, pp, torch, dt, n_drift=5):
@@ -177,6 +200,9 @@ def step_vs_plain(sim, ds, pp, torch, dt, n_drift=5):
     if not (dpos <= STEP_POS_ATOL and dvel <= STEP_VEL_ATOL):
         raise AssertionError(f"step: kernel vs plain dpos={dpos} "
                              f"dvel={dvel} over the bars")
+    if iters(ma) != iters(mb):
+        raise AssertionError(f"step: iterations differ, kernel{iters(ma)}"
+                             f" plain{iters(mb)}")
     (a, _), (b, _) = run(None, n_drift), run(pp.column_pass_plain, n_drift)
     log("step", f"{sim.solver_name} one step kernel vs plain: dpos={dpos:.3e}"
         f" (bar {STEP_POS_ATOL}) dvel={dvel:.3e} (bar {STEP_VEL_ATOL});"
@@ -186,34 +212,54 @@ def step_vs_plain(sim, ds, pp, torch, dt, n_drift=5):
 
 
 class Tally:
-    """Wraps a Simulation's step to keep every frame's metrics (frames
-    re-run by a capacity retry included), read once at the end."""
+    """Wraps a solver's step in ``DENSE_STEPS`` while a Simulation is
+    constructed, so that the Simulation keeps every frame's metrics (the
+    constructor's warm-up and frames re-run by a capacity retry included),
+    read once at the end."""
 
-    def __init__(self, sim):
+    def __init__(self, ds, solver):
         self.frames = []
-        step = sim._step_fn
+        step = ds.DENSE_STEPS[solver]
 
         def tallied(*args, **kwargs):
             out = step(*args, **kwargs)
             self.frames.append(out[2])
             return out
-        sim._step_fn = tallied
+        self.step = tallied
 
     def column(self, key, torch):
         return torch.stack([m[key] for m in self.frames]).cpu().tolist()
 
 
-def drive(cfp, cc, torch, cfg, solver, dt, frames, tally=False):
+def construct(cfp, ds, solver, cfg, tally):
+    """Simulation(solver=..., cfg=..., device="cuda"), or with solver None
+    ``Simulation(device="cuda")`` as a user builds it; with a Tally, its
+    step is the tallied one."""
+    name = cfp.resolve_solver(solver or "pbd")
+    saved = ds.DENSE_STEPS[name]
+    if tally is not None:
+        ds.DENSE_STEPS[name] = tally.step
+    try:
+        if solver is None:
+            return cfp.Simulation(device="cuda")
+        return cfp.Simulation(solver=solver, cfg=cfg, device="cuda")
+    finally:
+        ds.DENSE_STEPS[name] = saved
+
+
+def drive(cfp, ds, cc, torch, cfg, solver, dt, frames, tally=False):
     """Construct, run() one chunk, then run_scan() chunks, from the dam
     start: -> (sim, stats). The launch counts are reset before the
-    constructor and read after the last chunk."""
+    constructor and read after the last chunk. solver None constructs
+    ``Simulation(device="cuda")`` with its defaults (cfg is ignored)."""
     cc.reset_launch_counts()
     t_run = time.perf_counter()
-    sim = cfp.Simulation(solver=solver, cfg=cfg, device="cuda")
-    tl = Tally(sim) if tally else None
+    tl = Tally(ds, cfp.resolve_solver(solver or "pbd")) if tally else None
+    sim = construct(cfp, ds, solver, cfg, tl)
+    cfg, solver = sim.cfg, sim.solver_name
     y0 = float(torch.as_tensor(cfp.dam_break_positions(cfg))[:, 1].mean())
     rerun_frames = 1 + sim.retries               # warm-up step + retries
-    ctor_frames = rerun_frames                   # not tallied
+    ctor_frames = rerun_frames
     r0 = sim.retries
     chunk = min(CHUNK, frames)
     step_ms = sim.run(chunk, dt)["ms_per_frame"] * chunk
@@ -252,15 +298,48 @@ def drive(cfp, cc, torch, cfg, solver, dt, frames, tally=False):
         "launches": launches, "ms_per_frame": (step_ms + scan_ms) / frames,
         "ms_per_frame_step": step_ms / chunk,
         "ms_per_frame_run_scan": scan_ms / max(frames - chunk, 1),
-        "wall_s": wall_s, "mean_y": [y0, y1], "run_scan_chunks": chunks}
+        "wall_s": wall_s, "mean_y": [y0, y1], "run_scan_chunks": chunks,
+        "ctor_frames": ctor_frames}
     if tl is not None:
-        for key in ("divergence_iters", "density_iters", "host_syncs"):
-            stats[key] = tl.column(key, torch)
-        if len(stats["host_syncs"]) != rerun_frames - ctor_frames:
+        for key in ITER_KEYS + ("host_syncs",):
+            if key in tl.frames[0]:
+                stats[key] = tl.column(key, torch)
+        if len(stats["host_syncs"]) != rerun_frames:
             raise AssertionError(f"tallied {len(stats['host_syncs'])} "
-                                 f"frames, expected "
-                                 f"{rerun_frames - ctor_frames}")
+                                 f"frames, expected {rerun_frames}")
     return sim, stats
+
+
+def drop_columns(st):
+    """The per-frame columns stay out of the saved record."""
+    for key in ITER_KEYS + ("host_syncs",):
+        st.pop(key, None)
+
+
+def pbd_checks(st, cfg, off=False):
+    """PBD launch identities over every frame run (the warm-up and retries
+    included): pbd_lambda == stiffness_accel == the sum of the frames'
+    iterations, one XSPH traversal per frame (xsph_colorgrad and surface,
+    or xsph with surface effects off); iterations in [1, pbd_max_iter].
+    Adds the mean iterations and host syncs per frame run after the
+    constructor."""
+    it, frames_run = st["pbd_iters"], st["rerun_frames"]
+    n = sum(it)
+    want = {"pbd_lambda": n, "stiffness_accel": n}
+    want.update({"xsph": frames_run} if off else
+                {"xsph_colorgrad": frames_run, "surface": frames_run})
+    expect_launches(st, want)
+    if not (min(it) >= 1 and max(it) <= cfg.pbd_max_iter):
+        raise AssertionError(f"PBD iterations out of bounds: "
+                             f"{min(it)}-{max(it)}, cap {cfg.pbd_max_iter}")
+    after = slice(st["ctor_frames"], None)
+    st["mean_iters"] = sum(it[after]) / len(it[after])
+    syncs = st["host_syncs"][after]
+    st["host_syncs_per_frame"] = sum(syncs) / len(syncs)
+    return (f" | per frame run: pbd iters {st['mean_iters']:.2f} "
+            f"({min(it)}-{max(it)}), projection host syncs "
+            f"{st['host_syncs_per_frame']:.2f} (plus one capacity fetch per "
+            f"chunk)")
 
 
 def expect_launches(stats, want):
@@ -402,7 +481,8 @@ def main() -> int:
     cfg = cfp.dam_break_config(mode="parity")
     errs, times, paths = {}, {}, {}
 
-    for solver, phase in (("wcsph", "slice"), ("dfsph", "dfsph")):
+    for solver, phase in (("wcsph", "slice"), ("dfsph", "dfsph"),
+                          ("pbd", "pbd")):
         dt = cfp.BENCH_DT[solver]
         # 3 + 4 at frame 0 (the state after the constructor's warm-up)
         probe = cfp.Simulation(solver=solver, cfg=cfg, device="cuda")
@@ -411,9 +491,9 @@ def main() -> int:
         step_vs_plain(probe, ds, pp, torch, dt)
         del probe
 
-        # 5 / 5b. the path
-        sim, st = drive(cfp, cc, torch, cfg, solver, dt, FRAMES,
-                        tally=(solver == "dfsph"))
+        # 5 / 5b / 5c. the path
+        sim, st = drive(cfp, ds, cc, torch, cfg, solver, dt, FRAMES,
+                        tally=(solver != "wcsph"))
         frames_run = st["rerun_frames"]
         if solver == "wcsph":
             # each frame run (warm-up, retries included) launches both
@@ -421,7 +501,7 @@ def main() -> int:
             expect_launches(st, {"density_colorgrad_visc": frames_run,
                                  "surface_pressure": frames_run})
             log(phase, slice_line(st, card))
-        else:
+        elif solver == "dfsph":
             # per frame run: one density_alpha_colorgrad, viscosity and
             # surface; divergence == stiffness_accel (the divergence warm
             # start is on), at least 5 (1 + 1 + >= 1 divergence iterations
@@ -444,17 +524,19 @@ def main() -> int:
                                      f"{min(di)}-{max(di)}, density "
                                      f"{min(ni)}-{max(ni)}, cap {cap}")
             # over the frames run after the constructor's warm-up
+            after = slice(st["ctor_frames"], None)
+            di, ni, hs = di[after], ni[after], st["host_syncs"][after]
             st["mean_iters"] = [sum(di) / len(di), sum(ni) / len(ni)]
-            st["host_syncs_per_frame"] = (sum(st["host_syncs"])
-                                          / len(st["host_syncs"]))
+            st["host_syncs_per_frame"] = sum(hs) / len(hs)
             log(phase, slice_line(st, card) + f" | per frame run: "
                 f"divergence iters {st['mean_iters'][0]:.2f} "
                 f"({min(di)}-{max(di)}), density iters "
                 f"{st['mean_iters'][1]:.2f} ({min(ni)}-{max(ni)}), Jacobi "
                 f"host syncs {st['host_syncs_per_frame']:.2f} (plus one "
                 f"capacity fetch per chunk)")
-        for key in ("divergence_iters", "density_iters", "host_syncs"):
-            st.pop(key, None)
+        else:
+            log(phase, slice_line(st, card) + pbd_checks(st, cfg))
+        drop_columns(st)
         paths[solver] = st
 
         # 3 (after the run) and 6 at the path's final shapes
@@ -464,34 +546,51 @@ def main() -> int:
         time_passes(calls, cfg, pp, cc, torch, card, times)
         del sim, calls
 
-    # 5c. the surface-off instances on their own paths
-    for solver, want in (("wcsph", ("density_visc", "pressure_force")),
-                         ("dfsph", ("density_alpha",))):
-        dt = cfp.BENCH_DT[solver]
-        sim, st = drive(cfp, cc, torch, surface_off(cfg), solver, dt,
-                        OFF_FRAMES)
-        frames_run = st["rerun_frames"]
-        expected = {n: frames_run for n in want}
-        if solver == "dfsph":
-            expected.update(viscosity=frames_run,
-                            divergence=(5 * frames_run, None),
-                            stiffness_accel=(5 * frames_run, None))
-        expect_launches(st, expected)
+    # 5d. the default: Simulation(device="cuda"), PBD in fast mode
+    sim, st = drive(cfp, ds, cc, torch, None, None, cfp.BENCH_DT["pbd"],
+                    FRAMES, tally=True)
+    if sim.solver_name != "pbd" or sim.cfg != cfp.dam_break_config():
+        raise AssertionError(f"Simulation() built {sim.solver_name} with "
+                             f"{sim.cfg}")
+    log("pbd_default", slice_line(st, card) + pbd_checks(st, sim.cfg))
+    drop_columns(st)
+    paths["pbd_default"] = st
+    del sim
+
+    # 5e. the surface-off instances on their own paths
+    off = surface_off(cfg)
+    for solver in ("wcsph", "dfsph", "pbd"):
+        sim, st = drive(cfp, ds, cc, torch, off, solver,
+                        cfp.BENCH_DT[solver], OFF_FRAMES,
+                        tally=(solver == "pbd"))
+        n, tail = st["rerun_frames"], ""
+        if solver == "wcsph":
+            expect_launches(st, {"density_visc": n, "pressure_force": n})
+        elif solver == "dfsph":
+            expect_launches(st, {"density_alpha": n, "viscosity": n,
+                                 "divergence": (5 * n, None),
+                                 "stiffness_accel": (5 * n, None)})
+        else:
+            tail = pbd_checks(st, off, off=True)
+            drop_columns(st)
         paths[f"{solver}_surface_off"] = st
-        log("off", f"{solver} surface off: " + slice_line(st, card))
+        log("off", f"{solver} surface off: " + slice_line(st, card) + tail)
         del sim
 
     record["paths"], record["times"], record["errors"] = paths, times, errs
     owner = {"density": "wcsph", "density_colorgrad_visc": "wcsph",
              "surface_pressure": "wcsph", "density_visc": "wcsph_surface_off",
              "pressure_force": "wcsph_surface_off",
-             "density_alpha": "dfsph_surface_off"}
+             "density_alpha": "dfsph_surface_off", "pbd_lambda": "pbd",
+             "xsph_colorgrad": "pbd", "xsph": "pbd_surface_off"}
     table = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SRC,
-         "replaces": TPU_KERNEL,
-         "launches": paths[owner.get(name, "dfsph")]["launches"][name],
-         "max_abs_err": errs[name]["max_abs_err"],
-         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]}
+        dict({"name": name, "route": "cuda", "source": KERNEL_SRC,
+              "replaces": TPU_KERNEL,
+              "launches": (paths[owner.get(name, "dfsph")]["launches"][name]
+                           if name not in OFF_PATH else 0),
+              "max_abs_err": errs[name]["max_abs_err"],
+              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]},
+             **({"note": OFF_PATH[name]} if name in OFF_PATH else {}))
         for name in cc.PASS_IDS]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

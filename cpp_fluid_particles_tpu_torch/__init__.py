@@ -5,8 +5,9 @@ Same module names and public names as the JAX package, which stays the
 reference. Plain tensor code is torch; the neighbor-pass kernel that the
 JAX package wrote in Pallas is a hand-written CUDA kernel for Hopper
 (csrc/column_pass.cu), built with nvcc on first use. This package imports
-neither jax nor the JAX package. So far it runs the WCSPH solver on the
-sliding-box engine (see ROADMAP.md for what comes next).
+neither jax nor the JAX package. It runs the three solvers (WCSPH, DFSPH
+and PBD, the default) on the sliding-box engine (see ROADMAP.md for what
+comes next).
 """
 
 from .config import BENCH_DT, SimConfig, dam_break_config

@@ -5,11 +5,15 @@
 // (the Pallas kernel that evaluates a pass body over (CZ, K_i, 27K_j) pair
 // blocks per (x, y) cell column). It computes what that kernel computes with
 // `_std_body` (pallas_passes.py:780): the one-sided 27-cell fluid pair sum
-// plus the boundary term, for eleven pass instances (template functors
-// below). WCSPH: density, density_colorgrad_visc, surface_pressure and,
-// with surface effects off, density_visc and pressure_force. DFSPH:
-// density_alpha_colorgrad (density_alpha with surface effects off),
-// divergence, stiffness_accel, and the fluid-only viscosity and surface.
+// plus the boundary term, for sixteen pass instances (template functors
+// below), every instance of that Pallas kernel. WCSPH: density,
+// density_colorgrad_visc, surface_pressure and, with surface effects off,
+// density_visc and pressure_force. DFSPH: density_alpha_colorgrad
+// (density_alpha with surface effects off), divergence, stiffness_accel,
+// and the fluid-only viscosity and surface. PBD: pbd_lambda and
+// stiffness_accel in every projection iteration, then xsph_colorgrad and
+// surface (the fluid-only xsph with surface effects off). color_gradient
+// and density_colorgrad, which no step runs, complete the set.
 //
 // Layout (ops/dense.py): fl (Fi, K, G) and bd (Fb=4, Kb, G), float32,
 // contiguous, G = GX*GY*GZ the flattened ghosted cell axis (x-major). Slot k
@@ -29,9 +33,12 @@
 // Bound: pair evaluations (about 27*K per real i slot, cut at each cell's
 // occupancy by the early exit) and the neighbour loads, which hit L2 — each
 // j cell is re-read by the 27 cells around it. Every instance shares that
-// traversal; they differ in the rows loaded per pair (4 to 9 floats) and
-// in the sums kept in registers (1 to 9, density_alpha_colorgrad the most),
-// which sets the register count and so the occupancy. A shared-memory halo
+// traversal; they differ in the rows loaded per pair (4 to 9 floats), in
+// the i-side values held (3 to 6, positions plus velocities or derived
+// scalars) and in the sums kept in registers (1 to 9,
+// density_alpha_colorgrad the most; xsph_colorgrad holds 7 sums beside
+// six i values), which set the register count and so the occupancy. A
+// shared-memory halo
 // tile (the plan of exp/flat_pallas_proto.py) is the next step for this
 // kernel.
 //
@@ -505,6 +512,138 @@ struct PressureForcePass {
   }
 };
 
+// PBD density + lambda sums (src/PBDSolver.cu:127-168; pallas_passes.py:
+// 1156-1198): fl = bd = [pos3, mass]. Outputs [rho, gsumx, gsumy, gsumz,
+// slam] with the gradient divided by rho0 once per pair. Fluid and boundary
+// take the same form, so the boundary adds to slam too (unlike alpha_bdry).
+struct PbdLambdaPass {
+  static constexpr int kOut = 5;
+  static constexpr bool kBoundary = true;
+  using I = Pos;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    alpha_fluid(acc, fl[3 * kg + tj], w_cubic(r, c),
+                grad_w_cubic_coef(r, c) / c.rho0, dx, dy, dz);
+  }
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    fluid(acc, i, bd, tj, kbg, dx, dy, dz, r, c);
+  }
+};
+
+// XSPH sum m_j (v_j - v_i) W into acc[0..2]
+__device__ __forceinline__ void xsph(float* acc, const PosVel& i,
+                                     const float* fl, int64_t tj, int64_t kg,
+                                     float mj, float w) {
+  acc[0] += mj * (w * (fl[4 * kg + tj] - i.vx));
+  acc[1] += mj * (w * (fl[5 * kg + tj] - i.vy));
+  acc[2] += mj * (w * (fl[6 * kg + tj] - i.vz));
+}
+
+// XSPH viscosity + color field (pallas_passes.py:1377), PBD with surface
+// effects on: fl = [pos3, mass, vel3]. Outputs [dvx, dvy, dvz, numx, numy,
+// numz, den]; the boundary adds to the color field only.
+struct XsphColorgradPass {
+  static constexpr int kOut = 7;
+  static constexpr bool kBoundary = true;
+  using I = PosVel;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos_vel(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    const float mj = fl[3 * kg + tj];
+    const float w = w_cubic(r, c);
+    xsph(acc, i, fl, tj, kg, mj, w);
+    colorgrad(acc + 3, mj, c.rho0, w, grad_w_cubic_coef(r, c), dx, dy, dz);
+  }
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    colorgrad(acc + 3, bd[3 * kbg + tj], c.rho_b, w_cubic(r, c),
+              grad_w_cubic_coef(r, c), dx, dy, dz);
+  }
+};
+
+// XSPH viscosity (src/PBDSolver.cu:89-125; pallas_passes.py:953), PBD with
+// surface effects off, fluid only: fl = [pos3, mass, vel3]. Outputs [dvx,
+// dvy, dvz].
+struct XsphPass {
+  static constexpr int kOut = 3;
+  static constexpr bool kBoundary = false;
+  using I = PosVel;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos_vel(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float, float, float,
+                               float r, const Consts& c) {
+    xsph(acc, i, fl, tj, kg, fl[3 * kg + tj], w_cubic(r, c));
+  }
+};
+
+// He-2014 color field (src/BasicSPHSolver.cu:277-318; pallas_passes.py:992):
+// fl = bd = [pos3, mass]. Outputs [numx, numy, numz, den], the fluid with
+// rho0 and the boundary with rho_boundary. No step runs it.
+struct ColorGradientPass {
+  static constexpr int kOut = 4;
+  static constexpr bool kBoundary = true;
+  using I = Pos;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    colorgrad(acc, fl[3 * kg + tj], c.rho0, w_cubic(r, c),
+              grad_w_cubic_coef(r, c), dx, dy, dz);
+  }
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    colorgrad(acc, bd[3 * kbg + tj], c.rho_b, w_cubic(r, c),
+              grad_w_cubic_coef(r, c), dx, dy, dz);
+  }
+};
+
+// rho + color field (pallas_passes.py:1207): fl = bd = [pos3, mass].
+// Outputs [rho, numx, numy, numz, den]. No step runs it.
+struct DensityColorgradPass {
+  static constexpr int kOut = 5;
+  static constexpr bool kBoundary = true;
+  using I = Pos;
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
+    return load_pos(fl, t, kg);
+  }
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    const float mj = fl[3 * kg + tj];
+    const float w = w_cubic(r, c);
+    acc[0] += mj * w;
+    colorgrad(acc + 1, mj, c.rho0, w, grad_w_cubic_coef(r, c), dx, dy, dz);
+  }
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    const float mb = bd[3 * kbg + tj];
+    const float w = w_cubic(r, c);
+    acc[0] += mb * w;
+    colorgrad(acc + 1, mb, c.rho_b, w, grad_w_cubic_coef(r, c), dx, dy, dz);
+  }
+};
+
 template <class P>
 __global__ void __launch_bounds__(kThreads)
     column_pass_kernel(const float* __restrict__ fl,
@@ -615,6 +754,17 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
       return launch<DensityViscPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
     case 10:
       return launch<PressureForcePass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 11:
+      return launch<PbdLambdaPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 12:
+      return launch<XsphColorgradPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 13:
+      return launch<XsphPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 14:
+      return launch<ColorGradientPass>(fl, bd, out, k, kb, gx, gy, gz, c, s);
+    case 15:
+      return launch<DensityColorgradPass>(fl, bd, out, k, kb, gx, gy, gz, c,
+                                          s);
     default:
       return cudaErrorInvalidValue;
   }

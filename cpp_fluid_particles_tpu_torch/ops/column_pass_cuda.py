@@ -41,7 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PASS_IDS = {"density": 0, "density_colorgrad_visc": 1, "surface_pressure": 2,
             "density_alpha_colorgrad": 3, "divergence": 4,
             "stiffness_accel": 5, "viscosity": 6, "surface": 7,
-            "density_alpha": 8, "density_visc": 9, "pressure_force": 10}
+            "density_alpha": 8, "density_visc": 9, "pressure_force": 10,
+            "pbd_lambda": 11, "xsph_colorgrad": 12, "xsph": 13,
+            "color_gradient": 14, "density_colorgrad": 15}
 
 # launches per pass instance; bumped once per successful launch
 LAUNCHES = {name: 0 for name in PASS_IDS}

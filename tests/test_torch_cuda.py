@@ -43,8 +43,9 @@ def _block():
 @pytest.fixture(scope="module")
 def operands(dev):
     """The operands the main paths give each pass: the scene build's
-    density pass, and one WCSPH and one DFSPH step, each with surface
-    effects on and off, after 3 frames of the solver."""
+    density pass, and one step of each solver with surface effects on and
+    off, after 3 frames of the solver. color_gradient and
+    density_colorgrad, which no step runs, take PBD's [pos3, mass]."""
     calls = {}
 
     def record(name, fl, bd, dims, dims_b, cfg):
@@ -52,7 +53,7 @@ def operands(dev):
         return pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
 
     off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
-    for solver in ("wcsph", "dfsph"):
+    for solver in ("wcsph", "dfsph", "pbd"):
         sim = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
                            device=dev)
         sim.run(3)
@@ -63,6 +64,9 @@ def operands(dev):
                                    executor=record)
     ds.build_dense_scene(CFG, T.boundary_positions(CFG), sim._kb, dev,
                          executor=record)
+    _, fl, bd, dims, dims_b = calls["pbd_lambda"]
+    for name in ("color_gradient", "density_colorgrad"):
+        calls[name] = (name, fl, bd, dims, dims_b)
     assert sorted(calls) == sorted(cc.PASS_IDS)
     return calls
 
@@ -156,3 +160,44 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
                                atol=2e-6)
     np.testing.assert_allclose(g1.vel.cpu().numpy(), c1.vel.numpy(),
                                atol=2e-3)
+
+
+def test_pbd_simulation_runs_through_the_kernel(dev):
+    """Every pass of the card's PBD frames launched the kernel, once per
+    projection iteration for the two projection passes; then one step from
+    the state they reached agrees on the card and on the CPU at the
+    one-step bars, with equal iteration counts."""
+    cc.reset_launch_counts()
+    gpu = T.Simulation(solver="pbd", cfg=CFG, fluid_pos=_block(),
+                       device=dev)
+    iters = [int(gpu.metrics["pbd_iters"])]
+    for _ in range(3):
+        gpu.step()
+        iters.append(int(gpu.metrics["pbd_iters"]))
+    assert gpu.retries == 0
+    la = cc.LAUNCHES
+    assert la["pbd_lambda"] == la["stiffness_accel"] == sum(iters)
+    assert la["xsph_colorgrad"] == la["surface"] == 4
+    assert {k: n for k, n in la.items() if n} == {
+        "density": 1, "pbd_lambda": sum(iters), "stiffness_accel": sum(iters),
+        "xsph_colorgrad": 4, "surface": 4}
+
+    dims, dims_b = gpu._dims()
+
+    def step(state, carry, scene):
+        return ds.pbd_step(state, carry, scene, CFG, CFG.dt, dims, dims_b,
+                           gpu.box)
+
+    def cpu(x):
+        return type(x)(*(t.cpu() for t in x))
+
+    g1, gc, gm = step(gpu.state, gpu.carry, gpu.scene)
+    c1, cc1, cm = step(cpu(gpu.state), cpu(gpu.carry), cpu(gpu.scene))
+    assert int(gm["grid_overflow"]) == 0
+    assert int(gm["pbd_iters"]) == int(cm["pbd_iters"])
+    np.testing.assert_allclose(g1.pos.cpu().numpy(), c1.pos.numpy(),
+                               atol=2e-6)
+    np.testing.assert_allclose(g1.vel.cpu().numpy(), c1.vel.numpy(),
+                               atol=2e-3)
+    np.testing.assert_allclose(gc.pos_last.cpu().numpy(),
+                               cc1.pos_last.numpy(), atol=2e-6)

@@ -54,6 +54,11 @@ PASSES = {
     "density_alpha": (jpp.density_alpha_pass, (POS3, MASS)),
     "density_visc": (jpp.density_visc_pass, (POS3, MASS, VEL3)),
     "pressure_force": (jpp.pressure_force_pass, (POS3, MASS, RHO, P)),
+    "pbd_lambda": (jpp.pbd_lambda_pass, (POS3, MASS)),
+    "xsph_colorgrad": (jpp.xsph_colorgrad_pass, (POS3, MASS, VEL3)),
+    "xsph": (jpp.xsph_pass, (POS3, MASS, VEL3)),
+    "color_gradient": (jpp.color_gradient_pass, (POS3, MASS)),
+    "density_colorgrad": (jpp.density_colorgrad_pass, (POS3, MASS)),
 }
 
 

@@ -275,8 +275,8 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(solver="3"), NotImplementedError),
-    (dict(solver="pbd"), NotImplementedError),
+    (dict(solver="3", cfg=TCFG.replace(pbd_rebin_moving=True)), ValueError),
+    (dict(solver="pbd", cfg=TCFG.replace(pbd_warm_start=0.25)), ValueError),
     (dict(solver="nope"), ValueError),
     (dict(cfg=TCFG.replace(engine="xla")), NotImplementedError),
     (dict(cfg=TCFG.replace(engine="bogus")), ValueError),
