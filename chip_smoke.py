@@ -2,21 +2,24 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-hand-written neighbor-pass kernel (cpp_fluid_particles_tpu_torch/csrc/
-column_pass.cu) with nvcc, holds each of its sixteen instances against the
+hand-written kernels (cpp_fluid_particles_tpu_torch/csrc/column_pass.cu)
+with nvcc, holds each of the neighbor pass's sixteen instances against the
 plain torch executor on the card, then drives the port's paths on the full
 20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
 WCSPH, DFSPH and PBD for 300 frames each at the reference benchmark's dt,
 PBD in its default fast mode as ``Simulation(device="cuda")`` builds it,
-and the three solvers with surface effects off for a short run. Phases:
+and the three solvers with surface effects off for a short run, and last
+the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc build of the kernel, seconds taken, and ptxas's
-              registers and spills for every instance
+  2. build    nvcc build of the kernels, seconds taken, and ptxas's
+              registers and spills for every instance; for the six
+              fluid-only instances of phase 7 also their shared memory
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
               its path gives it, at frame 0 and after the path's run;
-              per-row tolerance rtol 2e-5, atol 2e-5 x the row's max;
+              per-row tolerance ``utils.check.PASS_BAR``: rtol 2e-5,
+              atol 2e-5 x the row's max;
               two launches must agree bitwise. color_gradient and
               density_colorgrad, which no step runs, on PBD's [pos3, mass]
   4. step     one solver step with the kernel vs with the plain executor
@@ -36,7 +39,25 @@ and the three solvers with surface effects off for a short run. Phases:
   5e. off     the three solvers with surface tension and air pressure
               off, a short run each: the surface-off instances' launches
   6. timing   kernel vs plain executor per pass at the shapes of its
-              path's final state
+              path's final state, beside the pass's bound
+  7. flat     the flat-grid prototype's entry point
+              (cpp_fluid_particles_tpu_torch/exp/flat_pallas_proto.py): the
+              state after 150 WCSPH frames of the dam on a K = 24
+              full-domain grid, its three fluid-only bodies through the
+              brick-tiled kernel (the launch counts reset just before and
+              read just after), each held against a second tiled launch
+              (bitwise), the untiled kernel on the same functor and the
+              plain executor (per row, the phase-3 bar), then timed,
+              and the tiled kernel timed on each brick that fits K 24
+
+A pass's bound is the larger of its bytes over 3.35 TB/s and its
+operations over 67 TFLOP/s (float32, H100 SXM data sheet), both counted on
+this run's operands. Bytes: each input read once, as far as the data needs
+it (every row of each real slot, plus row 0 of one padding slot per cell
+that is not full, where a slot loop stops), and the whole (n_out, K, G)
+output written once. Operations: GEOM_FLOPS per candidate pair (each
+cell's real slots against its 27 neighbours' real slots) plus PAIR_FLOPS
+per pair inside the support.
 
 Each phase prints one line per item. Before the last line it prints the
 JSON kernel table, then the card's nvidia-smi line; the last line is
@@ -58,11 +79,29 @@ ROOT = Path(__file__).resolve().parent
 FRAMES = 300
 OFF_FRAMES = 50          # the surface-off runs of phase 5e
 CHUNK = 25
-PASS_BAR = 2e-5          # pass outputs: rtol, and atol x the row's max
 STEP_POS_ATOL = 2e-6
 STEP_VEL_ATOL = 2e-3
 TPU_KERNEL = "cpp_fluid_particles_tpu/ops/pallas_passes.py:107"
+FLAT_TPU_KERNEL = "exp/flat_pallas_proto.py:67"
 KERNEL_SRC = "cpp_fluid_particles_tpu_torch/csrc/column_pass.cu"
+PEAK_F32 = 67e12         # FLOP/s, float32 outside the tensor cores
+PEAK_BYTES = 3.35e12     # bytes/s, HBM3
+# operations per candidate pair: dx, dy, dz (3), r^2 (5), sqrt (1), the
+# support test 2r/h (2)
+GEOM_FLOPS = 11
+# operations per pair inside the support, (fluid, boundary), counted from
+# the functors of KERNEL_SRC: each add, multiply, division and square root
+# is one, a select counts its longer side (w_cubic 8, grad_w_cubic_coef 10,
+# w_visc_laplacian 3, grad_w_surface_coef 13, p/rho^2 3, |cg|^2 5)
+PAIR_FLOPS = {"density": (10, 10), "density_colorgrad_visc": (46, 30),
+              "surface_pressure": (53, 18),
+              "density_alpha_colorgrad": (47, 37), "divergence": (21, 18),
+              "stiffness_accel": (21, 18), "viscosity": (16, 0),
+              "surface": (41, 0), "density_alpha": (37, 27),
+              "density_visc": (26, 10), "pressure_force": (24, 18),
+              "pbd_lambda": (38, 38), "xsph_colorgrad": (40, 28),
+              "xsph": (20, 0), "color_gradient": (28, 28),
+              "density_colorgrad": (30, 30)}
 # instances that no step runs, in either package: held in phases 3 and 6
 # on the PBD path's own [pos3, mass] operands, never launched by a path
 OFF_PATH = {name: "no step runs it; held on the PBD path's [pos3, mass] "
@@ -147,6 +186,7 @@ def capture(sim, ds, pp, dt):
 
 
 def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
+    from cpp_fluid_particles_tpu_torch.utils.check import row_errors
     for name, fl, bd, dims, dims_b in calls:
         want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
         got = cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
@@ -156,17 +196,7 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
             raise AssertionError(f"{tag} {name}: two launches differ")
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{tag} {name}: non-finite output")
-        diff = (got - want).abs()
-        worst_rel = 0.0
-        for r in range(want.shape[0]):
-            scale = float(want[r].abs().max()) + 1e-12
-            bound = PASS_BAR * want[r].abs() + PASS_BAR * scale
-            if not bool((diff[r] <= bound).all()):
-                raise AssertionError(
-                    f"{tag} {name} row {r}: max err {float(diff[r].max())} "
-                    f"over the bar (row max {scale})")
-            worst_rel = max(worst_rel, float(diff[r].max()) / scale)
-        max_abs = float(diff.max())
+        max_abs, worst_rel = row_errors(f"{tag} {name}", got, want)
         e = errs.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         e["max_abs_err"] = max(e["max_abs_err"], max_abs)
         e["max_rel_err"] = max(e["max_rel_err"], worst_rel)
@@ -372,8 +402,9 @@ def slice_line(stats, card):
 
 
 def ptxas_report(log_text):
-    """-> {mangled kernel entry: (registers, spill bytes)} from ptxas -v;
-    the entry's name holds its pass functor."""
+    """-> {mangled kernel entry: (registers, spill bytes, static shared
+    bytes)} from ptxas -v; the entry's name holds its kernel and pass
+    functor."""
     out, entry, spill = {}, None, 0
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -387,7 +418,9 @@ def ptxas_report(log_text):
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry is not None:
-            out[entry] = (int(m.group(1)), spill)
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[entry] = (int(m.group(1)), spill,
+                          int(sm.group(1)) if sm else 0)
             entry = None
     return out
 
@@ -398,21 +431,81 @@ def functor(name):
     return "".join(w.capitalize() for w in name.split("_")) + "Pass"
 
 
-def time_ms(fn, torch, reps, warm=2):
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
+def ptxas_entry(ptxas, kernel, name, fluid_only):
+    """The one ptxas entry of ``kernel`` on pass ``name``'s functor,
+    wrapped in FluidOnly or not -> (registers, spill bytes, smem)."""
+    f = functor(name)
+    hits = [v for k, v in ptxas.items()
+            if f"{len(kernel)}{kernel}" in k and f"{len(f)}{f}" in k
+            and ("9FluidOnly" in k) == fluid_only]
+    if len(hits) != 1:
+        raise AssertionError(f"ptxas report has {len(hits)} entries for "
+                             f"{kernel}<{f}> (fluid only: {fluid_only})")
+    return hits[0]
+
+
+def pair_counts(pp, torch, fl, src, dims, h):
+    """-> (candidate pairs, pairs inside the support) of the one-sided
+    27-offset sum over the i slots of fl with j slots from src (fl itself,
+    or the boundary grid on the same cells): every real i slot against
+    every real j slot of its 27 neighbour cells, as the kernels walk them;
+    the support test is the kernels' in_support on the float32 distance."""
+    from cpp_fluid_particles_tpu_torch.ops.grid import POS_PAD
+    p = dims.flat_p
+    w = dims.g - 2 * p
+    xi = fl[:3, :, p:p + w]
+    i_real = xi[0] < POS_PAD / 2
+    n_i = i_real.sum(0, dtype=torch.float64)
+    cand = sup = 0
+    for d in (pp._flat_offsets(dims) + p).tolist():
+        xj = src[:3, :, d:d + w]
+        j_real = xj[0] < POS_PAD / 2
+        cand += int((n_i * j_real.sum(0, dtype=torch.float64)).sum())
+        dx, dy, dz = (xi[a][:, None, :] - xj[a][None, :, :]
+                      for a in range(3))
+        r = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        ok = ((2.0 * r / h <= 2.0) | (r <= h)) & i_real[:, None, :] \
+            & j_real[None, :, :]
+        sup += int(ok.sum())
+    return cand, sup
+
+
+def operand_bytes(src):
+    """The bytes a pass must read of the operand grid src (rows, K, G):
+    every row of each real slot, and row 0 of the first padding slot of
+    each cell that is not full, where a slot loop learns the cell's
+    occupancy (ranks fill a cell from slot 0)."""
+    from cpp_fluid_particles_tpu_torch.ops.grid import POS_PAD
+    real = (src[0] < POS_PAD / 2).sum(0)
+    return 4 * (src.shape[0] * int(real.sum())
+                + int((real < src.shape[1]).sum()))
+
+
+def pass_bound(pp, torch, name, fl, bd, dims, dims_b, cfg, n_out):
+    """The least time for pass ``name`` on these operands -> a record:
+    bytes (the real slots of fl and bd with one occupancy probe per cell,
+    ``operand_bytes``, and the whole (n_out, K, G) output, each once) over
+    PEAK_BYTES against operations (GEOM_FLOPS per candidate pair,
+    PAIR_FLOPS per pair in support) over PEAK_F32. bd None: the fluid term
+    alone."""
+    f_fluid, f_bd = PAIR_FLOPS[name]
+    cand, sup = pair_counts(pp, torch, fl, fl, dims, cfg.radius)
+    flops = GEOM_FLOPS * cand + f_fluid * sup
+    nbytes = operand_bytes(fl) + n_out * dims.k * dims.g * 4
+    rec = {"pairs": cand, "pairs_in_support": sup}
+    if bd is not None:
+        cb, sb = pair_counts(pp, torch, fl, bd, dims, cfg.radius)
+        flops += GEOM_FLOPS * cb + f_bd * sb
+        nbytes += operand_bytes(bd)
+        rec.update(boundary_pairs=cb, boundary_pairs_in_support=sb)
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops > t_bytes else "bytes")
+    return rec
 
 
 def time_passes(calls, cfg, pp, cc, torch, card, times):
+    from cpp_fluid_particles_tpu_torch.utils.check import time_ms
     for name, fl, bd, dims, dims_b in calls:
         if name in times:
             continue
@@ -423,19 +516,73 @@ def time_passes(calls, cfg, pp, cc, torch, card, times):
         def plain():
             pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
         # plain, kernel, kernel, plain: compared within one call
-        p1 = time_ms(plain, torch, 5)
-        k1 = time_ms(kern, torch, 50)
-        k2 = time_ms(kern, torch, 50)
-        p2 = time_ms(plain, torch, 5)
+        p1 = time_ms(plain, 5)
+        k1 = time_ms(kern, 50)
+        k2 = time_ms(kern, 50)
+        p2 = time_ms(plain, 5)
         kb = dims_b.k if dims_b is not None else 0
-        times[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                       "runs_ms": [p1, k1, k2, p2],
-                       "grid": [dims.gx, dims.gy, dims.gz], "K": dims.k,
-                       "Kb": kb}
+        times[name] = dict({"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                            "runs_ms": [p1, k1, k2, p2],
+                            "grid": [dims.gx, dims.gy, dims.gz],
+                            "K": dims.k, "Kb": kb},
+                           **pass_bound(pp, torch, name, fl, bd, dims,
+                                        dims_b, cfg,
+                                        pp.PASSES[name].n_out))
+        t = times[name]
         log("timing", f"{name} K={dims.k} Kb={kb} grid={dims.gx}x{dims.gy}x"
             f"{dims.gz}: kernel {min(k1, k2):.4f} ms, plain "
             f"{min(p1, p2):.4f} ms (plain,kernel,kernel,plain = "
-            f"{p1:.4f},{k1:.4f},{k2:.4f},{p2:.4f}) | {card}")
+            f"{p1:.4f},{k1:.4f},{k2:.4f},{p2:.4f}); bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, "
+            f"{t['flops']} FLOP, {t['pairs']} pairs, "
+            f"{t['pairs_in_support']} in support) | {card}")
+
+
+def flat_phase(cfg, cc, pp, torch, card):
+    """Phase 7: the flat prototype's entry point, its functions called as
+    its main() calls them -> a record."""
+    from cpp_fluid_particles_tpu_torch.exp import flat_pallas_proto as fp
+    pos, vel = fp.dam_state("cuda")
+    fl, dims = fp.build_grid(pos, vel, cfg)     # raises on any overflow
+    cc.reset_launch_counts()
+    outs = fp.run(fl, dims, cfg)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in cc.LAUNCHES.items() if n}
+    if launched != {f"flat_{body}": 1 for body in fp.BODIES}:
+        raise AssertionError(f"flat path launches: {launched}")
+    log("flat", f"n={pos.shape[0]} K={dims.k} overflow=0 G={dims.g} "
+        f"P={dims.flat_p}: the state after {fp.STATE_FRAMES} WCSPH frames "
+        f"of the dam; path launches {launched}")
+    bodies = {}
+    for body, out in outs.items():
+        rec = fp.compare(body, fl, dims, cfg, out)
+        rec.update(fp.time_body(body, fl, dims, cfg))
+        name = pp.FLAT_BODIES[body]
+        rec.update(pass_bound(pp, torch, name, fp.operand(body, fl), None,
+                              dims, None, cfg, out.shape[0]))
+        rec["launches"] = launched[f"flat_{body}"]
+        rec["bricks_ladder"] = fp.time_bricks(body, fl, dims, cfg, out)
+        bodies[body] = rec
+        log("flat", f"{body} ({name}, fluid only) K={dims.k} G={dims.g} "
+            f"brick={tuple(rec['brick'])} shared={rec['shared_bytes']} B, "
+            f"{rec['busy_bricks']} of {rec['bricks']} bricks hold fluid: "
+            f"vs plain max_abs_err={rec['max_abs_err']:.3e} "
+            f"max_err/row_max={rec['max_rel_err']:.3e}, vs untiled "
+            f"max_err/row_max={rec['untiled_max_rel_err']:.3e} (bitwise "
+            f"{'equal' if rec['bitwise_equal_untiled'] else 'not equal'}), "
+            f"bitwise_repeat=yes | tiled {rec['ms']:.4f} ms, untiled "
+            f"{rec['untiled_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
+            f"(plain,untiled,tiled,tiled,untiled,plain = "
+            + ",".join(f"{t:.4f}" for t in rec["runs_ms"])
+            + f"); bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+            f"({rec['bytes']} B, {rec['flops']} FLOP, {rec['pairs']} pairs, "
+            f"{rec['pairs_in_support']} in support) | {card}")
+        log("flat", f"{body} K={dims.k} tiled kernel on each brick that "
+            f"fits, bitwise equal, best of two runs (in the order of the "
+            f"bricks and back): {fp.ladder_line(rec['bricks_ladder'])} | "
+            f"{card}")
+    return {"n": pos.shape[0], "K": dims.k, "G": dims.g, "P": dims.flat_p,
+            "launches": launched, "bodies": bodies}
 
 
 def main() -> int:
@@ -466,17 +613,27 @@ def main() -> int:
     ptxas = ptxas_report(build_log)
     regs = {}
     for name in cc.PASS_IDS:
-        hits = [v for k, v in ptxas.items() if f"{len(functor(name))}"
-                f"{functor(name)}" in k]
-        if len(hits) != 1:
-            raise AssertionError(f"ptxas report has {len(hits)} entries "
-                                 f"for {functor(name)}")
-        regs[name] = {"registers": hits[0][0], "spill_bytes": hits[0][1]}
-    record["build_s"], record["ptxas"] = build_s, regs
+        r, sp, _ = ptxas_entry(ptxas, "column_pass_kernel", name, False)
+        regs[name] = {"registers": r, "spill_bytes": sp}
+    flat_regs = {}
+    for body, name in pp.FLAT_BODIES.items():
+        rows = pp.PASSES[name].fi
+        for tiled, kernel in ((True, "flat_pass_kernel"),
+                              (False, "column_pass_kernel")):
+            r, sp, smem = ptxas_entry(ptxas, kernel, name, True)
+            flat_regs[f"{'flat' if tiled else 'untiled'}_{body}"] = {
+                "registers": r, "spill_bytes": sp, "static_smem": smem,
+                "dynamic_smem_k24": (cc.flat_brick(rows, 24)[1]
+                                     if tiled else 0)}
+    record["build_s"], record["ptxas"] = build_s, dict(regs, **flat_regs)
     log("build", f"{KERNEL_SRC} -> {lib.name} in {build_s:.1f} s; "
         "registers/spill bytes: " + "; ".join(
             f"{n} {r['registers']}/{r['spill_bytes']}"
-            for n, r in regs.items()))
+            for n, r in regs.items())
+        + " | fluid-only instances, registers/spill bytes/static shared + "
+        "dynamic shared at K 24: " + "; ".join(
+            f"{n} {r['registers']}/{r['spill_bytes']}/{r['static_smem']}"
+            f"+{r['dynamic_smem_k24']}" for n, r in flat_regs.items()))
 
     cfg = cfp.dam_break_config(mode="parity")
     errs, times, paths = {}, {}, {}
@@ -577,6 +734,9 @@ def main() -> int:
         log("off", f"{solver} surface off: " + slice_line(st, card) + tail)
         del sim
 
+    # 7. flat: the prototype's entry point on the 150-frame WCSPH dam
+    record["flat"] = flat = flat_phase(cfg, cc, pp, torch, card)
+
     record["paths"], record["times"], record["errors"] = paths, times, errs
     owner = {"density": "wcsph", "density_colorgrad_visc": "wcsph",
              "surface_pressure": "wcsph", "density_visc": "wcsph_surface_off",
@@ -589,9 +749,18 @@ def main() -> int:
               "launches": (paths[owner.get(name, "dfsph")]["launches"][name]
                            if name not in OFF_PATH else 0),
               "max_abs_err": errs[name]["max_abs_err"],
-              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]},
+              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+              "bound_ms": times[name]["bound_ms"],
+             "bound_by": times[name]["bound_by"], "library_ms": None},
              **({"note": OFF_PATH[name]} if name in OFF_PATH else {}))
-        for name in cc.PASS_IDS]}
+        for name in cc.PASS_IDS]
+        + [{"name": f"flat_{body}", "route": "cuda", "source": KERNEL_SRC,
+            "replaces": FLAT_TPU_KERNEL, "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "untiled_ms": rec["untiled_ms"]}
+           for body, rec in flat["bodies"].items()]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "column_pass_build.log").write_text(build_log)

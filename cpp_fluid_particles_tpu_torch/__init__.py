@@ -2,8 +2,9 @@
 ``cpp_fluid_particles_tpu``.
 
 Same module names and public names as the JAX package, which stays the
-reference. Plain tensor code is torch; the neighbor-pass kernel that the
-JAX package wrote in Pallas is a hand-written CUDA kernel for Hopper
+reference. Plain tensor code is torch; the kernels that the JAX package
+wrote in Pallas (the neighbor pass and the flat-grid prototype's pass of
+exp/flat_pallas_proto.py) are hand-written CUDA kernels for Hopper
 (csrc/column_pass.cu), built with nvcc on first use. This package imports
 neither jax nor the JAX package. It runs the three solvers (WCSPH, DFSPH
 and PBD, the default) on the sliding-box engine (see ROADMAP.md for what

@@ -37,10 +37,19 @@
 // the i-side values held (3 to 6, positions plus velocities or derived
 // scalars) and in the sums kept in registers (1 to 9,
 // density_alpha_colorgrad the most; xsph_colorgrad holds 7 sums beside
-// six i values), which set the register count and so the occupancy. A
-// shared-memory halo
-// tile (the plan of exp/flat_pallas_proto.py) is the next step for this
-// kernel.
+// six i values), which set the register count and so the occupancy.
+//
+// flat_pass_kernel (below) replaces exp/flat_pallas_proto.py:67
+// `flat_pallas_pass`, the prototype that serves all 27 offsets of a tile
+// from one VMEM window of the flat cell axis. Its three bodies are the fluid
+// halves of density, stiffness_accel and density_colorgrad_visc
+// (FluidOnly<P>). A flat-axis window cannot fit a Hopper block (its halo is
+// a whole x-plane, 1.3 MB at the dam's shapes), so each block stages a 3-D
+// brick of cells with a one-cell halo into shared memory and serves every
+// offset from there: each staged cell is read from device memory once per
+// brick instead of once per neighbour. The same three functors also run
+// untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
+// times of both, on each brick, are in PERF.md's kernel table.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -712,6 +721,152 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
   return cudaGetLastError();
 }
 
+// --- the brick-tiled fluid-only kernel (exp/flat_pallas_proto.py:67) ---
+
+// A pass with its boundary loop compiled out: the prototype's bodies are
+// fluid-only halves of passes that have a boundary term.
+template <class P>
+struct FluidOnly : P {
+  static constexpr bool kBoundary = false;
+};
+
+constexpr int kFlatThreads = 512;
+constexpr int64_t kMaxShared = 232448;  // a Hopper block's dynamic shared max
+
+// Layout as column_pass_kernel; fl holds exactly the `rows` rows the
+// functor reads. One block per brick (bx, by, bz) of the GHOSTED grid, the
+// bricks in x-major order; the last brick on an axis may run past the grid.
+// Shared memory holds rows x K slots x the brick's (bx+2)(by+2)(bz+2) halo
+// cells, in fl's row/slot/cell order with cell stride 1, and then each halo
+// cell's occupancy (its leading real slots). Halo cells outside the grid
+// stage as empty; ghost-ring cells are staged like any other. One thread per
+// (slot, brick cell), looping; the offsets and slots run in
+// column_pass_kernel's order, sums stay in registers and are stored once, so
+// two launches are bitwise equal. Ghost cells and empty slots store 0.
+template <class P>
+__global__ void __launch_bounds__(kFlatThreads)
+    flat_pass_kernel(const float* __restrict__ fl, float* __restrict__ out,
+                     int rows, int k, int gx, int gy, int gz, int bx, int by,
+                     int bz, Consts c) {
+  static_assert(!P::kBoundary, "the tiled kernel is fluid-only");
+  extern __shared__ float sm[];
+  const int hy = by + 2, hz = bz + 2;
+  const int nh = (bx + 2) * hy * hz;
+  const int64_t kh = static_cast<int64_t>(k) * nh;  // shared row stride
+  int* occ = reinterpret_cast<int*>(sm + rows * kh);
+  const int64_t g = static_cast<int64_t>(gx) * gy * gz;
+  const int64_t kg = k * g;
+  const int nby = (gy + by - 1) / by, nbz = (gz + bz - 1) / bz;
+  const int x0 = static_cast<int>(blockIdx.x) / (nby * nbz) * bx;
+  const int y0 = (static_cast<int>(blockIdx.x) / nbz) % nby * by;
+  const int z0 = static_cast<int>(blockIdx.x) % nbz * bz;
+
+  // stage: thread -> (halo cell h, lane); each lane walks every lanes-th
+  // (row, slot) of its cell. Neighbouring threads take neighbouring halo
+  // cells, which are consecutive in fl along z, so the loads coalesce in
+  // z-runs. nh <= blockDim.x (launch_flat checks it).
+  {
+    const int lanes = blockDim.x / nh;
+    const int h = threadIdx.x % nh, lane = threadIdx.x / nh;
+    const int x = x0 - 1 + h / (hy * hz);
+    const int y = y0 - 1 + (h / hz) % hy;
+    const int z = z0 - 1 + h % hz;
+    const bool inside =
+        x >= 0 && x < gx && y >= 0 && y < gy && z >= 0 && z < gz;
+    const int64_t cell =
+        inside ? (static_cast<int64_t>(x) * gy + y) * gz + z : 0;
+    const float pad = 2.f * c.pos_guard;  // POS_PAD
+    if (lane < lanes) {
+      for (int rs = lane; rs < rows * k; rs += lanes)  // rs = row * k + slot
+        sm[rs * nh + h] = inside ? fl[rs * g + cell] : (rs < k ? pad : 0.f);
+    }
+  }
+  __syncthreads();
+  for (int h = threadIdx.x; h < nh; h += blockDim.x) {
+    int n = 0;
+    while (n < k && sm[n * nh + h] < c.pos_guard) ++n;  // ranks fill from 0
+    occ[h] = n;
+  }
+  __syncthreads();
+
+  const int nb = bx * by * bz;
+  for (int t = threadIdx.x; t < k * nb; t += blockDim.x) {
+    const int s = t / nb, ci = t % nb;
+    const int lx = ci / (by * bz), ly = (ci / bz) % by, lz = ci % bz;
+    const int x = x0 + lx, y = y0 + ly, z = z0 + lz;
+    if (x >= gx || y >= gy || z >= gz) continue;  // past the grid's edge
+    const int hi = ((lx + 1) * hy + ly + 1) * hz + lz + 1;
+    const bool interior =
+        x > 0 && x < gx - 1 && y > 0 && y < gy - 1 && z > 0 && z < gz - 1;
+
+    float acc[P::kOut];
+#pragma unroll
+    for (int n = 0; n < P::kOut; ++n) acc[n] = 0.f;
+
+    if (interior && s < occ[hi]) {
+      const int64_t ti = static_cast<int64_t>(s) * nh + hi;
+      const typename P::I iv = P::load_i(sm, ti, kh, c);
+      for (int o = 0; o < 27; ++o) {
+        const int hj =
+            hi + (o / 9 - 1) * hy * hz + ((o % 9) / 3 - 1) * hz + (o % 3 - 1);
+        const int nj = occ[hj];
+        for (int sj = 0; sj < nj; ++sj) {
+          const int64_t tj = static_cast<int64_t>(sj) * nh + hj;
+          const float dx = iv.x - sm[tj];
+          const float dy = iv.y - sm[kh + tj];
+          const float dz = iv.z - sm[2 * kh + tj];
+          const float r = sqrtf(dx * dx + dy * dy + dz * dz);
+          if (in_support(r, c)) P::fluid(acc, iv, sm, tj, kh, dx, dy, dz, r, c);
+        }
+      }
+    }
+    const int64_t cell = (static_cast<int64_t>(x) * gy + y) * gz + z;
+#pragma unroll
+    for (int n = 0; n < P::kOut; ++n) out[n * kg + s * g + cell] = acc[n];
+  }
+}
+
+// rows: the rows P reads. The brick comes from the caller
+// (ops/column_pass_cuda.py:flat_brick); one that does not fit is refused.
+template <class P>
+cudaError_t launch_flat(int rows, const float* fl, float* out, int k, int gx,
+                        int gy, int gz, int bx, int by, int bz,
+                        const Consts& c, cudaStream_t stream) {
+  if (k <= 0 || bx <= 0 || by <= 0 || bz <= 0) return cudaErrorInvalidValue;
+  const int64_t nh = static_cast<int64_t>(bx + 2) * (by + 2) * (bz + 2);
+  const int64_t bytes = (rows * static_cast<int64_t>(k) + 1) * nh * 4;
+  if (nh > kFlatThreads || bytes > kMaxShared) return cudaErrorInvalidValue;
+  const int64_t blocks = static_cast<int64_t>((gx + bx - 1) / bx) *
+                         ((gy + by - 1) / by) * ((gz + bz - 1) / bz);
+  cudaError_t err = cudaFuncSetAttribute(
+      flat_pass_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  flat_pass_kernel<P><<<static_cast<unsigned>(blocks), kFlatThreads,
+                        static_cast<size_t>(bytes), stream>>>(
+      fl, out, rows, k, gx, gy, gz, bx, by, bz, c);
+  return cudaGetLastError();
+}
+
+// tiled: the brick kernel; else column_pass_kernel on the same functor
+template <class P>
+cudaError_t launch_fluid(bool tiled, int rows, const float* fl, float* out,
+                         int k, int gx, int gy, int gz, int bx, int by, int bz,
+                         const Consts& c, cudaStream_t stream) {
+  if (tiled)
+    return launch_flat<FluidOnly<P>>(rows, fl, out, k, gx, gy, gz, bx, by, bz,
+                                     c, stream);
+  return launch<FluidOnly<P>>(fl, nullptr, out, k, 0, gx, gy, gz, c, stream);
+}
+
+bool read_consts(const float* consts, int n_consts, Consts* c) {
+  if (n_consts < 0 ||
+      static_cast<size_t>(n_consts) * sizeof(float) != sizeof(Consts))
+    return false;
+  std::memcpy(c, consts, sizeof(Consts));
+  return true;
+}
+
 }  // namespace
 
 // Pass ids match ops/column_pass_cuda.py:PASS_IDS. Returns a cudaError_t
@@ -721,11 +876,8 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
                                   const float* bd, float* out, int k, int kb,
                                   int gx, int gy, int gz, const float* consts,
                                   int n_consts, int device, void* stream) {
-  if (n_consts < 0 ||
-      static_cast<size_t>(n_consts) * sizeof(float) != sizeof(Consts))
-    return cudaErrorInvalidValue;
   Consts c;
-  std::memcpy(&c, consts, sizeof(Consts));
+  if (!read_consts(consts, n_consts, &c)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -765,6 +917,36 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
     case 15:
       return launch<DensityColorgradPass>(fl, bd, out, k, kb, gx, gy, gz, c,
                                           s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The prototype's bodies, ids as ops/column_pass_cuda.py:FLAT_IDS: 0
+// density (fl = [pos3, mass]), 1 sa = stiffness_accel (fl = [pos3, mass,
+// s]), 2 dcv = density_colorgrad_visc (fl = [pos3, mass, vel3]), each
+// fluid-only. tiled != 0: the brick kernel with brick (bx, by, bz); else the
+// untiled column_pass_kernel (the brick is ignored). Returns a cudaError_t.
+extern "C" int flat_pass_launch(int body_id, int tiled, const float* fl,
+                                float* out, int k, int gx, int gy, int gz,
+                                int bx, int by, int bz, const float* consts,
+                                int n_consts, int device, void* stream) {
+  Consts c;
+  if (!read_consts(consts, n_consts, &c)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool t = tiled != 0;
+  switch (body_id) {
+    case 0:
+      return launch_fluid<DensityPass>(t, 4, fl, out, k, gx, gy, gz, bx, by,
+                                       bz, c, s);
+    case 1:
+      return launch_fluid<StiffnessAccelPass>(t, 5, fl, out, k, gx, gy, gz,
+                                              bx, by, bz, c, s);
+    case 2:
+      return launch_fluid<DensityColorgradViscPass>(t, 7, fl, out, k, gx, gy,
+                                                    gz, bx, by, bz, c, s);
     default:
       return cudaErrorInvalidValue;
   }

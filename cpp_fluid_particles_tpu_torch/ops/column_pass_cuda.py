@@ -8,8 +8,13 @@ hash of the source and the flags, and loaded with ctypes. A missing
 ``nvcc`` or a failed build raises: there is no fallback.
 
 ``column_pass_cuda`` has the executor signature of
-``ops.passes.column_pass_plain`` and takes CUDA tensors only. ``LAUNCHES``
-counts the launches of each pass instance.
+``ops.passes.column_pass_plain`` and takes CUDA tensors only.
+``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
+(``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
+``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
+through the untiled kernel as its yardstick.
+``LAUNCHES`` counts the launches of each pass instance and of each of
+those six fluid-only instances.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from ..config import PI, SimConfig
 from . import kernels as kn
 from .dense import DenseDims
 from .grid import POS_PAD
-from .passes import BOUNDARY_ROWS, PASSES
+from .passes import BOUNDARY_ROWS, FLAT_BODIES, PASSES
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "column_pass.cu"
@@ -45,8 +50,23 @@ PASS_IDS = {"density": 0, "density_colorgrad_visc": 1, "surface_pressure": 2,
             "pbd_lambda": 11, "xsph_colorgrad": 12, "xsph": 13,
             "color_gradient": 14, "density_colorgrad": 15}
 
-# launches per pass instance; bumped once per successful launch
+# prototype body -> its id in flat_pass_launch (csrc/column_pass.cu)
+FLAT_IDS = {"density": 0, "sa": 1, "dcv": 2}
+
+# bricks of the tiled kernel, the first whose halo'd cells fit shared memory
+# wins: shrink along x, then y, keeping the contiguous z-runs long. One block
+# per brick, so a smaller brick spreads the occupied cells over more SMs:
+# 2x4x4 was the fastest on the frame-150 dam at K 24, 0.62x the time of a
+# 4^3 brick, whose 86 busy blocks left SMs idle (PERF.md, kernel table)
+BRICKS = ((2, 4, 4), (2, 2, 4), (2, 2, 2))
+SHARED_LIMIT = 232_448   # dynamic shared memory of one Hopper block, bytes
+
+# launches per pass instance, and per fluid-only instance of the prototype's
+# bodies (flat_<body>: the tiled kernel; untiled_<body>: column_pass_kernel);
+# bumped once per successful launch
 LAUNCHES = {name: 0 for name in PASS_IDS}
+LAUNCHES.update({f"{kind}_{body}": 0 for kind in ("flat", "untiled")
+                 for body in FLAT_IDS})
 
 
 def reset_launch_counts() -> None:
@@ -93,6 +113,10 @@ def _library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, ci, vp]
     fn.restype = ci
+    fn = lib.flat_pass_launch
+    fn.argtypes = [ci, ci, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci, ci,
+                   vp]
+    fn.restype = ci
     return lib
 
 
@@ -107,18 +131,17 @@ def _consts(cfg: SimConfig):
     return (ctypes.c_float * len(vals))(*vals)
 
 
-def _check(t: torch.Tensor, what: str, shape) -> None:
+def _check(t: torch.Tensor, what: str, shape,
+           fn: str = "column_pass_cuda") -> None:
     if not t.is_cuda:
-        raise ValueError(f"column_pass_cuda: {what} is on {t.device}, "
-                         "not a CUDA device")
+        raise ValueError(f"{fn}: {what} is on {t.device}, not a CUDA device")
     if t.dtype != torch.float32:
-        raise ValueError(f"column_pass_cuda: {what} is {t.dtype}, "
-                         "not float32")
+        raise ValueError(f"{fn}: {what} is {t.dtype}, not float32")
     if not t.is_contiguous():
-        raise ValueError(f"column_pass_cuda: {what} is not contiguous")
+        raise ValueError(f"{fn}: {what} is not contiguous")
     if tuple(t.shape) != shape:
-        raise ValueError(f"column_pass_cuda: {what} has shape "
-                         f"{tuple(t.shape)}, expected {shape}")
+        raise ValueError(f"{fn}: {what} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
 
 
 def column_pass_cuda(name: str, fl: torch.Tensor,
@@ -157,4 +180,65 @@ def column_pass_cuda(name: str, fl: torch.Tensor,
         raise RuntimeError(f"column_pass_cuda: launching {name} failed "
                            f"with CUDA error {err}")
     LAUNCHES[name] += 1
+    return out
+
+
+def brick_bytes(rows: int, k: int, brick) -> int:
+    """Shared bytes of the tiled kernel on ``brick``: rows x K slots x the
+    brick's halo'd cells, plus one occupancy count per halo cell, 4 bytes
+    each."""
+    cells = 1
+    for d in brick:
+        cells *= d + 2
+    return (rows * k + 1) * cells * 4
+
+
+def flat_brick(rows: int, k: int):
+    """-> (brick, shared bytes) of the tiled kernel for a body that stages
+    ``rows`` rows of K = ``k`` slots: the first of BRICKS that fits. Raises
+    ValueError when not even the smallest brick fits."""
+    for brick in BRICKS:
+        nbytes = brick_bytes(rows, k, brick)
+        if nbytes <= SHARED_LIMIT:
+            return brick, nbytes
+    raise ValueError(
+        f"flat_pass_cuda: {rows} rows x K={k} slots do not fit "
+        f"{SHARED_LIMIT} bytes of shared memory even with brick "
+        f"{BRICKS[-1]}")
+
+
+def flat_pass_cuda(body: str, fl: torch.Tensor, dims: DenseDims,
+                   cfg: SimConfig, tiled: bool = True,
+                   brick=None) -> torch.Tensor:
+    """The prototype's fluid-only ``body`` (``passes.FLAT_BODIES``) over
+    ``fl`` (rows, K, G), exactly the rows its pass reads, on the current
+    stream of its device; returns (n_out, K, G). tiled: the brick kernel
+    (counted as ``flat_<body>``) on ``brick``, one of BRICKS (default: the
+    first that fits, ``flat_brick``); else the untiled column_pass_kernel on
+    the same functor (``untiled_<body>``)."""
+    spec = PASSES[FLAT_BODIES[body]]
+    _check(fl, "fl", (spec.fi, dims.k, dims.g), "flat_pass_cuda")
+    if not tiled:
+        brick = (0, 0, 0)
+    elif brick is None:
+        brick = flat_brick(spec.fi, dims.k)[0]
+    elif tuple(brick) not in BRICKS:
+        raise ValueError(f"flat_pass_cuda: brick {brick} is not one of "
+                         f"{BRICKS}")
+    elif brick_bytes(spec.fi, dims.k, brick) > SHARED_LIMIT:
+        raise ValueError(f"flat_pass_cuda: brick {brick} at K={dims.k} does "
+                         f"not fit {SHARED_LIMIT} bytes of shared memory")
+    out = torch.empty((spec.n_out, dims.k, dims.g), dtype=torch.float32,
+                      device=fl.device)
+    consts = _consts(cfg)
+    stream = torch.cuda.current_stream(fl.device).cuda_stream
+    err = _library().flat_pass_launch(
+        FLAT_IDS[body], int(tiled), fl.data_ptr(), out.data_ptr(), dims.k,
+        dims.gx, dims.gy, dims.gz, *brick, consts, len(consts),
+        fl.device.index, stream)
+    kind = "flat" if tiled else "untiled"
+    if err != 0:
+        raise RuntimeError(f"flat_pass_cuda: launching {kind} {body} failed "
+                           f"with CUDA error {err}")
+    LAUNCHES[f"{kind}_{body}"] += 1
     return out

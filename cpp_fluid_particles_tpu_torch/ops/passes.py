@@ -483,19 +483,34 @@ PASSES = {
 }
 BOUNDARY_ROWS = 4      # [pos3, mass]
 
+# the bodies of the flat-grid prototype (exp/flat_pallas_proto.py:147-188:
+# density_terms, sa_terms, dcv_terms) -> the pass whose fluid half each is;
+# each reads that pass's rows (sa reads row 4 as s)
+FLAT_BODIES = {"density": "density", "sa": "stiffness_accel",
+               "dcv": "density_colorgrad_visc"}
+
 
 def column_pass_plain(name: str, fl: torch.Tensor,
                       bd: Optional[torch.Tensor], dims: DenseDims,
                       dims_b: Optional[DenseDims],
-                      cfg: SimConfig) -> torch.Tensor:
+                      cfg: SimConfig, fluid_only: bool = False
+                      ) -> torch.Tensor:
     """Plain 27-offset lane-major executor: the ghost ring makes every
     stencil offset ONE contiguous slice of the flat cell axis, and the
     pair blocks are (K_i, K_j, W). The i window trims the leading and
     trailing P = flat_p ghost cells; the interior ghost cells compute
     zeros (their slots hold POS_PAD / zero mass), and the trimmed ends are
     padded back with zeros. fl: (Fi, K, G); bd: (Fb, Kb, G) with the same
-    ghosted cell geometry, or None for a fluid-only pass."""
+    ghosted cell geometry, or None for a fluid-only pass. fluid_only: the
+    fluid term alone of a pass that has a boundary term (bd None), as the
+    flat prototype's oracle ``xla27`` sums it
+    (exp/flat_pallas_proto.py:191-210)."""
     fluid, bdry = PASSES[name].terms(cfg)
+    if fluid_only:
+        if bd is not None:
+            raise ValueError("column_pass_plain: fluid_only takes no "
+                             "boundary operand (bd=None)")
+        bdry = None
     p = dims.flat_p
     w = dims.g - 2 * p
     i_flat = fl[:, :, p:p + w]
@@ -528,6 +543,34 @@ def column_pass(name: str, fl, bd, dims, dims_b, cfg,
         else:
             raise ValueError(f"no neighbor-pass executor for {fl.device}")
     return executor(name, fl, bd, dims, dims_b, cfg)
+
+
+def flat_pallas_pass(body: str, fl: torch.Tensor, dims: DenseDims,
+                     cfg: SimConfig) -> torch.Tensor:
+    """Counterpart of the flat-grid prototype's Pallas kernel
+    (exp/flat_pallas_proto.py:67): the fluid-only ``body`` (a key of
+    FLAT_BODIES) summed one-sided over the 27 offsets of the flat ghosted
+    grid, with no boundary operand. ``fl`` (rows, K, G) holds the rows its
+    pass reads (density: [pos3, mass]; sa: [pos3, mass, s]; dcv: [pos3,
+    mass, vel3]). Returns (n_out, K, G): zero on the first and last
+    ``dims.flat_p`` cells, on the other ghost cells and on empty slots.
+    Dispatches by the device of ``fl``: the plain executor on the CPU, the
+    brick-tiled CUDA kernel (``column_pass_cuda.flat_pass_cuda``, which
+    checks its operands) on a GPU."""
+    if body not in FLAT_BODIES:
+        raise ValueError(f"unknown flat body {body!r}; one of "
+                         f"{sorted(FLAT_BODIES)}")
+    if fl.device.type == "cuda":
+        from .column_pass_cuda import flat_pass_cuda
+        return flat_pass_cuda(body, fl, dims, cfg)
+    if fl.device.type != "cpu":
+        raise ValueError(f"no flat-pass executor for {fl.device}")
+    want = (PASSES[FLAT_BODIES[body]].fi, dims.k, dims.g)
+    if tuple(fl.shape) != want:
+        raise ValueError(f"flat_pallas_pass: {body} takes fl of shape "
+                         f"{want}, got {tuple(fl.shape)}")
+    return column_pass_plain(FLAT_BODIES[body], fl, None, dims, None, cfg,
+                             fluid_only=True)
 
 
 def density_pass(fl, bd, dims, dims_b, cfg, executor=None):

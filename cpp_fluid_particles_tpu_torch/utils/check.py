@@ -1,0 +1,46 @@
+"""The yardstick that holds a kernel against its plain version on the card:
+the per-row tolerance and the CUDA-event timer.
+
+``PASS_BAR`` is the JAX package's Pallas bar
+(tests/test_pallas_engine.py:125-126): per output row, rtol 2e-5 plus atol
+2e-5 x the row's max. ``chip_smoke.py`` holds every neighbor-pass instance
+to it, and the flat-grid prototype's entry point
+(``exp/flat_pallas_proto.py``) its three bodies.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PASS_BAR = 2e-5          # pass outputs: rtol, and atol x the row's max
+
+
+def row_errors(tag: str, got: torch.Tensor, want: torch.Tensor):
+    """-> (max abs error, worst max error / row max); raises if a row is
+    over rtol PASS_BAR + atol PASS_BAR x the row's max."""
+    diff = (got - want).abs()
+    worst = 0.0
+    for r in range(want.shape[0]):
+        scale = float(want[r].abs().max()) + 1e-12
+        bound = PASS_BAR * want[r].abs() + PASS_BAR * scale
+        if not bool((diff[r] <= bound).all()):
+            raise AssertionError(f"{tag} row {r}: max err "
+                                 f"{float(diff[r].max())} over the bar (row "
+                                 f"max {scale})")
+        worst = max(worst, float(diff[r].max()) / scale)
+    return float(diff.max()), worst
+
+
+def time_ms(fn, reps: int, warm: int = 2) -> float:
+    """ms per call of fn, from CUDA events around reps calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps

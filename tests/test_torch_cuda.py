@@ -1,4 +1,5 @@
-"""The hand-written CUDA neighbor-pass kernel on the card.
+"""The hand-written CUDA neighbor-pass kernel and its brick-tiled
+fluid-only variant on the card.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -15,9 +16,11 @@ import pytest
 import torch
 
 import cpp_fluid_particles_tpu_torch as T
+from cpp_fluid_particles_tpu_torch.exp import flat_pallas_proto as fp
 from cpp_fluid_particles_tpu_torch.models import dense_step as ds
 from cpp_fluid_particles_tpu_torch.ops import column_pass_cuda as cc
 from cpp_fluid_particles_tpu_torch.ops import passes as pp
+from cpp_fluid_particles_tpu_torch.ops.passes import flat_pallas_pass
 
 pytestmark = pytest.mark.cuda
 
@@ -201,3 +204,75 @@ def test_pbd_simulation_runs_through_the_kernel(dev):
                                atol=2e-3)
     np.testing.assert_allclose(gc.pos_last.cpu().numpy(),
                                cc1.pos_last.numpy(), atol=2e-6)
+
+
+@pytest.fixture(scope="module")
+def flat_state(dev):
+    """Positions and velocities of the block after 3 WCSPH frames."""
+    sim = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
+                       device=dev)
+    sim.run(3)
+    return sim.state.pos, sim.state.vel
+
+
+@pytest.mark.parametrize("k", [fp.K, 101])
+@pytest.mark.parametrize("body", list(cc.FLAT_IDS))
+def test_flat_kernel_matches_plain_and_untiled(flat_state, body, k):
+    """The tiled kernel through flat_pallas_pass against a second tiled
+    launch (bitwise), the untiled kernel and the plain executor (per row,
+    BAR), each launch counted once (fp.compare). CFG's ghosted grid is no
+    multiple of 4, so at K 24 the last bricks run past its edge; at K 101
+    the brick shrinks below 2x4x4 for every body."""
+    fl, dims = fp.build_grid(*flat_state, CFG, k)
+    x = fp.operand(body, fl)
+    brick = cc.flat_brick(x.shape[0], k)[0]
+    if k == fp.K:
+        assert brick == cc.BRICKS[0]
+        assert any(g % b for g, b in zip((dims.gx, dims.gy, dims.gz), brick))
+    else:
+        assert brick != cc.BRICKS[0]
+    n0 = cc.LAUNCHES[f"flat_{body}"]
+    out = flat_pallas_pass(body, x, dims, CFG)
+    assert cc.LAUNCHES[f"flat_{body}"] == n0 + 1
+    rec = fp.compare(body, fl, dims, CFG, out)
+    assert rec["brick"] == list(brick)
+    assert bool(out.any())
+
+
+def test_flat_wrapper_checks_operands(flat_state):
+    fl, dims = fp.build_grid(*flat_state, CFG)
+    x = fp.operand("dcv", fl)
+    with pytest.raises(ValueError, match="float32"):
+        cc.flat_pass_cuda("dcv", x.double(), dims, CFG)
+    with pytest.raises(ValueError, match="shape"):
+        cc.flat_pass_cuda("dcv", fl[:5], dims, CFG)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        cc.flat_pass_cuda("dcv", x.cpu(), dims, CFG)
+    big = dims._replace(k=240)            # 7 rows x 240 slots: no brick fits
+    with pytest.raises(ValueError, match="do not fit"):
+        cc.flat_pass_cuda("dcv", torch.zeros((7, 240, dims.g),
+                                             device=x.device), big, CFG)
+
+
+@pytest.mark.parametrize("body", list(cc.FLAT_IDS))
+def test_flat_kernel_on_every_brick_is_bitwise_equal(flat_state, body):
+    """Every brick of the ladder that fits K 24 gives the default brick's
+    output bitwise (fp.time_bricks checks it and times each)."""
+    fl, dims = fp.build_grid(*flat_state, CFG)
+    x = fp.operand(body, fl)
+    out = flat_pallas_pass(body, x, dims, CFG)
+    ladder = fp.time_bricks(body, fl, dims, CFG, out)
+    assert [tuple(r["brick"]) for r in ladder] == list(cc.BRICKS)
+    assert all(r["ms"] > 0 and r["busy_bricks"] <= r["bricks"]
+               for r in ladder)
+
+
+def test_flat_wrapper_checks_the_brick(flat_state):
+    fl, dims = fp.build_grid(*flat_state, CFG)
+    x = fp.operand("dcv", fl)
+    with pytest.raises(ValueError, match="not one of"):
+        cc.flat_pass_cuda("dcv", x, dims, CFG, brick=(3, 3, 3))
+    big = dims._replace(k=60)      # 7 rows x 60 slots: 2x2x4 fits, 2x4x4 not
+    x = torch.zeros((7, 60, dims.g), device=x.device)
+    with pytest.raises(ValueError, match="does not fit"):
+        cc.flat_pass_cuda("dcv", x, big, CFG, brick=(2, 4, 4))
