@@ -3,8 +3,10 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
 hand-written kernels (cpp_fluid_particles_tpu_torch/csrc/column_pass.cu)
-with nvcc, holds each of the neighbor pass's sixteen instances against the
-plain torch executor on the card, then drives the port's paths on the full
+with nvcc, holds each of the neighbor pass's sixteen instances, and the
+particle-list kernel that runs pbd_lambda and stiffness_accel on the main
+path, against the plain torch executor on the card, then drives the port's
+paths on the full
 20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
 WCSPH, DFSPH and PBD for 300 frames each at the reference benchmark's dt,
@@ -14,14 +16,19 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of the kernels, seconds taken, and ptxas's
-              registers and spills for every instance; for the six
-              fluid-only instances of phase 7 also their shared memory
+              registers and spills for every instance, the particle-list
+              kernel's at each group width too; for the six fluid-only
+              instances of phase 7 also their shared memory
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
               its path gives it, at frame 0 and after the path's run;
               per-row tolerance ``utils.check.PASS_BAR``: rtol 2e-5,
               atol 2e-5 x the row's max;
               two launches must agree bitwise. color_gradient and
-              density_colorgrad, which no step runs, on PBD's [pos3, mass]
+              density_colorgrad, which no step runs, on PBD's [pos3, mass].
+              pbd_lambda and stiffness_accel also through the
+              particle-list kernel on the step's slot list at each group
+              width of LANES: against the plain executor and
+              column_pass_kernel at the same bar, two launches bitwise
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps
@@ -32,14 +39,19 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               mean iterations and the host syncs per frame
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
               projection with its exact all-lambda-zero exit):
-              pbd_lambda == stiffness_accel == the sum of the frames'
-              iterations, xsph_colorgrad == surface == the frames run
+              particle_pbd_lambda == particle_stiffness_accel == the sum
+              of the frames' iterations (the particle-list kernel; the
+              column kernel's counts of both stay 0), xsph_colorgrad ==
+              surface == the frames run
   5d. pbd_default  ``Simulation(device="cuda")`` as constructed (PBD in
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
               off, a short run each: the surface-off instances' launches
   6. timing   kernel vs plain executor per pass at the shapes of its
-              path's final state, beside the pass's bound
+              path's final state, beside the pass's bound; pbd_lambda and
+              stiffness_accel as a ladder in turns: column kernel, the
+              particle-list kernel at 8, 16, 32, 32, 16, 8 lanes, column
+              kernel (best of two each)
   7. flat     the flat-grid prototype's entry point
               (cpp_fluid_particles_tpu_torch/exp/flat_pallas_proto.py): the
               state after 150 WCSPH frames of the dam on a K = 24
@@ -135,14 +147,15 @@ def import_port():
 
 class Recorder:
     """An executor that records the operands of the first call of every
-    pass and runs the plain executor on all calls."""
+    pass, the step's slot list among them, and runs the plain executor on
+    all calls."""
 
     def __init__(self, plain):
         self.plain = plain
         self.calls = {}
 
-    def __call__(self, name, fl, bd, dims, dims_b, cfg):
-        self.calls.setdefault(name, (name, fl, bd, dims, dims_b))
+    def __call__(self, name, fl, bd, dims, dims_b, cfg, islots=None):
+        self.calls.setdefault(name, (name, fl, bd, dims, dims_b, islots))
         return self.plain(name, fl, bd, dims, dims_b, cfg)
 
 
@@ -179,31 +192,61 @@ def capture(sim, ds, pp, dt):
         for cfg in (sim.cfg, surface_off(sim.cfg)):
             ds.pbd_step(sim.state, sim.carry, sim.scene, cfg, dt, dims,
                         dims_b, sim.box, executor=rec)
-        _, fl, bd, pdims, pdims_b = rec.calls["pbd_lambda"]
+        _, fl, bd, pdims, pdims_b, _ = rec.calls["pbd_lambda"]
         for name in ("color_gradient", "density_colorgrad"):
-            rec.calls[name] = (name, fl, bd, pdims, pdims_b)
+            rec.calls[name] = (name, fl, bd, pdims, pdims_b, None)
     return list(rec.calls.values())
 
 
+def note_err(errs, key, max_abs, worst_rel):
+    e = errs.setdefault(key, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+    e["max_abs_err"] = max(e["max_abs_err"], max_abs)
+    e["max_rel_err"] = max(e["max_rel_err"], worst_rel)
+
+
+def launch_twice(tag, fn, torch):
+    """fn() twice -> its output, after checking that the two launches are
+    bitwise equal and finite."""
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: two launches differ")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: non-finite output")
+    return got
+
+
 def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
+    """Each pass's column kernel against the plain executor; pbd_lambda and
+    stiffness_accel also through the particle-list kernel at each group
+    width, against the plain executor and the column kernel (errors kept
+    as ``particle_<name>``)."""
     from cpp_fluid_particles_tpu_torch.utils.check import row_errors
-    for name, fl, bd, dims, dims_b in calls:
+    for name, fl, bd, dims, dims_b, islots in calls:
         want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
-        got = cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
-        again = cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"{tag} {name}: two launches differ")
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{tag} {name}: non-finite output")
+        got = launch_twice(f"{tag} {name}", lambda: cc.column_pass_cuda(
+            name, fl, bd, dims, dims_b, cfg), torch)
         max_abs, worst_rel = row_errors(f"{tag} {name}", got, want)
-        e = errs.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
-        e["max_abs_err"] = max(e["max_abs_err"], max_abs)
-        e["max_rel_err"] = max(e["max_rel_err"], worst_rel)
+        note_err(errs, name, max_abs, worst_rel)
         kb = dims_b.k if dims_b is not None else 0
         log("kernel", f"{tag} {name} K={dims.k} Kb={kb} "
             f"grid={dims.gx}x{dims.gy}x{dims.gz} max_abs_err={max_abs:.3e} "
             f"max_err/row_max={worst_rel:.3e} bitwise_repeat=yes")
+        if name not in pp.PARTICLE_PASSES:
+            continue
+        if islots is None:
+            raise AssertionError(f"{tag} {name}: the step gave no slot list")
+        for lanes in cc.LANES:
+            what = f"{tag} particle {name} W={lanes}"
+            part = launch_twice(what, lambda: cc.particle_pass_cuda(
+                name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes), torch)
+            max_abs, worst_rel = row_errors(what, part, want)
+            _, vs_column = row_errors(f"{what} vs column kernel", part, got)
+            note_err(errs, f"particle_{name}", max_abs, worst_rel)
+            log("kernel", f"{what} N={islots.shape[0]} K={dims.k} Kb={kb}: "
+                f"vs plain max_abs_err={max_abs:.3e} max_err/row_max="
+                f"{worst_rel:.3e}, vs column kernel max_err/row_max="
+                f"{vs_column:.3e}, bitwise_repeat=yes")
 
 
 ITER_KEYS = ("divergence_iters", "density_iters", "pbd_iters")
@@ -348,14 +391,15 @@ def drop_columns(st):
 
 def pbd_checks(st, cfg, off=False):
     """PBD launch identities over every frame run (the warm-up and retries
-    included): pbd_lambda == stiffness_accel == the sum of the frames'
-    iterations, one XSPH traversal per frame (xsph_colorgrad and surface,
-    or xsph with surface effects off); iterations in [1, pbd_max_iter].
-    Adds the mean iterations and host syncs per frame run after the
+    included): the particle-list kernel's pbd_lambda == stiffness_accel ==
+    the sum of the frames' iterations (the column kernel's counts of both
+    stay 0), one XSPH traversal per frame (xsph_colorgrad and surface, or
+    xsph with surface effects off); iterations in [1, pbd_max_iter]. Adds
+    the mean iterations and host syncs per frame run after the
     constructor."""
     it, frames_run = st["pbd_iters"], st["rerun_frames"]
     n = sum(it)
-    want = {"pbd_lambda": n, "stiffness_accel": n}
+    want = {"particle_pbd_lambda": n, "particle_stiffness_accel": n}
     want.update({"xsph": frames_run} if off else
                 {"xsph_colorgrad": frames_run, "surface": frames_run})
     expect_launches(st, want)
@@ -386,6 +430,16 @@ def expect_launches(stats, want):
     if bad:
         raise AssertionError(f"{stats['solver']} launch counts: "
                              + ", ".join(bad))
+
+
+def divergence_is_stiffness_accel(stats):
+    """DFSPH runs stiffness_accel (through the particle-list kernel) once
+    for every divergence pass."""
+    la = stats["launches"]
+    if la["divergence"] != la["particle_stiffness_accel"]:
+        raise AssertionError(f"divergence {la['divergence']} != "
+                             f"particle_stiffness_accel "
+                             f"{la['particle_stiffness_accel']}")
 
 
 def slice_line(stats, card):
@@ -431,16 +485,19 @@ def functor(name):
     return "".join(w.capitalize() for w in name.split("_")) + "Pass"
 
 
-def ptxas_entry(ptxas, kernel, name, fluid_only):
+def ptxas_entry(ptxas, kernel, name, fluid_only, lanes=None):
     """The one ptxas entry of ``kernel`` on pass ``name``'s functor,
-    wrapped in FluidOnly or not -> (registers, spill bytes, smem)."""
+    wrapped in FluidOnly or not, at group width ``lanes`` for the
+    particle-list kernel -> (registers, spill bytes, smem)."""
     f = functor(name)
     hits = [v for k, v in ptxas.items()
             if f"{len(kernel)}{kernel}" in k and f"{len(f)}{f}" in k
-            and ("9FluidOnly" in k) == fluid_only]
+            and ("9FluidOnly" in k) == fluid_only
+            and (lanes is None or f"ELi{lanes}E" in k)]
     if len(hits) != 1:
         raise AssertionError(f"ptxas report has {len(hits)} entries for "
-                             f"{kernel}<{f}> (fluid only: {fluid_only})")
+                             f"{kernel}<{f}> (fluid only: {fluid_only}, "
+                             f"lanes {lanes})")
     return hits[0]
 
 
@@ -504,9 +561,27 @@ def pass_bound(pp, torch, name, fl, bd, dims, dims_b, cfg, n_out):
     return rec
 
 
+def time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc, time_ms):
+    """The particle-list kernel at each group width beside the column
+    kernel, in turns within this call: column, W 8, 16, 32, 32, 16, 8,
+    column -> {"column": [two runs], lanes: [two runs]}."""
+    def column():
+        cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
+
+    def particle(lanes):
+        return lambda: cc.particle_pass_cuda(name, fl, bd, islots, dims,
+                                             dims_b, cfg, lanes=lanes)
+    order = sorted(cc.LANES)
+    runs = {"column": [time_ms(column, 50)]}
+    for lanes in order + order[::-1]:
+        runs.setdefault(lanes, []).append(time_ms(particle(lanes), 50))
+    runs["column"].append(time_ms(column, 50))
+    return runs
+
+
 def time_passes(calls, cfg, pp, cc, torch, card, times):
     from cpp_fluid_particles_tpu_torch.utils.check import time_ms
-    for name, fl, bd, dims, dims_b in calls:
+    for name, fl, bd, dims, dims_b, islots in calls:
         if name in times:
             continue
 
@@ -536,6 +611,26 @@ def time_passes(calls, cfg, pp, cc, torch, card, times):
             f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes']} B, "
             f"{t['flops']} FLOP, {t['pairs']} pairs, "
             f"{t['pairs_in_support']} in support) | {card}")
+        if name not in pp.PARTICLE_PASSES:
+            continue
+        runs = time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc,
+                           time_ms)
+        best = {w: min(r) for w, r in runs.items()}
+        t.update(column_kernel_ms=best["column"], lanes=cc.LANES[0],
+                 particle_ms=best[cc.LANES[0]],
+                 ladder={str(w): r for w, r in runs.items()})
+        log("timing", f"{name} ladder N={islots.shape[0]} K={dims.k} Kb={kb}"
+            f" (column kernel, particle-list kernel at W 8, 16, 32, 32, 16,"
+            f" 8, column kernel; best of two): column kernel "
+            f"{best['column']:.4f} ms; "
+            + "; ".join(f"W={w} {best[w]:.4f} ms" for w in sorted(cc.LANES))
+            + " (runs " + ", ".join(
+                f"{w}: " + "/".join(f"{x:.4f}" for x in r)
+                for w, r in runs.items())
+            + f"); default W={cc.LANES[0]}; plain {t['plain_ms']:.4f} ms; "
+            f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['pairs']} pairs, {t['pairs_in_support']} in support) | "
+            f"{card}")
 
 
 def flat_phase(cfg, cc, pp, torch, card):
@@ -585,6 +680,30 @@ def flat_phase(cfg, cc, pp, torch, card):
             "launches": launched, "bodies": bodies}
 
 
+def kernel_row(name, paths, owner, errs, times, pp):
+    """The kernels-table row of pass ``name``. pbd_lambda and
+    stiffness_accel give the particle-list kernel that their paths run:
+    its launches, errors and ms at the default width, with the column
+    kernel's ms and the width beside them."""
+    t = times[name]
+    row = {"name": name, "route": "cuda", "source": KERNEL_SRC,
+           "replaces": TPU_KERNEL, "launches": 0,
+           "max_abs_err": errs[name]["max_abs_err"], "ms": t["ms"],
+           "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "library_ms": None}
+    key = name
+    if name in pp.PARTICLE_PASSES:
+        key = f"particle_{name}"
+        row.update(max_abs_err=errs[key]["max_abs_err"],
+                   ms=t["particle_ms"],
+                   column_kernel_ms=t["column_kernel_ms"], lanes=t["lanes"])
+    if name in OFF_PATH:
+        row["note"] = OFF_PATH[name]
+    else:
+        row["launches"] = paths[owner.get(name, "dfsph")]["launches"][key]
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -615,6 +734,12 @@ def main() -> int:
     for name in cc.PASS_IDS:
         r, sp, _ = ptxas_entry(ptxas, "column_pass_kernel", name, False)
         regs[name] = {"registers": r, "spill_bytes": sp}
+    for name in pp.PARTICLE_PASSES:
+        for lanes in sorted(cc.LANES):
+            r, sp, _ = ptxas_entry(ptxas, "particle_pass_kernel", name,
+                                   False, lanes)
+            regs[f"particle_{name}_W{lanes}"] = {"registers": r,
+                                                 "spill_bytes": sp}
     flat_regs = {}
     for body, name in pp.FLAT_BODIES.items():
         rows = pp.PASSES[name].fi
@@ -661,18 +786,16 @@ def main() -> int:
         elif solver == "dfsph":
             # per frame run: one density_alpha_colorgrad, viscosity and
             # surface; divergence == stiffness_accel (the divergence warm
-            # start is on), at least 5 (1 + 1 + >= 1 divergence iterations
-            # and 1 + 1 + >= 2 density iterations of each)
+            # start is on; the particle-list kernel runs stiffness_accel),
+            # at least 5 (1 + 1 + >= 1 divergence iterations and 1 + 1 +
+            # >= 2 density iterations of each)
             expect_launches(st, {"density_alpha_colorgrad": frames_run,
                                  "viscosity": frames_run,
                                  "surface": frames_run,
                                  "divergence": (5 * frames_run, None),
-                                 "stiffness_accel": (5 * frames_run, None)})
-            la = st["launches"]
-            if la["divergence"] != la["stiffness_accel"]:
-                raise AssertionError(f"divergence {la['divergence']} != "
-                                     f"stiffness_accel "
-                                     f"{la['stiffness_accel']}")
+                                 "particle_stiffness_accel":
+                                     (5 * frames_run, None)})
+            divergence_is_stiffness_accel(st)
             cap = cfg.dfsph_max_iter
             di, ni = st["divergence_iters"], st["density_iters"]
             if not (min(di) >= 1 and max(di) <= cap and min(ni) >= 2
@@ -726,7 +849,8 @@ def main() -> int:
         elif solver == "dfsph":
             expect_launches(st, {"density_alpha": n, "viscosity": n,
                                  "divergence": (5 * n, None),
-                                 "stiffness_accel": (5 * n, None)})
+                                 "particle_stiffness_accel": (5 * n, None)})
+            divergence_is_stiffness_accel(st)
         else:
             tail = pbd_checks(st, off, off=True)
             drop_columns(st)
@@ -743,17 +867,8 @@ def main() -> int:
              "pressure_force": "wcsph_surface_off",
              "density_alpha": "dfsph_surface_off", "pbd_lambda": "pbd",
              "xsph_colorgrad": "pbd", "xsph": "pbd_surface_off"}
-    table = {"kernels": [
-        dict({"name": name, "route": "cuda", "source": KERNEL_SRC,
-              "replaces": TPU_KERNEL,
-              "launches": (paths[owner.get(name, "dfsph")]["launches"][name]
-                           if name not in OFF_PATH else 0),
-              "max_abs_err": errs[name]["max_abs_err"],
-              "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-              "bound_ms": times[name]["bound_ms"],
-             "bound_by": times[name]["bound_by"], "library_ms": None},
-             **({"note": OFF_PATH[name]} if name in OFF_PATH else {}))
-        for name in cc.PASS_IDS]
+    table = {"kernels": [kernel_row(name, paths, owner, errs, times, pp)
+                         for name in cc.PASS_IDS]
         + [{"name": f"flat_{body}", "route": "cuda", "source": KERNEL_SRC,
             "replaces": FLAT_TPU_KERNEL, "launches": rec["launches"],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],

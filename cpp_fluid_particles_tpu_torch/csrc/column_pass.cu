@@ -51,6 +51,11 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
+// particle_pass_kernel (below) runs pbd_lambda and stiffness_accel on the
+// main path: a group of lanes per particle of the step's slot list splits
+// that particle's 27-cell walk. column_pass_kernel still runs both as its
+// yardstick; the note above the template says why.
+//
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
 // which a zero mass would turn into NaN. The float constants are computed
@@ -721,6 +726,151 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
   return cudaGetLastError();
 }
 
+// --- the particle-list kernel (PbdLambdaPass and StiffnessAccelPass) ---
+//
+// Replaces, for the PBD projection passes pbd_lambda and stiffness_accel
+// (stiffness_accel also runs in every DFSPH Jacobi iteration), the same TPU
+// kernel as column_pass_kernel: pallas_passes.py:107 `column_pass`.
+// column_pass_kernel gives every (slot, cell) of the ghosted grid a thread:
+// at PBD's shapes (27^3 cells, K 18) that is 354k threads of which 6% hold
+// a particle, scattered over the warps, and each busy thread walks its 27
+// neighbour cells alone, a chain of some 300-400 dependent load-and-test
+// steps; a warp waits on its densest lane. What bounds that kernel is the
+// latency of the chain, not bytes or operations (PERF.md section 6).
+//
+// Here a group of W lanes (8, 16 or 32, inside one warp) serves one
+// particle of the step's list islots (ops/box.py BoxIndex.slots: (N,)
+// int64 into the flat (K, G) slot axis; an invalid particle holds the trash
+// value K*G and its group does nothing). Lane l takes the offsets l, l+W,
+// l+2W, ... < 27 in the reference's m-order and walks each neighbour cell
+// exactly as column_pass_kernel does (fluid slots up to the first padding
+// slot, then the boundary slots, the same functor), which cuts the chain to
+// about 27/W cells. The group's P::kOut sums are then reduced by a
+// fixed-order xor butterfly over the group's lanes, and lane n stores sum
+// n. No lane returns before the shuffles: they take the full-warp mask, and
+// lanes without a particle join them with zero sums. No atomics, so two
+// launches are bitwise equal; the sum order differs from
+// column_pass_kernel's, so the two agree to rounding, not bitwise. A sum no
+// pair contributes to stays +-0 (a butterfly over zeros), which PBD's exact
+// all-lambda-zero exit relies on. The kernel writes only the listed slots:
+// the caller zeroes the output (ops/column_pass_cuda.py
+// particle_pass_cuda), so ghost cells and empty slots read 0.
+template <class P, int W>
+__global__ void __launch_bounds__(kThreads)
+    particle_pass_kernel(const float* __restrict__ fl,
+                         const float* __restrict__ bd,
+                         const int64_t* __restrict__ islots,
+                         float* __restrict__ out, int n, int k, int kb,
+                         int gx, int gy, int gz, Consts c) {
+  static_assert(W == 8 || W == 16 || W == 32,
+                "a group is 8, 16 or 32 lanes of one warp");
+  static_assert(P::kOut <= W, "lane n stores sum n");
+  static_assert(kThreads % 32 == 0, "blocks hold whole warps");
+  const int64_t g = static_cast<int64_t>(gx) * gy * gz;
+  const int64_t kg = k * g;
+  const int64_t kbg = kb * g;
+  const int64_t p =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / W;
+  const int lane = static_cast<int>(threadIdx.x % W);
+  const int64_t t = p < n ? islots[p] : kg;  // kg: the trash slot
+
+  // every test below reads only t, so it is uniform across the group
+  bool active = t >= 0 && t < kg;
+  int64_t cell = 0;
+  const int64_t gyz = static_cast<int64_t>(gy) * gz;
+  if (active) {
+    cell = t % g;
+    const int x = static_cast<int>(cell / gyz);
+    const int y = static_cast<int>((cell / gz) % gy);
+    const int z = static_cast<int>(cell % gz);
+    active = x > 0 && x < gx - 1 && y > 0 && y < gy - 1 && z > 0 &&
+             z < gz - 1 && fl[t] < c.pos_guard;
+  }
+
+  float acc[P::kOut];
+#pragma unroll
+  for (int j = 0; j < P::kOut; ++j) acc[j] = 0.f;
+
+  if (active) {
+    const typename P::I iv = P::load_i(fl, t, kg, c);
+    for (int o = lane; o < 27; o += W) {
+      const int64_t cj =
+          cell + (o / 9 - 1) * gyz + ((o % 9) / 3 - 1) * gz + (o % 3 - 1);
+      for (int s = 0; s < k; ++s) {
+        const int64_t tj = s * g + cj;
+        const float xj = fl[tj];
+        if (!(xj < c.pos_guard)) break;  // ranks fill slots from 0
+        const float dx = iv.x - xj;
+        const float dy = iv.y - fl[kg + tj];
+        const float dz = iv.z - fl[2 * kg + tj];
+        const float r = sqrtf(dx * dx + dy * dy + dz * dz);
+        if (in_support(r, c)) P::fluid(acc, iv, fl, tj, kg, dx, dy, dz, r, c);
+      }
+      if constexpr (P::kBoundary) {
+        for (int s = 0; s < kb; ++s) {
+          const int64_t tj = s * g + cj;
+          const float xj = bd[tj];
+          if (!(xj < c.pos_guard)) break;
+          const float dx = iv.x - xj;
+          const float dy = iv.y - bd[kbg + tj];
+          const float dz = iv.z - bd[2 * kbg + tj];
+          const float r = sqrtf(dx * dx + dy * dy + dz * dz);
+          if (in_support(r, c))
+            P::bdry(acc, iv, bd, tj, kbg, dx, dy, dz, r, c);
+        }
+      }
+    }
+  }
+
+  // groups are W-aligned inside the warp, so xor by m < W stays in the group
+#pragma unroll
+  for (int m = W / 2; m > 0; m >>= 1) {
+#pragma unroll
+    for (int j = 0; j < P::kOut; ++j)
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
+  }
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < P::kOut; ++j)
+      if (lane == j) out[j * kg + t] = acc[j];
+  }
+}
+
+template <class P, int W>
+cudaError_t launch_particles(const float* fl, const float* bd,
+                             const int64_t* islots, float* out, int n, int k,
+                             int kb, int gx, int gy, int gz, const Consts& c,
+                             cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  const int64_t threads = static_cast<int64_t>(n) * W;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  particle_pass_kernel<P, W><<<blocks, kThreads, 0, stream>>>(
+      fl, bd, islots, out, n, k, kb, gx, gy, gz, c);
+  return cudaGetLastError();
+}
+
+// the group width W, instantiated for 8, 16 and 32 only
+template <class P>
+cudaError_t launch_lanes(int lanes, const float* fl, const float* bd,
+                         const int64_t* islots, float* out, int n, int k,
+                         int kb, int gx, int gy, int gz, const Consts& c,
+                         cudaStream_t stream) {
+  switch (lanes) {
+    case 8:
+      return launch_particles<P, 8>(fl, bd, islots, out, n, k, kb, gx, gy,
+                                    gz, c, stream);
+    case 16:
+      return launch_particles<P, 16>(fl, bd, islots, out, n, k, kb, gx, gy,
+                                     gz, c, stream);
+    case 32:
+      return launch_particles<P, 32>(fl, bd, islots, out, n, k, kb, gx, gy,
+                                     gz, c, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // --- the brick-tiled fluid-only kernel (exp/flat_pallas_proto.py:67) ---
 
 // A pass with its boundary loop compiled out: the prototype's bodies are
@@ -917,6 +1067,34 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
     case 15:
       return launch<DensityColorgradPass>(fl, bd, out, k, kb, gx, gy, gz, c,
                                           s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The particle-list kernel on pass ids 5 (stiffness_accel) and 11
+// (pbd_lambda) of column_pass_launch, W = lanes in {8, 16, 32}, over the n
+// particles of islots (int64, a slot in [0, K*G) or the trash value K*G).
+// out must be zeroed by the caller: only listed slots are written. Returns
+// a cudaError_t; any other pass id or width is cudaErrorInvalidValue.
+extern "C" int particle_pass_launch(int pass_id, int lanes, const float* fl,
+                                    const float* bd, const int64_t* islots,
+                                    float* out, int n, int k, int kb, int gx,
+                                    int gy, int gz, const float* consts,
+                                    int n_consts, int device, void* stream) {
+  Consts c;
+  if (!read_consts(consts, n_consts, &c) || n < 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pass_id) {
+    case 5:
+      return launch_lanes<StiffnessAccelPass>(lanes, fl, bd, islots, out, n,
+                                              k, kb, gx, gy, gz, c, s);
+    case 11:
+      return launch_lanes<PbdLambdaPass>(lanes, fl, bd, islots, out, n, k, kb,
+                                         gx, gy, gz, c, s);
     default:
       return cudaErrorInvalidValue;
   }

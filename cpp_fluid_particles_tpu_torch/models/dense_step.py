@@ -418,7 +418,7 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
 
     def sa_pass(s_d):
         return pp.stiffness_accel_pass((pm, s_d[None]), bdx, dims, dims_b,
-                                       cfg, executor)
+                                       cfg, executor, islots=lo.idx.slots)
 
     # --- divergence solve (src/DFSPHSolver.cu:331-363) ---
     def div_error(v_d):
@@ -511,7 +511,8 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
 
     def project_once(p_d):
         lam5 = pp.pbd_lambda_pass(torch.cat([p_d, mass_d], 0), bdx, dims,
-                                  dims_b, cfg, executor)
+                                  dims_b, cfg, executor,
+                                  islots=lo.idx.slots)
         rho = lam5[0]
         lam = torch.where(
             rho > cfg.rho0,
@@ -526,7 +527,8 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
             alive = alive & (torch.max(rho) / rho0 - 1.0
                              > _f32(cfg.pbd_density_tolerance))
         dp = pp.stiffness_accel_pass((p_d, mass_d, lam[None]), bdx, dims,
-                                     dims_b, cfg, executor) / rho0
+                                     dims_b, cfg, executor,
+                                     islots=lo.idx.slots) / rho0
         return _clamp_pos_only(p_d + dp, cfg), rho, alive
 
     # --- projection (src/PBDSolver.cu:225-258), driven by the host: the

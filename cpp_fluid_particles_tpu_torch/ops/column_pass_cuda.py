@@ -9,12 +9,17 @@ hash of the source and the flags, and loaded with ctypes. A missing
 
 ``column_pass_cuda`` has the executor signature of
 ``ops.passes.column_pass_plain`` and takes CUDA tensors only.
+``particle_pass_cuda`` runs ``passes.PARTICLE_PASSES`` (pbd_lambda and
+stiffness_accel) through the particle-list kernel, a group of ``LANES``
+lanes per particle of the step's slot list; ``passes.column_pass`` sends
+those two passes there on a card.
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
 through the untiled kernel as its yardstick.
-``LAUNCHES`` counts the launches of each pass instance and of each of
-those six fluid-only instances.
+``LAUNCHES`` counts the launches of each pass instance, of each
+particle-list instance (``particle_<name>``) and of each of those six
+fluid-only instances.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from ..config import PI, SimConfig
 from . import kernels as kn
 from .dense import DenseDims
 from .grid import POS_PAD
-from .passes import BOUNDARY_ROWS, FLAT_BODIES, PASSES
+from .passes import BOUNDARY_ROWS, FLAT_BODIES, PARTICLE_PASSES, PASSES
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "column_pass.cu"
@@ -61,10 +66,18 @@ FLAT_IDS = {"density": 0, "sa": 1, "dcv": 2}
 BRICKS = ((2, 4, 4), (2, 2, 4), (2, 2, 2))
 SHARED_LIMIT = 232_448   # dynamic shared memory of one Hopper block, bytes
 
-# launches per pass instance, and per fluid-only instance of the prototype's
-# bodies (flat_<body>: the tiled kernel; untiled_<body>: column_pass_kernel);
-# bumped once per successful launch
+# group widths of the particle-list kernel (lanes per particle), the
+# default first: 32 lanes (one offset each, 5 idle) took 0.92-0.94x the
+# time of 8 or 16 for both passes on the full dam at K 16-18 (PERF.md,
+# kernel table)
+LANES = (32, 8, 16)
+
+# launches per pass instance, per particle-list instance (particle_<name>),
+# and per fluid-only instance of the prototype's bodies (flat_<body>: the
+# tiled kernel; untiled_<body>: column_pass_kernel); bumped once per
+# successful launch
 LAUNCHES = {name: 0 for name in PASS_IDS}
+LAUNCHES.update({f"particle_{name}": 0 for name in PARTICLE_PASSES})
 LAUNCHES.update({f"{kind}_{body}": 0 for kind in ("flat", "untiled")
                  for body in FLAT_IDS})
 
@@ -117,6 +130,10 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ci, ci, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci, ci,
                    vp]
     fn.restype = ci
+    fn = lib.particle_pass_launch
+    fn.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci,
+                   ci, vp]
+    fn.restype = ci
     return lib
 
 
@@ -144,30 +161,40 @@ def _check(t: torch.Tensor, what: str, shape,
                          f"expected {shape}")
 
 
+def _check_operands(fn: str, name: str, fl: torch.Tensor,
+                    bd: Optional[torch.Tensor], dims: DenseDims,
+                    dims_b: Optional[DenseDims]):
+    """Check pass ``name``'s grids -> (boundary pointer or None, Kb)."""
+    spec = PASSES[name]
+    _check(fl, "fl", (spec.fi, dims.k, dims.g), fn)
+    if spec.has_bd != (bd is not None):
+        raise ValueError(f"{fn}: pass {name} takes "
+                         + ("a boundary operand" if spec.has_bd
+                            else "no boundary operand (bd=None)"))
+    if bd is None:
+        return None, 0
+    if dims_b[:3] != dims[:3]:
+        raise ValueError(f"{fn}: fluid and boundary grids must share the "
+                         "ghosted cell geometry")
+    _check(bd, "bd", (BOUNDARY_ROWS, dims_b.k, dims.g), fn)
+    if bd.device != fl.device:
+        raise ValueError(f"{fn}: fl and bd on different devices")
+    return bd.data_ptr(), dims_b.k
+
+
 def column_pass_cuda(name: str, fl: torch.Tensor,
                      bd: Optional[torch.Tensor], dims: DenseDims,
-                     dims_b: Optional[DenseDims],
-                     cfg: SimConfig) -> torch.Tensor:
+                     dims_b: Optional[DenseDims], cfg: SimConfig,
+                     islots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch pass ``name`` on ``fl`` (Fi, K, G) and ``bd`` (4, Kb, G) on
     the current stream of their device; returns (n_out, K, G). A
     fluid-only pass (``has_bd`` False) takes ``bd=None, dims_b=None``, and
-    the kernel gets a null boundary pointer and Kb = 0."""
+    the kernel gets a null boundary pointer and Kb = 0. ``islots``, the
+    executor protocol's slot list, is ignored: this kernel walks every
+    slot of the grid."""
     spec = PASSES[name]
-    _check(fl, "fl", (spec.fi, dims.k, dims.g))
-    if spec.has_bd != (bd is not None):
-        raise ValueError(f"column_pass_cuda: pass {name} takes "
-                         + ("a boundary operand" if spec.has_bd
-                            else "no boundary operand (bd=None)"))
-    bd_ptr, kb = None, 0
-    if bd is not None:
-        if dims_b[:3] != dims[:3]:
-            raise ValueError("column_pass_cuda: fluid and boundary grids "
-                             "must share the ghosted cell geometry")
-        _check(bd, "bd", (BOUNDARY_ROWS, dims_b.k, dims.g))
-        if bd.device != fl.device:
-            raise ValueError("column_pass_cuda: fl and bd on different "
-                             "devices")
-        bd_ptr, kb = bd.data_ptr(), dims_b.k
+    bd_ptr, kb = _check_operands("column_pass_cuda", name, fl, bd, dims,
+                                 dims_b)
     out = torch.empty((spec.n_out, dims.k, dims.g), dtype=torch.float32,
                       device=fl.device)
     consts = _consts(cfg)
@@ -180,6 +207,52 @@ def column_pass_cuda(name: str, fl: torch.Tensor,
         raise RuntimeError(f"column_pass_cuda: launching {name} failed "
                            f"with CUDA error {err}")
     LAUNCHES[name] += 1
+    return out
+
+
+def particle_pass_cuda(name: str, fl: torch.Tensor, bd: torch.Tensor,
+                       islots: torch.Tensor, dims: DenseDims,
+                       dims_b: DenseDims, cfg: SimConfig,
+                       lanes: Optional[int] = None) -> torch.Tensor:
+    """Pass ``name`` (one of ``passes.PARTICLE_PASSES``) through the
+    particle-list kernel on the current stream of ``fl``'s device: a group
+    of ``lanes`` lanes (one of LANES; default LANES[0]) for each particle of
+    ``islots``, the step's ``BoxIndex.slots`` ((N,) int64 into the flat
+    (K, G) slot axis, K*G for an invalid particle). Returns (n_out, K, G),
+    zeroed by one memset before the launch (it counts in the kernel's
+    time): the kernel writes only the listed slots. Counted as
+    ``particle_<name>``."""
+    fn = "particle_pass_cuda"
+    if name not in PARTICLE_PASSES:
+        raise ValueError(f"{fn}: pass {name!r} has no particle-list kernel; "
+                         f"one of {PARTICLE_PASSES}")
+    lanes = LANES[0] if lanes is None else lanes
+    if lanes not in LANES:
+        raise ValueError(f"{fn}: lanes {lanes} is not one of {LANES}")
+    if islots.dtype != torch.int64 or islots.dim() != 1:
+        raise ValueError(f"{fn}: islots must be 1-D int64, got "
+                         f"{islots.dtype} of shape {tuple(islots.shape)}")
+    if not islots.is_contiguous():
+        raise ValueError(f"{fn}: islots is not contiguous")
+    bd_ptr, kb = _check_operands(fn, name, fl, bd, dims, dims_b)
+    if islots.device != fl.device:
+        raise ValueError(f"{fn}: islots is on {islots.device}, fl on "
+                         f"{fl.device}")
+    out = torch.zeros((PASSES[name].n_out, dims.k, dims.g),
+                      dtype=torch.float32, device=fl.device)
+    n = islots.shape[0]
+    if n == 0:
+        return out
+    consts = _consts(cfg)
+    stream = torch.cuda.current_stream(fl.device).cuda_stream
+    err = _library().particle_pass_launch(
+        PASS_IDS[name], lanes, fl.data_ptr(), bd_ptr, islots.data_ptr(),
+        out.data_ptr(), n, dims.k, kb, dims.gx, dims.gy, dims.gz, consts,
+        len(consts), fl.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launching {name} with {lanes} lanes "
+                           f"failed with CUDA error {err}")
+    LAUNCHES[f"particle_{name}"] += 1
     return out
 
 

@@ -12,8 +12,9 @@ defined by two TERM functions in vector-component form over pair blocks
     and receive no forces), or None for a fluid-only pass, which takes no
     boundary operand (``bd=None``, ``dims_b=None``).
 
-Executors (same signature, ``(name, fl, bd, dims, dims_b, cfg) -> (n_out,
-K, G)``):
+Executors (same signature, ``(name, fl, bd, dims, dims_b, cfg,
+islots=None) -> (n_out, K, G)``; ``islots`` is the step's particle -> slot
+list, ``BoxIndex.slots``, which the callers of ``PARTICLE_PASSES`` give):
 
   * ``column_pass_plain`` — port of ``column_pass_xla`` (pallas_passes.py:287)
     with ``_std_body`` (:780): the plain lane-major 27-offset loop in torch
@@ -22,8 +23,11 @@ K, G)``):
     kernel that replaces the Pallas ``column_pass`` (pallas_passes.py:107).
 
 ``column_pass`` dispatches by device: CPU tensors take the plain executor,
-CUDA tensors the kernel (which raises rather than falls back). Outputs are
-zero on ghost cells and on empty i slots, up to the sign of zero.
+CUDA tensors the kernel (which raises rather than falls back). On a card,
+``PARTICLE_PASSES`` (pbd_lambda and stiffness_accel) take the particle-list
+kernel (``column_pass_cuda.particle_pass_cuda``), which needs ``islots``.
+Outputs are zero on ghost cells and on empty i slots, up to the sign of
+zero.
 """
 
 from __future__ import annotations
@@ -483,6 +487,10 @@ PASSES = {
 }
 BOUNDARY_ROWS = 4      # [pos3, mass]
 
+# the passes that run, on a card, through the particle-list kernel over the
+# step's slot list (ops/column_pass_cuda.py particle_pass_cuda)
+PARTICLE_PASSES = ("pbd_lambda", "stiffness_accel")
+
 # the bodies of the flat-grid prototype (exp/flat_pallas_proto.py:147-188:
 # density_terms, sa_terms, dcv_terms) -> the pass whose fluid half each is;
 # each reads that pass's rows (sa reads row 4 as s)
@@ -493,7 +501,8 @@ FLAT_BODIES = {"density": "density", "sa": "stiffness_accel",
 def column_pass_plain(name: str, fl: torch.Tensor,
                       bd: Optional[torch.Tensor], dims: DenseDims,
                       dims_b: Optional[DenseDims],
-                      cfg: SimConfig, fluid_only: bool = False
+                      cfg: SimConfig, fluid_only: bool = False,
+                      islots: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Plain 27-offset lane-major executor: the ghost ring makes every
     stencil offset ONE contiguous slice of the flat cell axis, and the
@@ -504,7 +513,8 @@ def column_pass_plain(name: str, fl: torch.Tensor,
     ghosted cell geometry, or None for a fluid-only pass. fluid_only: the
     fluid term alone of a pass that has a boundary term (bd None), as the
     flat prototype's oracle ``xla27`` sums it
-    (exp/flat_pallas_proto.py:191-210)."""
+    (exp/flat_pallas_proto.py:191-210). ``islots`` (the executor
+    protocol's slot list) is ignored: every slot is computed."""
     fluid, bdry = PASSES[name].terms(cfg)
     if fluid_only:
         if bd is not None:
@@ -527,22 +537,32 @@ Executor = Callable[..., torch.Tensor]
 
 
 def column_pass(name: str, fl, bd, dims, dims_b, cfg,
-                executor: Optional[Executor] = None) -> torch.Tensor:
+                executor: Optional[Executor] = None,
+                islots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run pass ``name``. ``fl`` is the stacked field grid or a tuple of
     field groups, stacked here (as the JAX package's ``_run`` does).
     executor=None dispatches by the device of ``fl``: the plain executor on
-    the CPU, the CUDA kernel on a GPU."""
+    the CPU, the CUDA kernel on a GPU, and for ``PARTICLE_PASSES`` the
+    particle-list kernel over ``islots``, which a GPU then requires.
+    ``islots`` is handed on to an executor as a keyword."""
     if isinstance(fl, tuple):
         fl = torch.cat(fl, 0)
     if executor is None:
         if fl.device.type == "cpu":
             executor = column_pass_plain
         elif fl.device.type == "cuda":
-            from .column_pass_cuda import column_pass_cuda
-            executor = column_pass_cuda
+            from . import column_pass_cuda as cc
+            if name in PARTICLE_PASSES:
+                if islots is None:
+                    raise ValueError(f"{name} on {fl.device} runs the "
+                                     "particle-list kernel, which needs "
+                                     "islots")
+                return cc.particle_pass_cuda(name, fl, bd, islots, dims,
+                                             dims_b, cfg)
+            executor = cc.column_pass_cuda
         else:
             raise ValueError(f"no neighbor-pass executor for {fl.device}")
-    return executor(name, fl, bd, dims, dims_b, cfg)
+    return executor(name, fl, bd, dims, dims_b, cfg, islots=islots)
 
 
 def flat_pallas_pass(body: str, fl: torch.Tensor, dims: DenseDims,
@@ -622,11 +642,12 @@ def divergence_pass(fl, bd, dims, dims_b, cfg, executor=None):
                        executor)[0]
 
 
-def stiffness_accel_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl: the field groups ([pos3, mass], stiff[None]); bd: [pos3, mass].
-    Returns (3, K, G)."""
+def stiffness_accel_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
+                         islots):
+    """fl: the field groups ([pos3, mass], stiff[None]); bd: [pos3, mass];
+    islots: the step's ``BoxIndex.slots``. Returns (3, K, G)."""
     return column_pass("stiffness_accel", fl, bd, dims, dims_b, cfg,
-                       executor)
+                       executor, islots=islots)
 
 
 def viscosity_pass(fl, dims, cfg, executor=None):
@@ -640,10 +661,11 @@ def surface_pass(fl, dims, cfg, executor=None):
     return column_pass("surface", fl, None, dims, None, cfg, executor)
 
 
-def pbd_lambda_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl, bd: [pos3, mass]. Returns (5, K, G):
-    [rho, gsumx, gsumy, gsumz, slam]."""
-    return column_pass("pbd_lambda", fl, bd, dims, dims_b, cfg, executor)
+def pbd_lambda_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
+    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.slots``.
+    Returns (5, K, G): [rho, gsumx, gsumy, gsumz, slam]."""
+    return column_pass("pbd_lambda", fl, bd, dims, dims_b, cfg, executor,
+                       islots=islots)
 
 
 def xsph_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None):

@@ -1,5 +1,6 @@
-"""The hand-written CUDA neighbor-pass kernel and its brick-tiled
-fluid-only variant on the card.
+"""The hand-written CUDA neighbor-pass kernel, its particle-list variant
+for pbd_lambda and stiffness_accel, and its brick-tiled fluid-only variant
+on the card.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -47,12 +48,13 @@ def _block():
 def operands(dev):
     """The operands the main paths give each pass: the scene build's
     density pass, and one step of each solver with surface effects on and
-    off, after 3 frames of the solver. color_gradient and
+    off, after 3 frames of the solver, each with the slot list the step
+    hands it (None but for ``pp.PARTICLE_PASSES``). color_gradient and
     density_colorgrad, which no step runs, take PBD's [pos3, mass]."""
     calls = {}
 
-    def record(name, fl, bd, dims, dims_b, cfg):
-        calls.setdefault(name, (name, fl, bd, dims, dims_b))
+    def record(name, fl, bd, dims, dims_b, cfg, islots=None):
+        calls.setdefault(name, (name, fl, bd, dims, dims_b, islots))
         return pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
 
     off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
@@ -67,16 +69,16 @@ def operands(dev):
                                    executor=record)
     ds.build_dense_scene(CFG, T.boundary_positions(CFG), sim._kb, dev,
                          executor=record)
-    _, fl, bd, dims, dims_b = calls["pbd_lambda"]
+    _, fl, bd, dims, dims_b, _ = calls["pbd_lambda"]
     for name in ("color_gradient", "density_colorgrad"):
-        calls[name] = (name, fl, bd, dims, dims_b)
+        calls[name] = (name, fl, bd, dims, dims_b, None)
     assert sorted(calls) == sorted(cc.PASS_IDS)
     return calls
 
 
 @pytest.mark.parametrize("name", list(cc.PASS_IDS))
 def test_kernel_matches_plain_and_repeats_bitwise(operands, name):
-    _, fl, bd, dims, dims_b = operands[name]
+    _, fl, bd, dims, dims_b, _ = operands[name]
     want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
     n0 = cc.LAUNCHES[name]
     got = cc.column_pass_cuda(name, fl, bd, dims, dims_b, CFG)
@@ -90,7 +92,7 @@ def test_kernel_matches_plain_and_repeats_bitwise(operands, name):
 
 
 def test_wrapper_checks_operands(operands):
-    name, fl, bd, dims, dims_b = operands["density_colorgrad_visc"]
+    name, fl, bd, dims, dims_b, _ = operands["density_colorgrad_visc"]
     with pytest.raises(ValueError, match="float32"):
         cc.column_pass_cuda(name, fl.double(), bd, dims, dims_b, CFG)
     with pytest.raises(ValueError, match="contiguous"):
@@ -104,6 +106,84 @@ def test_wrapper_checks_operands(operands):
         cc.column_pass_cuda("viscosity", fl, bd, dims, dims_b, CFG)
     with pytest.raises(ValueError, match="a boundary operand"):
         cc.column_pass_cuda("divergence", fl, None, dims, None, CFG)
+
+
+@pytest.mark.parametrize("lanes", cc.LANES)
+@pytest.mark.parametrize("name", pp.PARTICLE_PASSES)
+def test_particle_kernel_matches_plain_and_column_kernel(operands, name,
+                                                         lanes):
+    """The particle-list kernel on the slot list its step gives it: within
+    BAR of the plain executor and of column_pass_kernel (its sums run in
+    another order), two launches bitwise equal, each launch counted once."""
+    _, fl, bd, dims, dims_b, islots = operands[name]
+    assert islots is not None
+    want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
+    old = cc.column_pass_cuda(name, fl, bd, dims, dims_b, CFG)
+    n0 = cc.LAUNCHES[f"particle_{name}"]
+    got = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                lanes=lanes)
+    again = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                  lanes=lanes)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES[f"particle_{name}"] == n0 + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all()) and bool(got.any())
+    for ref in (want, old):
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(got, ref, rtol=BAR, atol=BAR * scale)
+
+
+@pytest.mark.parametrize("lanes", cc.LANES)
+@pytest.mark.parametrize("name", pp.PARTICLE_PASSES)
+def test_particle_kernel_writes_only_listed_slots(operands, name, lanes):
+    """Invalid particles (slot K*G) leave their slots 0 and the others as
+    with the whole list; an empty list gives an all-zero output."""
+    _, fl, bd, dims, dims_b, islots = operands[name]
+    full = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                 lanes=lanes)
+    kg = dims.k * dims.g
+    drop = torch.arange(0, islots.shape[0], 3, device=islots.device)
+    cut = islots.clone()
+    cut[drop] = kg
+    part = cc.particle_pass_cuda(name, fl, bd, cut, dims, dims_b, CFG,
+                                 lanes=lanes).reshape(full.shape[0], -1)
+    full = full.reshape(full.shape[0], -1)
+    gone = islots[drop]
+    gone = gone[gone < kg]
+    assert gone.numel() > 0
+    assert not bool(part[:, gone].any())
+    kept = cut[cut < kg]
+    assert torch.equal(part[:, kept], full[:, kept])
+    empty = cc.particle_pass_cuda(name, fl, bd, islots[:0], dims, dims_b,
+                                  CFG, lanes=lanes)
+    assert not bool(empty.any())
+
+
+@pytest.mark.parametrize("lanes", cc.LANES)
+def test_particle_stiffness_accel_is_exactly_zero_at_zero_lambda(operands,
+                                                                 lanes):
+    """PBD's exact all-lambda-zero exit needs stiffness_accel to store +-0
+    where no pair contributes."""
+    _, fl, bd, dims, dims_b, islots = operands["stiffness_accel"]
+    zero = fl.clone()
+    zero[4] = 0.0
+    out = cc.particle_pass_cuda("stiffness_accel", zero, bd, islots, dims,
+                                dims_b, CFG, lanes=lanes)
+    assert not bool(out.any())
+
+
+@pytest.mark.parametrize("name", pp.PARTICLE_PASSES)
+def test_particle_passes_on_the_card_need_the_slot_list(operands, name):
+    """On a card these passes never fall back: no slot list raises, and
+    the wrapper refuses a list or width its kernel does not take."""
+    _, fl, bd, dims, dims_b, islots = operands[name]
+    with pytest.raises(ValueError, match="needs islots"):
+        pp.column_pass(name, fl, bd, dims, dims_b, CFG)
+    with pytest.raises(ValueError, match="1-D int64"):
+        cc.particle_pass_cuda(name, fl, bd, islots.int(), dims, dims_b, CFG)
+    with pytest.raises(ValueError, match="not one of"):
+        cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                              lanes=4)
 
 
 def test_simulation_runs_through_the_kernel(dev):
@@ -139,10 +219,11 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
     la = cc.LAUNCHES
     for name in ("density_alpha_colorgrad", "viscosity", "surface"):
         assert la[name] == frames, (name, la)
-    assert la["divergence"] == la["stiffness_accel"] >= 5 * frames
+    assert la["divergence"] == la["particle_stiffness_accel"] >= 5 * frames
     assert la["density"] == 1
     for name in ("density_colorgrad_visc", "surface_pressure",
-                 "density_alpha", "density_visc", "pressure_force"):
+                 "density_alpha", "density_visc", "pressure_force",
+                 "stiffness_accel"):
         assert la[name] == 0, (name, la)
 
     dims, dims_b = gpu._dims()
@@ -166,10 +247,11 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
 
 
 def test_pbd_simulation_runs_through_the_kernel(dev):
-    """Every pass of the card's PBD frames launched the kernel, once per
-    projection iteration for the two projection passes; then one step from
-    the state they reached agrees on the card and on the CPU at the
-    one-step bars, with equal iteration counts."""
+    """Every pass of the card's PBD frames launched a kernel, the two
+    projection passes the particle-list kernel once per projection
+    iteration; then one step from the state they reached agrees on the
+    card and on the CPU at the one-step bars, with equal iteration
+    counts."""
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="pbd", cfg=CFG, fluid_pos=_block(),
                        device=dev)
@@ -179,11 +261,13 @@ def test_pbd_simulation_runs_through_the_kernel(dev):
         iters.append(int(gpu.metrics["pbd_iters"]))
     assert gpu.retries == 0
     la = cc.LAUNCHES
-    assert la["pbd_lambda"] == la["stiffness_accel"] == sum(iters)
+    assert la["particle_pbd_lambda"] == la["particle_stiffness_accel"] \
+        == sum(iters)
     assert la["xsph_colorgrad"] == la["surface"] == 4
     assert {k: n for k, n in la.items() if n} == {
-        "density": 1, "pbd_lambda": sum(iters), "stiffness_accel": sum(iters),
-        "xsph_colorgrad": 4, "surface": 4}
+        "density": 1, "particle_pbd_lambda": sum(iters),
+        "particle_stiffness_accel": sum(iters), "xsph_colorgrad": 4,
+        "surface": 4}
 
     dims, dims_b = gpu._dims()
 

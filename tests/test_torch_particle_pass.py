@@ -1,0 +1,180 @@
+"""The slot list that the particle-list kernel walks, and the dispatch of
+the two passes that take it, on the CPU.
+
+On a card, pbd_lambda and stiffness_accel run through
+``column_pass_cuda.particle_pass_cuda``: one group of lanes per particle of
+the step's ``BoxIndex.slots``, writing only those slots of an output zeroed
+beforehand. That is right only if the list names every real slot of the
+grid the step fills, each once, inside the ghost ring, and marks every
+other particle with the trash value K*G. These tests hold that contract on
+the dam, on a perturbed splash (with K and box overflow) and on a jittered
+block, with the list equal to the JAX package's; then that the steps hand
+the list to exactly those two passes, and that the wrapper and the passes
+refuse what the kernel cannot take. The kernel itself runs only on the
+card (tests/test_torch_cuda.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cpp_fluid_particles_tpu as J
+from cpp_fluid_particles_tpu.ops import box as jbox
+from cpp_fluid_particles_tpu.ops import dense as jdense
+
+import cpp_fluid_particles_tpu_torch as T
+from cpp_fluid_particles_tpu_torch.models import dense_step as tds
+from cpp_fluid_particles_tpu_torch.ops import column_pass_cuda as tcc
+from cpp_fluid_particles_tpu_torch.ops import dense as tdense
+from cpp_fluid_particles_tpu_torch.ops import passes as tpp
+from cpp_fluid_particles_tpu_torch.state import make_fluid_state
+
+from test_torch_ops import _dam, _splash
+
+torch.set_num_threads(2)
+
+TCFG = T.dam_break_config(mode="parity")
+JCFG = J.dam_break_config(mode="parity")
+SMALL = T.dam_break_config(mode="parity", space_size=(0.52, 0.52, 0.52))
+JSMALL = J.dam_break_config(mode="parity", space_size=(0.52, 0.52, 0.52))
+
+
+def _block():
+    """A jittered block resting on the floor of the small domain."""
+    rng = np.random.default_rng(3)
+    pos = T.block_positions((0.16, 0.006, 0.16), (6, 6, 6), SMALL.spacing)
+    return pos + rng.uniform(-0.003, 0.003, pos.shape).astype(np.float32)
+
+
+# (positions, K, box, small domain): fitted, K overflow, box overflow
+CASES = {
+    "dam": (_dam, 12, (20, 28, 12), False),
+    "splash_fit": (_splash, 40, (24, 24, 24), False),
+    "splash_k": (_splash, 8, (24, 24, 24), False),
+    "splash_box": (_splash, 40, (8, 12, 8), False),
+    "block": (_block, 14, (8, 8, 8), True),
+}
+
+
+def _layout(case):
+    make, k, box, small = CASES[case]
+    cfg, jcfg = (SMALL, JSMALL) if small else (TCFG, JCFG)
+    pos = make()
+    dims, dims_b = tdense.dims_for(cfg, k), tdense.dims_for(cfg, 7)
+    scene = tds.DenseScene(bd=torch.zeros((4, dims_b.k, dims_b.g)))
+    lo = tds._layout(torch.as_tensor(pos), cfg, dims, dims_b, scene, box)
+    state = make_fluid_state(pos, cfg, "cpu")
+    pos_d, _, _ = tds._fill(lo, state, cfg, [], [])
+    jslots = jbox.build_box_index(jnp.asarray(pos), jcfg,
+                                  jdense.dims_for(jcfg, k),
+                                  jdense.DenseDims(*box, k)).slots
+    return lo, pos_d, np.asarray(jslots)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_slot_list_names_every_real_slot_once(case):
+    lo, pos_d, jslots = _layout(case)
+    d = lo.dims
+    slots = lo.idx.slots
+    assert slots.dtype == torch.int64 and slots.dim() == 1
+    assert slots.is_contiguous()
+    np.testing.assert_array_equal(slots.numpy(), jslots)
+    kg = d.k * d.g
+    valid = slots < kg
+    assert torch.equal(valid, lo.idx.valid)
+    assert bool((slots[~valid] == kg).all())
+    listed = slots[valid]
+    assert bool((listed >= 0).all())
+    assert listed.unique().numel() == listed.numel()
+    cell = listed % d.g
+    x, y, z = cell // (d.gy * d.gz), (cell // d.gz) % d.gy, cell % d.gz
+    assert bool(((x > 0) & (x < d.gx - 1) & (y > 0) & (y < d.gy - 1)
+                 & (z > 0) & (z < d.gz - 1)).all())
+    real = torch.nonzero((pos_d[0] < tds.POS_GUARD).reshape(-1))[:, 0]
+    assert torch.equal(torch.sort(listed).values, real)
+    if case in ("splash_k", "splash_box"):
+        assert bool((~valid).any())
+
+
+def _recorded_calls(solver):
+    """-> [(pass name, islots or None)] of one step of ``solver`` on the
+    block, after two frames."""
+    seen = []
+
+    def record(name, fl, bd, dims, dims_b, cfg, islots=None):
+        seen.append((name, islots))
+        return tpp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
+
+    sim = T.Simulation(solver=solver, cfg=SMALL, fluid_pos=_block(),
+                       device="cpu")
+    sim.run(2)
+    dims, dims_b = sim._dims()
+    tds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, SMALL, SMALL.dt,
+                            dims, dims_b, sim.box, executor=record)
+    want = tds.bx.build_box_index(
+        sim.state.pos, SMALL, dims,
+        tdense.DenseDims(*sim.box, dims.k)).slots
+    return seen, want
+
+
+# the passes of each step that take the slot list: PBD runs both, DFSPH
+# stiffness_accel alone
+LISTED = {"pbd": {"pbd_lambda", "stiffness_accel"},
+          "dfsph": {"stiffness_accel"}}
+
+
+@pytest.mark.parametrize("solver", list(LISTED))
+def test_steps_hand_the_slot_list_to_the_particle_passes(solver):
+    seen, want = _recorded_calls(solver)
+    with_list = {name for name, islots in seen if islots is not None}
+    assert with_list == LISTED[solver]
+    assert set.union(*LISTED.values()) == set(tpp.PARTICLE_PASSES)
+    for name, islots in seen:
+        if name in tpp.PARTICLE_PASSES:
+            assert islots is not None and torch.equal(islots, want), name
+    assert {name for name, _ in seen} - set(tpp.PARTICLE_PASSES)
+
+
+def _operands():
+    d = tdense.DenseDims(3, 3, 3, 2)
+    fl = torch.zeros((5, d.k, d.g))
+    fl[:3] = tds.POS_PAD
+    bd = torch.zeros((4, d.k, d.g))
+    bd[:3] = tds.POS_PAD
+    return fl, bd, d
+
+
+def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
+    fl, bd, d = _operands()
+    islots = torch.full((4,), d.k * d.g, dtype=torch.int64)
+    before = dict(tcc.LAUNCHES)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG)
+    with pytest.raises(ValueError, match="1-D int64"):
+        tcc.particle_pass_cuda("stiffness_accel", fl, bd,
+                               islots.to(torch.int32), d, d, TCFG)
+    with pytest.raises(ValueError, match="1-D int64"):
+        tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots[None], d, d,
+                               TCFG)
+    with pytest.raises(ValueError, match="no particle-list kernel"):
+        tcc.particle_pass_cuda("divergence", fl, bd, islots, d, d, TCFG)
+    with pytest.raises(ValueError, match="not one of"):
+        tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG,
+                               lanes=4)
+    assert tcc.LAUNCHES == before
+    assert tcc.LANES[0] in (8, 16, 32) and set(tcc.LANES) == {8, 16, 32}
+
+
+@pytest.mark.parametrize("name", tpp.PARTICLE_PASSES)
+def test_particle_passes_require_the_slot_list(name):
+    fl, bd, d = _operands()
+    fn = {"pbd_lambda": tpp.pbd_lambda_pass,
+          "stiffness_accel": tpp.stiffness_accel_pass}[name]
+    rows = tpp.PASSES[name].fi
+    with pytest.raises(TypeError, match="islots"):
+        fn(fl[:rows], bd, d, d, TCFG)
+    islots = torch.full((4,), d.k * d.g, dtype=torch.int64)
+    out = fn(fl[:rows], bd, d, d, TCFG, islots=islots)
+    assert torch.equal(out, tpp.column_pass_plain(name, fl[:rows], bd, d, d,
+                                                  TCFG))
