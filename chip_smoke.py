@@ -4,10 +4,9 @@
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
 hand-written kernels (cpp_fluid_particles_tpu_torch/csrc/column_pass.cu)
 with nvcc, holds each of the neighbor pass's sixteen instances, and the
-particle-list kernel that runs pbd_lambda and stiffness_accel on the main
-path, against the plain torch executor on the card, then drives the port's
-paths on the full
-20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
+particle-list kernel that runs pbd_lambda, stiffness_accel, divergence and
+surface_pressure on the main path, against the plain torch executor on the
+card, then drives the port's paths on the full 20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
 WCSPH, DFSPH and PBD for 300 frames each at the reference benchmark's dt,
 PBD in its default fast mode as ``Simulation(device="cuda")`` builds it,
@@ -25,7 +24,8 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               atol 2e-5 x the row's max;
               two launches must agree bitwise. color_gradient and
               density_colorgrad, which no step runs, on PBD's [pos3, mass].
-              pbd_lambda and stiffness_accel also through the
+              pbd_lambda, stiffness_accel, divergence and
+              surface_pressure (pp.PARTICLE_PASSES) also through the
               particle-list kernel on the step's slot list at each group
               width of LANES: against the plain executor and
               column_pass_kernel at the same bar, two launches bitwise
@@ -33,9 +33,12 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps
   5. slice    WCSPH: 300 frames at dt 0.001 through the constructor,
-              run() and run_scan(); physics and launch-count checks,
-              ms/frame from CUDA events
-  5b. dfsph   the same for DFSPH at dt 0.004, plus iteration bounds, the
+              run() and run_scan(); physics and launch-count checks
+              (particle_surface_pressure == the frames run, the column
+              kernel's surface_pressure 0), ms/frame from CUDA events
+  5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
+              particle_stiffness_accel >= 5 x the frames run, the column
+              kernel's counts of both 0), plus iteration bounds, the
               mean iterations and the host syncs per frame
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
               projection with its exact all-lambda-zero exit):
@@ -47,9 +50,10 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
               off, a short run each: the surface-off instances' launches
+              (DFSPH's divergence identity as in 5b)
   6. timing   kernel vs plain executor per pass at the shapes of its
-              path's final state, beside the pass's bound; pbd_lambda and
-              stiffness_accel as a ladder in turns: column kernel, the
+              path's final state, beside the pass's bound; the
+              PARTICLE_PASSES as a ladder in turns: column kernel, the
               particle-list kernel at 8, 16, 32, 32, 16, 8 lanes, column
               kernel (best of two each)
   7. flat     the flat-grid prototype's entry point
@@ -217,8 +221,8 @@ def launch_twice(tag, fn, torch):
 
 
 def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
-    """Each pass's column kernel against the plain executor; pbd_lambda and
-    stiffness_accel also through the particle-list kernel at each group
+    """Each pass's column kernel against the plain executor; each of
+    pp.PARTICLE_PASSES also through the particle-list kernel at each group
     width, against the plain executor and the column kernel (errors kept
     as ``particle_<name>``)."""
     from cpp_fluid_particles_tpu_torch.utils.check import row_errors
@@ -433,11 +437,12 @@ def expect_launches(stats, want):
 
 
 def divergence_is_stiffness_accel(stats):
-    """DFSPH runs stiffness_accel (through the particle-list kernel) once
-    for every divergence pass."""
+    """DFSPH runs stiffness_accel once for every divergence pass, both
+    through the particle-list kernel."""
     la = stats["launches"]
-    if la["divergence"] != la["particle_stiffness_accel"]:
-        raise AssertionError(f"divergence {la['divergence']} != "
+    if la["particle_divergence"] != la["particle_stiffness_accel"]:
+        raise AssertionError(f"particle_divergence "
+                             f"{la['particle_divergence']} != "
                              f"particle_stiffness_accel "
                              f"{la['particle_stiffness_accel']}")
 
@@ -616,8 +621,9 @@ def time_passes(calls, cfg, pp, cc, torch, card, times):
         runs = time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc,
                            time_ms)
         best = {w: min(r) for w, r in runs.items()}
-        t.update(column_kernel_ms=best["column"], lanes=cc.LANES[0],
-                 particle_ms=best[cc.LANES[0]],
+        lanes = cc.default_lanes(name)
+        t.update(column_kernel_ms=best["column"], lanes=lanes,
+                 particle_ms=best[lanes],
                  ladder={str(w): r for w, r in runs.items()})
         log("timing", f"{name} ladder N={islots.shape[0]} K={dims.k} Kb={kb}"
             f" (column kernel, particle-list kernel at W 8, 16, 32, 32, 16,"
@@ -627,7 +633,7 @@ def time_passes(calls, cfg, pp, cc, torch, card, times):
             + " (runs " + ", ".join(
                 f"{w}: " + "/".join(f"{x:.4f}" for x in r)
                 for w, r in runs.items())
-            + f"); default W={cc.LANES[0]}; plain {t['plain_ms']:.4f} ms; "
+            + f"); default W={lanes}; plain {t['plain_ms']:.4f} ms; "
             f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
             f"({t['pairs']} pairs, {t['pairs_in_support']} in support) | "
             f"{card}")
@@ -681,9 +687,9 @@ def flat_phase(cfg, cc, pp, torch, card):
 
 
 def kernel_row(name, paths, owner, errs, times, pp):
-    """The kernels-table row of pass ``name``. pbd_lambda and
-    stiffness_accel give the particle-list kernel that their paths run:
-    its launches, errors and ms at the default width, with the column
+    """The kernels-table row of pass ``name``. The PARTICLE_PASSES give the
+    particle-list kernel that their paths run: its launches, errors and ms
+    at the pass's default width (``cc.default_lanes``), with the column
     kernel's ms and the width beside them."""
     t = times[name]
     row = {"name": name, "route": "cuda", "source": KERNEL_SRC,
@@ -779,20 +785,22 @@ def main() -> int:
         frames_run = st["rerun_frames"]
         if solver == "wcsph":
             # each frame run (warm-up, retries included) launches both
-            # WCSPH passes once, plus the scene build's density launch
+            # WCSPH passes once, the second through the particle-list
+            # kernel, plus the scene build's density launch
             expect_launches(st, {"density_colorgrad_visc": frames_run,
-                                 "surface_pressure": frames_run})
+                                 "particle_surface_pressure": frames_run})
             log(phase, slice_line(st, card))
         elif solver == "dfsph":
             # per frame run: one density_alpha_colorgrad, viscosity and
             # surface; divergence == stiffness_accel (the divergence warm
-            # start is on; the particle-list kernel runs stiffness_accel),
-            # at least 5 (1 + 1 + >= 1 divergence iterations and 1 + 1 +
-            # >= 2 density iterations of each)
+            # start is on; the particle-list kernel runs both), at least 5
+            # (1 + 1 + >= 1 divergence iterations and 1 + 1 + >= 2 density
+            # iterations of each)
             expect_launches(st, {"density_alpha_colorgrad": frames_run,
                                  "viscosity": frames_run,
                                  "surface": frames_run,
-                                 "divergence": (5 * frames_run, None),
+                                 "particle_divergence":
+                                     (5 * frames_run, None),
                                  "particle_stiffness_accel":
                                      (5 * frames_run, None)})
             divergence_is_stiffness_accel(st)
@@ -848,7 +856,7 @@ def main() -> int:
             expect_launches(st, {"density_visc": n, "pressure_force": n})
         elif solver == "dfsph":
             expect_launches(st, {"density_alpha": n, "viscosity": n,
-                                 "divergence": (5 * n, None),
+                                 "particle_divergence": (5 * n, None),
                                  "particle_stiffness_accel": (5 * n, None)})
             divergence_is_stiffness_accel(st)
         else:

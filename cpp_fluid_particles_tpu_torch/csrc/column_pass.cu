@@ -51,10 +51,11 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
-// particle_pass_kernel (below) runs pbd_lambda and stiffness_accel on the
-// main path: a group of lanes per particle of the step's slot list splits
-// that particle's 27-cell walk. column_pass_kernel still runs both as its
-// yardstick; the note above the template says why.
+// particle_pass_kernel (below) runs pbd_lambda, stiffness_accel, divergence
+// and surface_pressure on the main path: a group of lanes per particle of
+// the step's slot list splits that particle's 27-cell walk.
+// column_pass_kernel still runs all four as its yardstick; the note above
+// the template says why.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -726,17 +727,24 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
   return cudaGetLastError();
 }
 
-// --- the particle-list kernel (PbdLambdaPass and StiffnessAccelPass) ---
+// --- the particle-list kernel (PbdLambdaPass, StiffnessAccelPass,
+// DivergencePass and SurfacePressurePass) ---
 //
-// Replaces, for the PBD projection passes pbd_lambda and stiffness_accel
-// (stiffness_accel also runs in every DFSPH Jacobi iteration), the same TPU
-// kernel as column_pass_kernel: pallas_passes.py:107 `column_pass`.
-// column_pass_kernel gives every (slot, cell) of the ghosted grid a thread:
-// at PBD's shapes (27^3 cells, K 18) that is 354k threads of which 6% hold
-// a particle, scattered over the warps, and each busy thread walks its 27
-// neighbour cells alone, a chain of some 300-400 dependent load-and-test
-// steps; a warp waits on its densest lane. What bounds that kernel is the
-// latency of the chain, not bytes or operations (PERF.md section 6).
+// Replaces the same TPU kernel as column_pass_kernel, pallas_passes.py:107
+// `column_pass`, for four instances: the PBD projection passes pbd_lambda
+// and stiffness_accel, the DFSPH Jacobi passes divergence and
+// stiffness_accel (each runs in every iteration of its solve), and WCSPH's
+// surface_pressure, once a frame. column_pass_kernel gives every (slot,
+// cell) of the ghosted grid a thread: at these shapes (27^3 cells, K 16-18)
+// that is 315k-354k threads of which 6% hold a particle, scattered over the
+// warps, and each busy thread walks its 27 neighbour cells alone, a chain of
+// some 300-400 dependent load-and-test steps; a warp waits on its densest
+// lane. What bounds that kernel is the latency of the chain, not bytes or
+// operations (PERF.md section 6). Here the chain is about 27/W cells long.
+// What bounds the four instances then is not measured; the likely bound is
+// their uncoalesced neighbour loads: 4 (pbd_lambda), 5 (stiffness_accel),
+// 7 (divergence) or 9 (surface_pressure, which also holds 6 sums beside 6
+// i-side values) rows per candidate, gathered from scattered cells.
 //
 // Here a group of W lanes (8, 16 or 32, inside one warp) serves one
 // particle of the step's list islots (ops/box.py BoxIndex.slots: (N,)
@@ -1072,8 +1080,9 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
   }
 }
 
-// The particle-list kernel on pass ids 5 (stiffness_accel) and 11
-// (pbd_lambda) of column_pass_launch, W = lanes in {8, 16, 32}, over the n
+// The particle-list kernel on pass ids 2 (surface_pressure), 4
+// (divergence), 5 (stiffness_accel) and 11 (pbd_lambda) of
+// column_pass_launch, W = lanes in {8, 16, 32}, over the n
 // particles of islots (int64, a slot in [0, K*G) or the trash value K*G).
 // out must be zeroed by the caller: only listed slots are written. Returns
 // a cudaError_t; any other pass id or width is cudaErrorInvalidValue.
@@ -1089,6 +1098,12 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, const float* fl,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (pass_id) {
+    case 2:
+      return launch_lanes<SurfacePressurePass>(lanes, fl, bd, islots, out, n,
+                                               k, kb, gx, gy, gz, c, s);
+    case 4:
+      return launch_lanes<DivergencePass>(lanes, fl, bd, islots, out, n, k,
+                                          kb, gx, gy, gz, c, s);
     case 5:
       return launch_lanes<StiffnessAccelPass>(lanes, fl, bd, islots, out, n,
                                               k, kb, gx, gy, gz, c, s);

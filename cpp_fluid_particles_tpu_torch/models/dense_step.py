@@ -313,7 +313,7 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
         p = _eos(rho, cfg)
         sp = pp.surface_pressure_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None], cg], 0),
-            bdx, dims, dims_b, cfg, executor)
+            bdx, dims, dims_b, cfg, executor, islots=lo.idx.slots)
         vel_d = vel_d + sp[0:3] * dt
         vel_d = vel_d + _accel_clamp(sp[3:6], cfg) * dt
     else:
@@ -414,7 +414,7 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
 
     def div_pass(v_d):
         return pp.divergence_pass((pm, v_d), bdx, dims, dims_b, cfg,
-                                  executor)
+                                  executor, islots=lo.idx.slots)
 
     def sa_pass(s_d):
         return pp.stiffness_accel_pass((pm, s_d[None]), bdx, dims, dims_b,

@@ -9,10 +9,10 @@ hash of the source and the flags, and loaded with ctypes. A missing
 
 ``column_pass_cuda`` has the executor signature of
 ``ops.passes.column_pass_plain`` and takes CUDA tensors only.
-``particle_pass_cuda`` runs ``passes.PARTICLE_PASSES`` (pbd_lambda and
-stiffness_accel) through the particle-list kernel, a group of ``LANES``
-lanes per particle of the step's slot list; ``passes.column_pass`` sends
-those two passes there on a card.
+``particle_pass_cuda`` runs ``passes.PARTICLE_PASSES`` (pbd_lambda,
+stiffness_accel, divergence and surface_pressure) through the
+particle-list kernel, a group of ``LANES`` lanes per particle of the step's
+slot list; ``passes.column_pass`` sends those four passes there on a card.
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
@@ -67,10 +67,17 @@ BRICKS = ((2, 4, 4), (2, 2, 4), (2, 2, 2))
 SHARED_LIMIT = 232_448   # dynamic shared memory of one Hopper block, bytes
 
 # group widths of the particle-list kernel (lanes per particle), the
-# default first: 32 lanes (one offset each, 5 idle) took 0.92-0.94x the
-# time of 8 or 16 for both passes on the full dam at K 16-18 (PERF.md,
-# kernel table)
+# default first: 32 lanes (one offset each, 5 idle) took 0.88-0.95x the
+# time of 8 or 16 for pbd_lambda, stiffness_accel and divergence on the
+# full dam at K 16-18 (divergence: 0.0591 ms at W 32, 0.0652 at W 8,
+# 0.0668 at W 16; PERF.md, kernel table)
 LANES = (32, 8, 16)
+
+# passes whose default width is not LANES[0]: surface_pressure, 6 sums
+# that each group's butterfly reduces, took 0.0754 ms at W 8 against 0.0841
+# at W 16 and 0.0865 at W 32 on the full dam at K 22, in both runs of each
+# width in one call (PERF.md, kernel table)
+PASS_LANES = {"surface_pressure": 8}
 
 # launches per pass instance, per particle-list instance (particle_<name>),
 # and per fluid-only instance of the prototype's bodies (flat_<body>: the
@@ -80,6 +87,11 @@ LAUNCHES = {name: 0 for name in PASS_IDS}
 LAUNCHES.update({f"particle_{name}": 0 for name in PARTICLE_PASSES})
 LAUNCHES.update({f"{kind}_{body}": 0 for kind in ("flat", "untiled")
                  for body in FLAT_IDS})
+
+
+def default_lanes(name: str) -> int:
+    """The group width the particle-list kernel runs pass ``name`` at."""
+    return PASS_LANES.get(name, LANES[0])
 
 
 def reset_launch_counts() -> None:
@@ -216,17 +228,17 @@ def particle_pass_cuda(name: str, fl: torch.Tensor, bd: torch.Tensor,
                        lanes: Optional[int] = None) -> torch.Tensor:
     """Pass ``name`` (one of ``passes.PARTICLE_PASSES``) through the
     particle-list kernel on the current stream of ``fl``'s device: a group
-    of ``lanes`` lanes (one of LANES; default LANES[0]) for each particle of
-    ``islots``, the step's ``BoxIndex.slots`` ((N,) int64 into the flat
-    (K, G) slot axis, K*G for an invalid particle). Returns (n_out, K, G),
-    zeroed by one memset before the launch (it counts in the kernel's
-    time): the kernel writes only the listed slots. Counted as
+    of ``lanes`` lanes (one of LANES; default ``default_lanes(name)``) for
+    each particle of ``islots``, the step's ``BoxIndex.slots`` ((N,) int64
+    into the flat (K, G) slot axis, K*G for an invalid particle). Returns
+    (n_out, K, G), zeroed by one memset before the launch (it counts in the
+    kernel's time): the kernel writes only the listed slots. Counted as
     ``particle_<name>``."""
     fn = "particle_pass_cuda"
     if name not in PARTICLE_PASSES:
         raise ValueError(f"{fn}: pass {name!r} has no particle-list kernel; "
                          f"one of {PARTICLE_PASSES}")
-    lanes = LANES[0] if lanes is None else lanes
+    lanes = default_lanes(name) if lanes is None else lanes
     if lanes not in LANES:
         raise ValueError(f"{fn}: lanes {lanes} is not one of {LANES}")
     if islots.dtype != torch.int64 or islots.dim() != 1:

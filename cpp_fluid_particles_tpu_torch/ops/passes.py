@@ -24,8 +24,9 @@ list, ``BoxIndex.slots``, which the callers of ``PARTICLE_PASSES`` give):
 
 ``column_pass`` dispatches by device: CPU tensors take the plain executor,
 CUDA tensors the kernel (which raises rather than falls back). On a card,
-``PARTICLE_PASSES`` (pbd_lambda and stiffness_accel) take the particle-list
-kernel (``column_pass_cuda.particle_pass_cuda``), which needs ``islots``.
+``PARTICLE_PASSES`` (pbd_lambda, stiffness_accel, divergence and
+surface_pressure) take the particle-list kernel
+(``column_pass_cuda.particle_pass_cuda``), which needs ``islots``.
 Outputs are zero on ghost cells and on empty i slots, up to the sign of
 zero.
 """
@@ -489,7 +490,8 @@ BOUNDARY_ROWS = 4      # [pos3, mass]
 
 # the passes that run, on a card, through the particle-list kernel over the
 # step's slot list (ops/column_pass_cuda.py particle_pass_cuda)
-PARTICLE_PASSES = ("pbd_lambda", "stiffness_accel")
+PARTICLE_PASSES = ("pbd_lambda", "stiffness_accel", "divergence",
+                   "surface_pressure")
 
 # the bodies of the flat-grid prototype (exp/flat_pallas_proto.py:147-188:
 # density_terms, sa_terms, dcv_terms) -> the pass whose fluid half each is;
@@ -604,10 +606,12 @@ def density_colorgrad_visc_pass(fl, bd, dims, dims_b, cfg, executor=None):
                        executor)
 
 
-def surface_pressure_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl: [pos3, mass, rho, p, cg3]; bd: [pos3, mass]. Returns (6, K, G)."""
+def surface_pressure_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
+                          islots):
+    """fl: [pos3, mass, rho, p, cg3]; bd: [pos3, mass]; islots: the step's
+    ``BoxIndex.slots``. Returns (6, K, G)."""
     return column_pass("surface_pressure", fl, bd, dims, dims_b, cfg,
-                       executor)
+                       executor, islots=islots)
 
 
 def density_visc_pass(fl, bd, dims, dims_b, cfg, executor=None):
@@ -635,11 +639,12 @@ def density_alpha_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None):
                        executor)
 
 
-def divergence_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl: the field groups ([pos3, mass], vel3); bd: [pos3, mass].
-    Returns the (K, G) divergence grid."""
-    return column_pass("divergence", fl, bd, dims, dims_b, cfg,
-                       executor)[0]
+def divergence_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
+    """fl: the field groups ([pos3, mass], vel3); bd: [pos3, mass];
+    islots: the step's ``BoxIndex.slots``. Returns the (K, G) divergence
+    grid."""
+    return column_pass("divergence", fl, bd, dims, dims_b, cfg, executor,
+                       islots=islots)[0]
 
 
 def stiffness_accel_pass(fl, bd, dims, dims_b, cfg, executor=None, *,

@@ -1,6 +1,6 @@
 """The hand-written CUDA neighbor-pass kernel, its particle-list variant
-for pbd_lambda and stiffness_accel, and its brick-tiled fluid-only variant
-on the card.
+for pbd_lambda, stiffness_accel, divergence and surface_pressure, and its
+brick-tiled fluid-only variant on the card.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -196,7 +196,7 @@ def test_simulation_runs_through_the_kernel(dev):
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
     assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
         "density": 1, "density_colorgrad_visc": frames,
-        "surface_pressure": frames}
+        "particle_surface_pressure": frames}
     cpu = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
                        device="cpu")
     cpu.run(3)
@@ -219,11 +219,13 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
     la = cc.LAUNCHES
     for name in ("density_alpha_colorgrad", "viscosity", "surface"):
         assert la[name] == frames, (name, la)
-    assert la["divergence"] == la["particle_stiffness_accel"] >= 5 * frames
+    assert la["particle_divergence"] == la["particle_stiffness_accel"] \
+        >= 5 * frames
     assert la["density"] == 1
     for name in ("density_colorgrad_visc", "surface_pressure",
                  "density_alpha", "density_visc", "pressure_force",
-                 "stiffness_accel"):
+                 "stiffness_accel", "divergence", "particle_pbd_lambda",
+                 "particle_surface_pressure"):
         assert la[name] == 0, (name, la)
 
     dims, dims_b = gpu._dims()

@@ -1,15 +1,15 @@
 """The slot list that the particle-list kernel walks, and the dispatch of
-the two passes that take it, on the CPU.
+the four passes that take it, on the CPU.
 
-On a card, pbd_lambda and stiffness_accel run through
-``column_pass_cuda.particle_pass_cuda``: one group of lanes per particle of
-the step's ``BoxIndex.slots``, writing only those slots of an output zeroed
-beforehand. That is right only if the list names every real slot of the
+On a card, pbd_lambda, stiffness_accel, divergence and surface_pressure run
+through ``column_pass_cuda.particle_pass_cuda``: one group of lanes per
+particle of the step's ``BoxIndex.slots``, writing only those slots of an
+output zeroed beforehand. That is right only if the list names every real slot of the
 grid the step fills, each once, inside the ghost ring, and marks every
 other particle with the trash value K*G. These tests hold that contract on
 the dam, on a perturbed splash (with K and box overflow) and on a jittered
 block, with the list equal to the JAX package's; then that the steps hand
-the list to exactly those two passes, and that the wrapper and the passes
+the list to exactly those four passes, and that the wrapper and the passes
 refuse what the kernel cannot take. The kernel itself runs only on the
 card (tests/test_torch_cuda.py).
 """
@@ -118,10 +118,11 @@ def _recorded_calls(solver):
     return seen, want
 
 
-# the passes of each step that take the slot list: PBD runs both, DFSPH
-# stiffness_accel alone
+# the passes of each step that take the slot list: PBD's projection
+# passes, DFSPH's two Jacobi passes, WCSPH's second traversal
 LISTED = {"pbd": {"pbd_lambda", "stiffness_accel"},
-          "dfsph": {"stiffness_accel"}}
+          "dfsph": {"stiffness_accel", "divergence"},
+          "wcsph": {"surface_pressure"}}
 
 
 @pytest.mark.parametrize("solver", list(LISTED))
@@ -138,7 +139,7 @@ def test_steps_hand_the_slot_list_to_the_particle_passes(solver):
 
 def _operands():
     d = tdense.DenseDims(3, 3, 3, 2)
-    fl = torch.zeros((5, d.k, d.g))
+    fl = torch.zeros((9, d.k, d.g))   # the most rows a particle pass reads
     fl[:3] = tds.POS_PAD
     bd = torch.zeros((4, d.k, d.g))
     bd[:3] = tds.POS_PAD
@@ -147,6 +148,7 @@ def _operands():
 
 def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
     fl, bd, d = _operands()
+    fl = fl[:tpp.PASSES["stiffness_accel"].fi]
     islots = torch.full((4,), d.k * d.g, dtype=torch.int64)
     before = dict(tcc.LAUNCHES)
     with pytest.raises(ValueError, match="not a CUDA device"):
@@ -158,23 +160,29 @@ def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots[None], d, d,
                                TCFG)
     with pytest.raises(ValueError, match="no particle-list kernel"):
-        tcc.particle_pass_cuda("divergence", fl, bd, islots, d, d, TCFG)
+        tcc.particle_pass_cuda("viscosity", fl, bd, islots, d, d, TCFG)
     with pytest.raises(ValueError, match="not one of"):
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG,
                                lanes=4)
     assert tcc.LAUNCHES == before
     assert tcc.LANES[0] in (8, 16, 32) and set(tcc.LANES) == {8, 16, 32}
+    assert set(tcc.PASS_LANES) <= set(tpp.PARTICLE_PASSES)
+    assert {tcc.default_lanes(n) for n in tpp.PARTICLE_PASSES} <= set(tcc.LANES)
 
 
 @pytest.mark.parametrize("name", tpp.PARTICLE_PASSES)
 def test_particle_passes_require_the_slot_list(name):
     fl, bd, d = _operands()
-    fn = {"pbd_lambda": tpp.pbd_lambda_pass,
-          "stiffness_accel": tpp.stiffness_accel_pass}[name]
+    # the pass function, and which of the executor's rows it returns
+    fn, rows_out = {
+        "pbd_lambda": (tpp.pbd_lambda_pass, slice(None)),
+        "stiffness_accel": (tpp.stiffness_accel_pass, slice(None)),
+        "divergence": (tpp.divergence_pass, 0),
+        "surface_pressure": (tpp.surface_pressure_pass, slice(None))}[name]
     rows = tpp.PASSES[name].fi
     with pytest.raises(TypeError, match="islots"):
         fn(fl[:rows], bd, d, d, TCFG)
     islots = torch.full((4,), d.k * d.g, dtype=torch.int64)
     out = fn(fl[:rows], bd, d, d, TCFG, islots=islots)
     assert torch.equal(out, tpp.column_pass_plain(name, fl[:rows], bd, d, d,
-                                                  TCFG))
+                                                  TCFG)[rows_out])
