@@ -4,9 +4,9 @@
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
 hand-written kernels (cpp_fluid_particles_tpu_torch/csrc/column_pass.cu)
 with nvcc, holds each of the neighbor pass's sixteen instances, and the
-particle-list kernel that runs pbd_lambda, stiffness_accel, divergence and
-surface_pressure on the main path, against the plain torch executor on the
-card, then drives the port's paths on the full 20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
+particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
+surface_pressure, density_colorgrad_visc and xsph_colorgrad on the main
+path, against the plain torch executor on the card, then drives the port's paths on the full 20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
 WCSPH, DFSPH and PBD for 300 frames each at the reference benchmark's dt,
 PBD in its default fast mode as ``Simulation(device="cuda")`` builds it,
@@ -16,26 +16,28 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of the kernels, seconds taken, and ptxas's
               registers and spills for every instance, the particle-list
-              kernel's at each group width too; for the six fluid-only
-              instances of phase 7 also their shared memory
+              kernel's at each group width and reduction too; for the six
+              fluid-only instances of phase 7 also their shared memory
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
               its path gives it, at frame 0 and after the path's run;
               per-row tolerance ``utils.check.PASS_BAR``: rtol 2e-5,
               atol 2e-5 x the row's max;
               two launches must agree bitwise. color_gradient and
               density_colorgrad, which no step runs, on PBD's [pos3, mass].
-              pbd_lambda, stiffness_accel, divergence and
-              surface_pressure (pp.PARTICLE_PASSES) also through the
-              particle-list kernel on the step's slot list at each group
-              width of LANES: against the plain executor and
+              The six pp.PARTICLE_PASSES also through the particle-list
+              kernel on the step's slot list at each group width of LANES
+              under each of REDUCTIONS: against the plain executor and
               column_pass_kernel at the same bar, two launches bitwise
+              (and whether the transpose reduction is bitwise equal to
+              the butterfly at the same width)
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps
   5. slice    WCSPH: 300 frames at dt 0.001 through the constructor,
               run() and run_scan(); physics and launch-count checks
-              (particle_surface_pressure == the frames run, the column
-              kernel's surface_pressure 0), ms/frame from CUDA events
+              (particle_density_colorgrad_visc == particle_surface_pressure
+              == the frames run, the column kernel's counts of both 0),
+              ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
               particle_stiffness_accel >= 5 x the frames run, the column
               kernel's counts of both 0), plus iteration bounds, the
@@ -44,8 +46,9 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               projection with its exact all-lambda-zero exit):
               particle_pbd_lambda == particle_stiffness_accel == the sum
               of the frames' iterations (the particle-list kernel; the
-              column kernel's counts of both stay 0), xsph_colorgrad ==
-              surface == the frames run
+              column kernel's counts of both stay 0),
+              particle_xsph_colorgrad == surface == the frames run (the
+              column kernel's xsph_colorgrad 0)
   5d. pbd_default  ``Simulation(device="cuda")`` as constructed (PBD in
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
@@ -54,8 +57,9 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
   6. timing   kernel vs plain executor per pass at the shapes of its
               path's final state, beside the pass's bound; the
               PARTICLE_PASSES as a ladder in turns: column kernel, the
-              particle-list kernel at 8, 16, 32, 32, 16, 8 lanes, column
-              kernel (best of two each)
+              particle-list kernel with the butterfly at 8, 16, 32 lanes
+              and the transpose reduction at 8, 16, 32, then the same six
+              backwards, column kernel (best of two each)
   7. flat     the flat-grid prototype's entry point
               (cpp_fluid_particles_tpu_torch/exp/flat_pallas_proto.py): the
               state after 150 WCSPH frames of the dam on a K = 24
@@ -223,8 +227,9 @@ def launch_twice(tag, fn, torch):
 def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
     """Each pass's column kernel against the plain executor; each of
     pp.PARTICLE_PASSES also through the particle-list kernel at each group
-    width, against the plain executor and the column kernel (errors kept
-    as ``particle_<name>``)."""
+    width and reduction, against the plain executor and the column kernel
+    (errors kept as ``particle_<name>``), and the transpose reduction
+    against the butterfly at the same width (bitwise or not, logged)."""
     from cpp_fluid_particles_tpu_torch.utils.check import row_errors
     for name, fl, bd, dims, dims_b, islots in calls:
         want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
@@ -241,16 +246,24 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
         if islots is None:
             raise AssertionError(f"{tag} {name}: the step gave no slot list")
         for lanes in cc.LANES:
-            what = f"{tag} particle {name} W={lanes}"
-            part = launch_twice(what, lambda: cc.particle_pass_cuda(
-                name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes), torch)
-            max_abs, worst_rel = row_errors(what, part, want)
-            _, vs_column = row_errors(f"{what} vs column kernel", part, got)
-            note_err(errs, f"particle_{name}", max_abs, worst_rel)
-            log("kernel", f"{what} N={islots.shape[0]} K={dims.k} Kb={kb}: "
-                f"vs plain max_abs_err={max_abs:.3e} max_err/row_max="
-                f"{worst_rel:.3e}, vs column kernel max_err/row_max="
-                f"{vs_column:.3e}, bitwise_repeat=yes")
+            outs = {}
+            for red in cc.REDUCTIONS:
+                what = f"{tag} particle {name} W={lanes} {red}"
+                part = outs[red] = launch_twice(
+                    what, lambda: cc.particle_pass_cuda(
+                        name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
+                        reduction=red), torch)
+                max_abs, worst_rel = row_errors(what, part, want)
+                _, vs_column = row_errors(f"{what} vs column kernel", part,
+                                          got)
+                note_err(errs, f"particle_{name}", max_abs, worst_rel)
+                same = torch.equal(part, outs[cc.REDUCTIONS[0]])
+                log("kernel", f"{what} N={islots.shape[0]} K={dims.k} "
+                    f"Kb={kb}: vs plain max_abs_err={max_abs:.3e} "
+                    f"max_err/row_max={worst_rel:.3e}, vs column kernel "
+                    f"max_err/row_max={vs_column:.3e}, bitwise_repeat=yes, "
+                    f"bitwise equal to {cc.REDUCTIONS[0]}: "
+                    f"{'yes' if same else 'no'}")
 
 
 ITER_KEYS = ("divergence_iters", "density_iters", "pbd_iters")
@@ -397,15 +410,16 @@ def pbd_checks(st, cfg, off=False):
     """PBD launch identities over every frame run (the warm-up and retries
     included): the particle-list kernel's pbd_lambda == stiffness_accel ==
     the sum of the frames' iterations (the column kernel's counts of both
-    stay 0), one XSPH traversal per frame (xsph_colorgrad and surface, or
-    xsph with surface effects off); iterations in [1, pbd_max_iter]. Adds
-    the mean iterations and host syncs per frame run after the
-    constructor."""
+    stay 0), one XSPH traversal per frame (xsph_colorgrad through the
+    particle-list kernel and surface, or xsph with surface effects off);
+    iterations in [1, pbd_max_iter]. Adds the mean iterations and host
+    syncs per frame run after the constructor."""
     it, frames_run = st["pbd_iters"], st["rerun_frames"]
     n = sum(it)
     want = {"particle_pbd_lambda": n, "particle_stiffness_accel": n}
     want.update({"xsph": frames_run} if off else
-                {"xsph_colorgrad": frames_run, "surface": frames_run})
+                {"particle_xsph_colorgrad": frames_run,
+                 "surface": frames_run})
     expect_launches(st, want)
     if not (min(it) >= 1 and max(it) <= cfg.pbd_max_iter):
         raise AssertionError(f"PBD iterations out of bounds: "
@@ -490,19 +504,22 @@ def functor(name):
     return "".join(w.capitalize() for w in name.split("_")) + "Pass"
 
 
-def ptxas_entry(ptxas, kernel, name, fluid_only, lanes=None):
+def ptxas_entry(ptxas, kernel, name, fluid_only, lanes=None,
+                transpose=None):
     """The one ptxas entry of ``kernel`` on pass ``name``'s functor,
-    wrapped in FluidOnly or not, at group width ``lanes`` for the
-    particle-list kernel -> (registers, spill bytes, smem)."""
+    wrapped in FluidOnly or not, at group width ``lanes`` and reduction
+    (``transpose``, the template's bool) for the particle-list kernel ->
+    (registers, spill bytes, smem)."""
     f = functor(name)
+    tail = None if lanes is None else f"ELi{lanes}ELb{int(transpose)}E"
     hits = [v for k, v in ptxas.items()
             if f"{len(kernel)}{kernel}" in k and f"{len(f)}{f}" in k
             and ("9FluidOnly" in k) == fluid_only
-            and (lanes is None or f"ELi{lanes}E" in k)]
+            and (tail is None or tail in k)]
     if len(hits) != 1:
         raise AssertionError(f"ptxas report has {len(hits)} entries for "
                              f"{kernel}<{f}> (fluid only: {fluid_only}, "
-                             f"lanes {lanes})")
+                             f"lanes {lanes}, transpose {transpose})")
     return hits[0]
 
 
@@ -567,19 +584,23 @@ def pass_bound(pp, torch, name, fl, bd, dims, dims_b, cfg, n_out):
 
 
 def time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc, time_ms):
-    """The particle-list kernel at each group width beside the column
-    kernel, in turns within this call: column, W 8, 16, 32, 32, 16, 8,
-    column -> {"column": [two runs], lanes: [two runs]}."""
+    """The particle-list kernel at each group width and reduction beside
+    the column kernel, in turns within this call: column; butterfly W 8,
+    16, 32, transpose W 8, 16, 32, and the same six backwards; column ->
+    {"column": [two runs], "<reduction> W<lanes>": [two runs]}."""
     def column():
         cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
 
-    def particle(lanes):
+    def particle(lanes, red):
         return lambda: cc.particle_pass_cuda(name, fl, bd, islots, dims,
-                                             dims_b, cfg, lanes=lanes)
-    order = sorted(cc.LANES)
+                                             dims_b, cfg, lanes=lanes,
+                                             reduction=red)
+    order = [(red, lanes) for red in cc.REDUCTIONS
+             for lanes in sorted(cc.LANES)]
     runs = {"column": [time_ms(column, 50)]}
-    for lanes in order + order[::-1]:
-        runs.setdefault(lanes, []).append(time_ms(particle(lanes), 50))
+    for red, lanes in order + order[::-1]:
+        runs.setdefault(f"{red} W{lanes}", []).append(
+            time_ms(particle(lanes, red), 50))
     runs["column"].append(time_ms(column, 50))
     return runs
 
@@ -621,19 +642,20 @@ def time_passes(calls, cfg, pp, cc, torch, card, times):
         runs = time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc,
                            time_ms)
         best = {w: min(r) for w, r in runs.items()}
-        lanes = cc.default_lanes(name)
+        lanes, red = cc.default_lanes(name), cc.default_reduction(name)
         t.update(column_kernel_ms=best["column"], lanes=lanes,
-                 particle_ms=best[lanes],
-                 ladder={str(w): r for w, r in runs.items()})
+                 reduction=red, particle_ms=best[f"{red} W{lanes}"],
+                 ladder=runs)
         log("timing", f"{name} ladder N={islots.shape[0]} K={dims.k} Kb={kb}"
-            f" (column kernel, particle-list kernel at W 8, 16, 32, 32, 16,"
-            f" 8, column kernel; best of two): column kernel "
-            f"{best['column']:.4f} ms; "
-            + "; ".join(f"W={w} {best[w]:.4f} ms" for w in sorted(cc.LANES))
+            f" (column kernel; particle-list kernel, butterfly W 8, 16, 32,"
+            f" transpose W 8, 16, 32, and back; column kernel; best of "
+            f"two): column kernel {best['column']:.4f} ms; "
+            + "; ".join(f"{w} {best[w]:.4f} ms" for w in runs
+                        if w != "column")
             + " (runs " + ", ".join(
                 f"{w}: " + "/".join(f"{x:.4f}" for x in r)
                 for w, r in runs.items())
-            + f"); default W={lanes}; plain {t['plain_ms']:.4f} ms; "
+            + f"); default {red} W={lanes}; plain {t['plain_ms']:.4f} ms; "
             f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
             f"({t['pairs']} pairs, {t['pairs_in_support']} in support) | "
             f"{card}")
@@ -689,8 +711,9 @@ def flat_phase(cfg, cc, pp, torch, card):
 def kernel_row(name, paths, owner, errs, times, pp):
     """The kernels-table row of pass ``name``. The PARTICLE_PASSES give the
     particle-list kernel that their paths run: its launches, errors and ms
-    at the pass's default width (``cc.default_lanes``), with the column
-    kernel's ms and the width beside them."""
+    at the pass's default width and reduction (``cc.default_lanes``,
+    ``cc.default_reduction``), with the column kernel's ms, the width and
+    the reduction beside them."""
     t = times[name]
     row = {"name": name, "route": "cuda", "source": KERNEL_SRC,
            "replaces": TPU_KERNEL, "launches": 0,
@@ -702,7 +725,8 @@ def kernel_row(name, paths, owner, errs, times, pp):
         key = f"particle_{name}"
         row.update(max_abs_err=errs[key]["max_abs_err"],
                    ms=t["particle_ms"],
-                   column_kernel_ms=t["column_kernel_ms"], lanes=t["lanes"])
+                   column_kernel_ms=t["column_kernel_ms"], lanes=t["lanes"],
+                   reduction=t["reduction"])
     if name in OFF_PATH:
         row["note"] = OFF_PATH[name]
     else:
@@ -741,11 +765,12 @@ def main() -> int:
         r, sp, _ = ptxas_entry(ptxas, "column_pass_kernel", name, False)
         regs[name] = {"registers": r, "spill_bytes": sp}
     for name in pp.PARTICLE_PASSES:
-        for lanes in sorted(cc.LANES):
-            r, sp, _ = ptxas_entry(ptxas, "particle_pass_kernel", name,
-                                   False, lanes)
-            regs[f"particle_{name}_W{lanes}"] = {"registers": r,
-                                                 "spill_bytes": sp}
+        for red in cc.REDUCTIONS:
+            for lanes in sorted(cc.LANES):
+                r, sp, _ = ptxas_entry(ptxas, "particle_pass_kernel", name,
+                                       False, lanes, red == "transpose")
+                regs[f"particle_{name}_W{lanes}_{red}"] = {
+                    "registers": r, "spill_bytes": sp}
     flat_regs = {}
     for body, name in pp.FLAT_BODIES.items():
         rows = pp.PASSES[name].fi
@@ -785,9 +810,10 @@ def main() -> int:
         frames_run = st["rerun_frames"]
         if solver == "wcsph":
             # each frame run (warm-up, retries included) launches both
-            # WCSPH passes once, the second through the particle-list
-            # kernel, plus the scene build's density launch
-            expect_launches(st, {"density_colorgrad_visc": frames_run,
+            # WCSPH passes once, each through the particle-list kernel,
+            # plus the scene build's density launch
+            expect_launches(st, {"particle_density_colorgrad_visc":
+                                     frames_run,
                                  "particle_surface_pressure": frames_run})
             log(phase, slice_line(st, card))
         elif solver == "dfsph":

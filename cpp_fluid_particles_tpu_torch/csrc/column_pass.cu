@@ -51,10 +51,12 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
-// particle_pass_kernel (below) runs pbd_lambda, stiffness_accel, divergence
-// and surface_pressure on the main path: a group of lanes per particle of
-// the step's slot list splits that particle's 27-cell walk.
-// column_pass_kernel still runs all four as its yardstick; the note above
+// particle_pass_kernel (below) runs pbd_lambda, stiffness_accel,
+// divergence, surface_pressure, density_colorgrad_visc and xsph_colorgrad
+// on the main path: a group of lanes per particle of the step's slot list
+// splits that particle's 27-cell walk, and the group's sums are reduced by
+// an xor butterfly or, for passes with many sums, a transpose reduction.
+// column_pass_kernel still runs all six as its yardstick; the note above
 // the template says why.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
@@ -728,23 +730,25 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 }
 
 // --- the particle-list kernel (PbdLambdaPass, StiffnessAccelPass,
-// DivergencePass and SurfacePressurePass) ---
+// DivergencePass, SurfacePressurePass, DensityColorgradViscPass and
+// XsphColorgradPass) ---
 //
 // Replaces the same TPU kernel as column_pass_kernel, pallas_passes.py:107
-// `column_pass`, for four instances: the PBD projection passes pbd_lambda
+// `column_pass`, for six instances: the PBD projection passes pbd_lambda
 // and stiffness_accel, the DFSPH Jacobi passes divergence and
-// stiffness_accel (each runs in every iteration of its solve), and WCSPH's
-// surface_pressure, once a frame. column_pass_kernel gives every (slot,
-// cell) of the ghosted grid a thread: at these shapes (27^3 cells, K 16-18)
+// stiffness_accel (each runs in every iteration of its solve), WCSPH's two
+// traversals density_colorgrad_visc and surface_pressure, and PBD's
+// xsph_colorgrad, each once a frame. column_pass_kernel gives every (slot,
+// cell) of the ghosted grid a thread: at these shapes (27^3 cells, K 16-22)
 // that is 315k-354k threads of which 6% hold a particle, scattered over the
 // warps, and each busy thread walks its 27 neighbour cells alone, a chain of
 // some 300-400 dependent load-and-test steps; a warp waits on its densest
 // lane. What bounds that kernel is the latency of the chain, not bytes or
 // operations (PERF.md section 6). Here the chain is about 27/W cells long.
-// What bounds the four instances then is not measured; the likely bound is
+// What bounds the six instances then is not measured; the likely bound is
 // their uncoalesced neighbour loads: 4 (pbd_lambda), 5 (stiffness_accel),
-// 7 (divergence) or 9 (surface_pressure, which also holds 6 sums beside 6
-// i-side values) rows per candidate, gathered from scattered cells.
+// 7 (divergence, density_colorgrad_visc, xsph_colorgrad) or 9
+// (surface_pressure) rows per candidate, gathered from scattered cells.
 //
 // Here a group of W lanes (8, 16 or 32, inside one warp) serves one
 // particle of the step's list islots (ops/box.py BoxIndex.slots: (N,)
@@ -753,17 +757,59 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 // l+2W, ... < 27 in the reference's m-order and walks each neighbour cell
 // exactly as column_pass_kernel does (fluid slots up to the first padding
 // slot, then the boundary slots, the same functor), which cuts the chain to
-// about 27/W cells. The group's P::kOut sums are then reduced by a
-// fixed-order xor butterfly over the group's lanes, and lane n stores sum
-// n. No lane returns before the shuffles: they take the full-warp mask, and
+// about 27/W cells. The group's P::kOut sums are then reduced over its
+// lanes in a fixed order, by one of two reductions chosen at compile time:
+//
+// - kTranspose false, the xor butterfly: log2 W xor steps, each adding
+//   every sum, so kOut * log2 W shuffles per lane (40 at W 32 for 8 sums);
+//   lane n stores sum n.
+// - kTranspose true, the transpose reduction for passes with many sums: the
+//   sums are padded with zeros to S, the least power of two >= kOut. At the
+//   xor steps m = W/2, W/4, ..., W/S a lane keeps half of the sums it still
+//   holds (the upper half where lane & m is set), sends its partner the
+//   other half and adds the partner's copy of the half it keeps; after
+//   those log2 S steps it holds the one sum whose index has the bits of
+//   lane / (W/S), and plain xor adds over the remaining log2(W/S) steps
+//   complete it. S - 1 + log2(W/S) shuffles per lane (7 at W 8 and 9 at
+//   W 32 for 8 sums, where the butterfly takes 24 and 40); lane n * W/S
+//   stores sum n. The sums are indexed with compile-time constants only
+//   (transpose_step below), so acc stays in registers.
+//
+// Both add the same pairs of lanes in the same order, so their outputs are
+// bitwise equal; they differ only in the shuffles each lane issues.
+//
+// No lane returns before the shuffles: they take the full-warp mask, and
 // lanes without a particle join them with zero sums. No atomics, so two
 // launches are bitwise equal; the sum order differs from
 // column_pass_kernel's, so the two agree to rounding, not bitwise. A sum no
-// pair contributes to stays +-0 (a butterfly over zeros), which PBD's exact
+// pair contributes to stays +-0 (a reduction over zeros), which PBD's exact
 // all-lambda-zero exit relies on. The kernel writes only the listed slots:
 // the caller zeroes the output (ops/column_pass_cuda.py
 // particle_pass_cuda), so ghost cells and empty slots read 0.
-template <class P, int W>
+
+// the least power of two >= n
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// the halving steps of the transpose reduction: at xor distance M a lane
+// keeps sums [0, H) or [H, 2H) of the 2H it holds (the upper half where
+// lane & M is set), moved to acc[0..H), and adds its partner's copy
+template <int H, int M, int S>
+__device__ __forceinline__ void transpose_step(float (&acc)[S], int lane) {
+  if constexpr (H > 0) {
+    const bool upper = (lane & M) != 0;
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      const float send = upper ? acc[j] : acc[j + H];
+      const float keep = upper ? acc[j + H] : acc[j];
+      acc[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+    }
+    transpose_step<H / 2, M / 2>(acc, lane);
+  }
+}
+
+template <class P, int W, bool kTranspose>
 __global__ void __launch_bounds__(kThreads)
     particle_pass_kernel(const float* __restrict__ fl,
                          const float* __restrict__ bd,
@@ -772,7 +818,9 @@ __global__ void __launch_bounds__(kThreads)
                          int gx, int gy, int gz, Consts c) {
   static_assert(W == 8 || W == 16 || W == 32,
                 "a group is 8, 16 or 32 lanes of one warp");
-  static_assert(P::kOut <= W, "lane n stores sum n");
+  // the sums held per lane: kOut, padded to a power of two to transpose
+  constexpr int S = kTranspose ? pow2_at_least(P::kOut) : P::kOut;
+  static_assert(S <= W, "every sum needs a lane to store it");
   static_assert(kThreads % 32 == 0, "blocks hold whole warps");
   const int64_t g = static_cast<int64_t>(gx) * gy * gz;
   const int64_t kg = k * g;
@@ -795,9 +843,9 @@ __global__ void __launch_bounds__(kThreads)
              z < gz - 1 && fl[t] < c.pos_guard;
   }
 
-  float acc[P::kOut];
+  float acc[S];
 #pragma unroll
-  for (int j = 0; j < P::kOut; ++j) acc[j] = 0.f;
+  for (int j = 0; j < S; ++j) acc[j] = 0.f;
 
   if (active) {
     const typename P::I iv = P::load_i(fl, t, kg, c);
@@ -831,20 +879,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // groups are W-aligned inside the warp, so xor by m < W stays in the group
+  if constexpr (kTranspose) {
+    transpose_step<S / 2, W / 2>(acc, lane);
 #pragma unroll
-  for (int m = W / 2; m > 0; m >>= 1) {
+    for (int m = W / (2 * S); m > 0; m >>= 1)
+      acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], m);
+    constexpr int kStride = W / S;  // lane n * kStride holds sum n
+    if (active && lane % kStride == 0 && lane / kStride < P::kOut)
+      out[(lane / kStride) * kg + t] = acc[0];
+  } else {
 #pragma unroll
-    for (int j = 0; j < P::kOut; ++j)
-      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
-  }
-  if (active) {
+    for (int m = W / 2; m > 0; m >>= 1) {
 #pragma unroll
-    for (int j = 0; j < P::kOut; ++j)
-      if (lane == j) out[j * kg + t] = acc[j];
+      for (int j = 0; j < S; ++j)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
+    }
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (lane == j) out[j * kg + t] = acc[j];
+    }
   }
 }
 
-template <class P, int W>
+template <class P, int W, bool kTranspose>
 cudaError_t launch_particles(const float* fl, const float* bd,
                              const int64_t* islots, float* out, int n, int k,
                              int kb, int gx, int gy, int gz, const Consts& c,
@@ -853,27 +911,34 @@ cudaError_t launch_particles(const float* fl, const float* bd,
   const int64_t threads = static_cast<int64_t>(n) * W;
   const unsigned blocks =
       static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  particle_pass_kernel<P, W><<<blocks, kThreads, 0, stream>>>(
+  particle_pass_kernel<P, W, kTranspose><<<blocks, kThreads, 0, stream>>>(
       fl, bd, islots, out, n, k, kb, gx, gy, gz, c);
   return cudaGetLastError();
 }
 
+// the reduction: 0 the xor butterfly, 1 the transpose reduction
+template <class P, int W, class... A>
+cudaError_t launch_reduction(int reduction, A... a) {
+  switch (reduction) {
+    case 0:
+      return launch_particles<P, W, false>(a...);
+    case 1:
+      return launch_particles<P, W, true>(a...);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // the group width W, instantiated for 8, 16 and 32 only
-template <class P>
-cudaError_t launch_lanes(int lanes, const float* fl, const float* bd,
-                         const int64_t* islots, float* out, int n, int k,
-                         int kb, int gx, int gy, int gz, const Consts& c,
-                         cudaStream_t stream) {
+template <class P, class... A>
+cudaError_t launch_lanes(int lanes, int reduction, A... a) {
   switch (lanes) {
     case 8:
-      return launch_particles<P, 8>(fl, bd, islots, out, n, k, kb, gx, gy,
-                                    gz, c, stream);
+      return launch_reduction<P, 8>(reduction, a...);
     case 16:
-      return launch_particles<P, 16>(fl, bd, islots, out, n, k, kb, gx, gy,
-                                     gz, c, stream);
+      return launch_reduction<P, 16>(reduction, a...);
     case 32:
-      return launch_particles<P, 32>(fl, bd, islots, out, n, k, kb, gx, gy,
-                                     gz, c, stream);
+      return launch_reduction<P, 32>(reduction, a...);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1080,17 +1145,20 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
   }
 }
 
-// The particle-list kernel on pass ids 2 (surface_pressure), 4
-// (divergence), 5 (stiffness_accel) and 11 (pbd_lambda) of
-// column_pass_launch, W = lanes in {8, 16, 32}, over the n
-// particles of islots (int64, a slot in [0, K*G) or the trash value K*G).
+// The particle-list kernel on pass ids 1 (density_colorgrad_visc), 2
+// (surface_pressure), 4 (divergence), 5 (stiffness_accel), 11 (pbd_lambda)
+// and 12 (xsph_colorgrad) of column_pass_launch, W = lanes in {8, 16, 32},
+// reduction 0 (the xor butterfly) or 1 (the transpose reduction), over the
+// n particles of islots (int64, a slot in [0, K*G) or the trash value K*G).
 // out must be zeroed by the caller: only listed slots are written. Returns
-// a cudaError_t; any other pass id or width is cudaErrorInvalidValue.
-extern "C" int particle_pass_launch(int pass_id, int lanes, const float* fl,
-                                    const float* bd, const int64_t* islots,
-                                    float* out, int n, int k, int kb, int gx,
-                                    int gy, int gz, const float* consts,
-                                    int n_consts, int device, void* stream) {
+// a cudaError_t; any other pass id, width or reduction is
+// cudaErrorInvalidValue.
+extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
+                                    const float* fl, const float* bd,
+                                    const int64_t* islots, float* out, int n,
+                                    int k, int kb, int gx, int gy, int gz,
+                                    const float* consts, int n_consts,
+                                    int device, void* stream) {
   Consts c;
   if (!read_consts(consts, n_consts, &c) || n < 0)
     return cudaErrorInvalidValue;
@@ -1098,18 +1166,24 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, const float* fl,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (pass_id) {
+    case 1:
+      return launch_lanes<DensityColorgradViscPass>(
+          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
     case 2:
-      return launch_lanes<SurfacePressurePass>(lanes, fl, bd, islots, out, n,
-                                               k, kb, gx, gy, gz, c, s);
+      return launch_lanes<SurfacePressurePass>(
+          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
     case 4:
-      return launch_lanes<DivergencePass>(lanes, fl, bd, islots, out, n, k,
-                                          kb, gx, gy, gz, c, s);
+      return launch_lanes<DivergencePass>(lanes, reduction, fl, bd, islots,
+                                          out, n, k, kb, gx, gy, gz, c, s);
     case 5:
-      return launch_lanes<StiffnessAccelPass>(lanes, fl, bd, islots, out, n,
-                                              k, kb, gx, gy, gz, c, s);
+      return launch_lanes<StiffnessAccelPass>(
+          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
     case 11:
-      return launch_lanes<PbdLambdaPass>(lanes, fl, bd, islots, out, n, k, kb,
-                                         gx, gy, gz, c, s);
+      return launch_lanes<PbdLambdaPass>(lanes, reduction, fl, bd, islots,
+                                         out, n, k, kb, gx, gy, gz, c, s);
+    case 12:
+      return launch_lanes<XsphColorgradPass>(
+          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -306,7 +306,7 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
     if _surface_on(cfg):
         o = pp.density_colorgrad_visc_pass(pmv, bdx, dims, dims_b, cfg,
-                                           executor)
+                                           executor, islots=lo.idx.slots)
         rho = o[0]
         cg = o[1:4] / torch.clamp(o[4], min=cfg.epsilon)[None]
         vel_d = vel_d + o[5:8] * _visc_dt(cfg, dt)
@@ -560,12 +560,16 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
 
     # --- velocity from the position delta (src/PBDSolver.cu:55-60), then
     # XSPH viscosity (:89-125) fused with the color field, both over the
-    # projected positions ---
+    # projected positions. The slots stay where the fill put them, so the
+    # step's slot list still names every real slot once: a listed slot's x
+    # stays below POS_PAD/2 through _clamp_pos_only, and a padding slot's
+    # stays POS_PAD ---
     vel_d = (pos_d - plast_d) / _const(dt, pos_d)
     xsph_c = _f32(cfg.pbd_xsph_c / cfg.rho0)
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
     if _surface_on(cfg):
-        o = pp.xsph_colorgrad_pass(pmv, bdx, dims, dims_b, cfg, executor)
+        o = pp.xsph_colorgrad_pass(pmv, bdx, dims, dims_b, cfg, executor,
+                                   islots=lo.idx.slots)
         vel_d = vel_d + o[0:3] * xsph_c
         cg = o[3:6] / torch.clamp(o[6], min=cfg.epsilon)[None]
         sa = pp.surface_pass(torch.cat([pos_d, mass_d, cg], 0), dims, cfg,

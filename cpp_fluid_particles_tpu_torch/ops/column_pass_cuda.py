@@ -10,9 +10,11 @@ hash of the source and the flags, and loaded with ctypes. A missing
 ``column_pass_cuda`` has the executor signature of
 ``ops.passes.column_pass_plain`` and takes CUDA tensors only.
 ``particle_pass_cuda`` runs ``passes.PARTICLE_PASSES`` (pbd_lambda,
-stiffness_accel, divergence and surface_pressure) through the
-particle-list kernel, a group of ``LANES`` lanes per particle of the step's
-slot list; ``passes.column_pass`` sends those four passes there on a card.
+stiffness_accel, divergence, surface_pressure, density_colorgrad_visc and
+xsph_colorgrad) through the particle-list kernel, a group of ``LANES``
+lanes per particle of the step's slot list whose sums one of
+``REDUCTIONS`` combines; ``passes.column_pass`` sends those six passes
+there on a card.
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
@@ -79,6 +81,23 @@ LANES = (32, 8, 16)
 # width in one call (PERF.md, kernel table)
 PASS_LANES = {"surface_pressure": 8}
 
+# how the particle-list kernel reduces a group's sums, as its template
+# argument kTranspose: "butterfly", xor adds of every sum at every step
+# (kOut * log2 W shuffles per lane), or "transpose", each step halving the
+# sums a lane holds (S - 1 + log2(W/S) shuffles, S the sums padded to a
+# power of two); csrc/column_pass.cu says how
+REDUCTIONS = ("butterfly", "transpose")
+
+# passes whose default reduction is not REDUCTIONS[0]: on the full dam
+# (K 22 and 18), both runs of each in one call, density_colorgrad_visc (8
+# sums) took 0.0786 ms transposed at W 32 against the butterfly's 0.0846
+# (W 16: 0.0879 / 0.0889, W 8: 0.0940 / 0.0946), xsph_colorgrad (7 sums)
+# 0.0734 against 0.0758 (its best butterfly, W 8: 0.0747); for
+# surface_pressure (6 sums) the transpose was no faster at any width (W 8
+# 0.0765 against 0.0755; PERF.md, kernel table)
+PASS_REDUCTION = {"density_colorgrad_visc": "transpose",
+                  "xsph_colorgrad": "transpose"}
+
 # launches per pass instance, per particle-list instance (particle_<name>),
 # and per fluid-only instance of the prototype's bodies (flat_<body>: the
 # tiled kernel; untiled_<body>: column_pass_kernel); bumped once per
@@ -92,6 +111,11 @@ LAUNCHES.update({f"{kind}_{body}": 0 for kind in ("flat", "untiled")
 def default_lanes(name: str) -> int:
     """The group width the particle-list kernel runs pass ``name`` at."""
     return PASS_LANES.get(name, LANES[0])
+
+
+def default_reduction(name: str) -> str:
+    """The reduction the particle-list kernel runs pass ``name`` with."""
+    return PASS_REDUCTION.get(name, REDUCTIONS[0])
 
 
 def reset_launch_counts() -> None:
@@ -143,8 +167,8 @@ def _library() -> ctypes.CDLL:
                    vp]
     fn.restype = ci
     fn = lib.particle_pass_launch
-    fn.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci,
-                   ci, vp]
+    fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
+                   ci, ci, vp]
     fn.restype = ci
     return lib
 
@@ -225,15 +249,17 @@ def column_pass_cuda(name: str, fl: torch.Tensor,
 def particle_pass_cuda(name: str, fl: torch.Tensor, bd: torch.Tensor,
                        islots: torch.Tensor, dims: DenseDims,
                        dims_b: DenseDims, cfg: SimConfig,
-                       lanes: Optional[int] = None) -> torch.Tensor:
+                       lanes: Optional[int] = None,
+                       reduction: Optional[str] = None) -> torch.Tensor:
     """Pass ``name`` (one of ``passes.PARTICLE_PASSES``) through the
     particle-list kernel on the current stream of ``fl``'s device: a group
     of ``lanes`` lanes (one of LANES; default ``default_lanes(name)``) for
     each particle of ``islots``, the step's ``BoxIndex.slots`` ((N,) int64
-    into the flat (K, G) slot axis, K*G for an invalid particle). Returns
-    (n_out, K, G), zeroed by one memset before the launch (it counts in the
-    kernel's time): the kernel writes only the listed slots. Counted as
-    ``particle_<name>``."""
+    into the flat (K, G) slot axis, K*G for an invalid particle), its sums
+    combined by ``reduction`` (one of REDUCTIONS; default
+    ``default_reduction(name)``). Returns (n_out, K, G), zeroed by one
+    memset before the launch (it counts in the kernel's time): the kernel
+    writes only the listed slots. Counted as ``particle_<name>``."""
     fn = "particle_pass_cuda"
     if name not in PARTICLE_PASSES:
         raise ValueError(f"{fn}: pass {name!r} has no particle-list kernel; "
@@ -241,6 +267,10 @@ def particle_pass_cuda(name: str, fl: torch.Tensor, bd: torch.Tensor,
     lanes = default_lanes(name) if lanes is None else lanes
     if lanes not in LANES:
         raise ValueError(f"{fn}: lanes {lanes} is not one of {LANES}")
+    reduction = default_reduction(name) if reduction is None else reduction
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"{fn}: reduction {reduction!r} is not one of "
+                         f"{REDUCTIONS}")
     if islots.dtype != torch.int64 or islots.dim() != 1:
         raise ValueError(f"{fn}: islots must be 1-D int64, got "
                          f"{islots.dtype} of shape {tuple(islots.shape)}")
@@ -258,12 +288,13 @@ def particle_pass_cuda(name: str, fl: torch.Tensor, bd: torch.Tensor,
     consts = _consts(cfg)
     stream = torch.cuda.current_stream(fl.device).cuda_stream
     err = _library().particle_pass_launch(
-        PASS_IDS[name], lanes, fl.data_ptr(), bd_ptr, islots.data_ptr(),
-        out.data_ptr(), n, dims.k, kb, dims.gx, dims.gy, dims.gz, consts,
-        len(consts), fl.device.index, stream)
+        PASS_IDS[name], lanes, REDUCTIONS.index(reduction), fl.data_ptr(),
+        bd_ptr, islots.data_ptr(), out.data_ptr(), n, dims.k, kb, dims.gx,
+        dims.gy, dims.gz, consts, len(consts), fl.device.index, stream)
     if err != 0:
-        raise RuntimeError(f"{fn}: launching {name} with {lanes} lanes "
-                           f"failed with CUDA error {err}")
+        raise RuntimeError(f"{fn}: launching {name} with {lanes} lanes and "
+                           f"the {reduction} reduction failed with CUDA "
+                           f"error {err}")
     LAUNCHES[f"particle_{name}"] += 1
     return out
 

@@ -491,7 +491,8 @@ BOUNDARY_ROWS = 4      # [pos3, mass]
 # the passes that run, on a card, through the particle-list kernel over the
 # step's slot list (ops/column_pass_cuda.py particle_pass_cuda)
 PARTICLE_PASSES = ("pbd_lambda", "stiffness_accel", "divergence",
-                   "surface_pressure")
+                   "surface_pressure", "density_colorgrad_visc",
+                   "xsph_colorgrad")
 
 # the bodies of the flat-grid prototype (exp/flat_pallas_proto.py:147-188:
 # density_terms, sa_terms, dcv_terms) -> the pass whose fluid half each is;
@@ -600,10 +601,12 @@ def density_pass(fl, bd, dims, dims_b, cfg, executor=None):
     return column_pass("density", fl, bd, dims, dims_b, cfg, executor)[0]
 
 
-def density_colorgrad_visc_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl: [pos3, mass, vel3]; bd: [pos3, mass]. Returns (8, K, G)."""
+def density_colorgrad_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
+                                islots):
+    """fl: [pos3, mass, vel3]; bd: [pos3, mass]; islots: the step's
+    ``BoxIndex.slots``. Returns (8, K, G)."""
     return column_pass("density_colorgrad_visc", fl, bd, dims, dims_b, cfg,
-                       executor)
+                       executor, islots=islots)
 
 
 def surface_pressure_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
@@ -673,12 +676,13 @@ def pbd_lambda_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
                        islots=islots)
 
 
-def xsph_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl: [pos3, mass, vel3]; bd: [pos3, mass]. Returns (7, K, G):
-    [dvx, dvy, dvz, numx, numy, numz, den]; the caller scales dv by
-    c/rho0."""
+def xsph_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
+                        islots):
+    """fl: [pos3, mass, vel3]; bd: [pos3, mass]; islots: the step's
+    ``BoxIndex.slots``. Returns (7, K, G): [dvx, dvy, dvz, numx, numy,
+    numz, den]; the caller scales dv by c/rho0."""
     return column_pass("xsph_colorgrad", fl, bd, dims, dims_b, cfg,
-                       executor)
+                       executor, islots=islots)
 
 
 def xsph_pass(fl, dims, cfg, executor=None):

@@ -1,6 +1,7 @@
 """The hand-written CUDA neighbor-pass kernel, its particle-list variant
-for pbd_lambda, stiffness_accel, divergence and surface_pressure, and its
-brick-tiled fluid-only variant on the card.
+for pbd_lambda, stiffness_accel, divergence, surface_pressure,
+density_colorgrad_visc and xsph_colorgrad (at each group width, under
+both reductions), and its brick-tiled fluid-only variant on the card.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -108,22 +109,25 @@ def test_wrapper_checks_operands(operands):
         cc.column_pass_cuda("divergence", fl, None, dims, None, CFG)
 
 
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
 @pytest.mark.parametrize("lanes", cc.LANES)
 @pytest.mark.parametrize("name", pp.PARTICLE_PASSES)
 def test_particle_kernel_matches_plain_and_column_kernel(operands, name,
-                                                         lanes):
+                                                         lanes, reduction):
     """The particle-list kernel on the slot list its step gives it: within
     BAR of the plain executor and of column_pass_kernel (its sums run in
-    another order), two launches bitwise equal, each launch counted once."""
+    another order), two launches bitwise equal, each launch counted once.
+    The transpose reduction adds the same pairs in the same order as the
+    butterfly, so the two are bitwise equal at one width."""
     _, fl, bd, dims, dims_b, islots = operands[name]
     assert islots is not None
     want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
     old = cc.column_pass_cuda(name, fl, bd, dims, dims_b, CFG)
     n0 = cc.LAUNCHES[f"particle_{name}"]
     got = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
-                                lanes=lanes)
+                                lanes=lanes, reduction=reduction)
     again = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
-                                  lanes=lanes)
+                                  lanes=lanes, reduction=reduction)
     torch.cuda.synchronize()
     assert cc.LAUNCHES[f"particle_{name}"] == n0 + 2
     assert torch.equal(got, again)
@@ -131,22 +135,29 @@ def test_particle_kernel_matches_plain_and_column_kernel(operands, name,
     for ref in (want, old):
         scale = float(ref.abs().max())
         torch.testing.assert_close(got, ref, rtol=BAR, atol=BAR * scale)
+    butterfly = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b,
+                                      CFG, lanes=lanes,
+                                      reduction="butterfly")
+    assert torch.equal(got, butterfly)
 
 
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
 @pytest.mark.parametrize("lanes", cc.LANES)
 @pytest.mark.parametrize("name", pp.PARTICLE_PASSES)
-def test_particle_kernel_writes_only_listed_slots(operands, name, lanes):
+def test_particle_kernel_writes_only_listed_slots(operands, name, lanes,
+                                                  reduction):
     """Invalid particles (slot K*G) leave their slots 0 and the others as
     with the whole list; an empty list gives an all-zero output."""
     _, fl, bd, dims, dims_b, islots = operands[name]
     full = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
-                                 lanes=lanes)
+                                 lanes=lanes, reduction=reduction)
     kg = dims.k * dims.g
     drop = torch.arange(0, islots.shape[0], 3, device=islots.device)
     cut = islots.clone()
     cut[drop] = kg
     part = cc.particle_pass_cuda(name, fl, bd, cut, dims, dims_b, CFG,
-                                 lanes=lanes).reshape(full.shape[0], -1)
+                                 lanes=lanes, reduction=reduction
+                                 ).reshape(full.shape[0], -1)
     full = full.reshape(full.shape[0], -1)
     gone = islots[drop]
     gone = gone[gone < kg]
@@ -155,27 +166,31 @@ def test_particle_kernel_writes_only_listed_slots(operands, name, lanes):
     kept = cut[cut < kg]
     assert torch.equal(part[:, kept], full[:, kept])
     empty = cc.particle_pass_cuda(name, fl, bd, islots[:0], dims, dims_b,
-                                  CFG, lanes=lanes)
+                                  CFG, lanes=lanes, reduction=reduction)
     assert not bool(empty.any())
 
 
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
 @pytest.mark.parametrize("lanes", cc.LANES)
 def test_particle_stiffness_accel_is_exactly_zero_at_zero_lambda(operands,
-                                                                 lanes):
+                                                                 lanes,
+                                                                 reduction):
     """PBD's exact all-lambda-zero exit needs stiffness_accel to store +-0
     where no pair contributes."""
     _, fl, bd, dims, dims_b, islots = operands["stiffness_accel"]
     zero = fl.clone()
     zero[4] = 0.0
     out = cc.particle_pass_cuda("stiffness_accel", zero, bd, islots, dims,
-                                dims_b, CFG, lanes=lanes)
+                                dims_b, CFG, lanes=lanes,
+                                reduction=reduction)
     assert not bool(out.any())
 
 
 @pytest.mark.parametrize("name", pp.PARTICLE_PASSES)
 def test_particle_passes_on_the_card_need_the_slot_list(operands, name):
     """On a card these passes never fall back: no slot list raises, and
-    the wrapper refuses a list or width its kernel does not take."""
+    the wrapper refuses a list, width or reduction its kernel does not
+    take."""
     _, fl, bd, dims, dims_b, islots = operands[name]
     with pytest.raises(ValueError, match="needs islots"):
         pp.column_pass(name, fl, bd, dims, dims_b, CFG)
@@ -184,6 +199,9 @@ def test_particle_passes_on_the_card_need_the_slot_list(operands, name):
     with pytest.raises(ValueError, match="not one of"):
         cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
                               lanes=4)
+    with pytest.raises(ValueError, match="not one of"):
+        cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                              reduction="tree")
 
 
 def test_simulation_runs_through_the_kernel(dev):
@@ -195,7 +213,7 @@ def test_simulation_runs_through_the_kernel(dev):
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
     assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
-        "density": 1, "density_colorgrad_visc": frames,
+        "density": 1, "particle_density_colorgrad_visc": frames,
         "particle_surface_pressure": frames}
     cpu = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
                        device="cpu")
@@ -225,7 +243,9 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
     for name in ("density_colorgrad_visc", "surface_pressure",
                  "density_alpha", "density_visc", "pressure_force",
                  "stiffness_accel", "divergence", "particle_pbd_lambda",
-                 "particle_surface_pressure"):
+                 "particle_surface_pressure",
+                 "particle_density_colorgrad_visc",
+                 "particle_xsph_colorgrad"):
         assert la[name] == 0, (name, la)
 
     dims, dims_b = gpu._dims()
@@ -251,7 +271,7 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
 def test_pbd_simulation_runs_through_the_kernel(dev):
     """Every pass of the card's PBD frames launched a kernel, the two
     projection passes the particle-list kernel once per projection
-    iteration; then one step from the state they reached agrees on the
+    iteration and xsph_colorgrad once per frame; then one step from the state they reached agrees on the
     card and on the CPU at the one-step bars, with equal iteration
     counts."""
     cc.reset_launch_counts()
@@ -265,11 +285,11 @@ def test_pbd_simulation_runs_through_the_kernel(dev):
     la = cc.LAUNCHES
     assert la["particle_pbd_lambda"] == la["particle_stiffness_accel"] \
         == sum(iters)
-    assert la["xsph_colorgrad"] == la["surface"] == 4
+    assert la["particle_xsph_colorgrad"] == la["surface"] == 4
     assert {k: n for k, n in la.items() if n} == {
         "density": 1, "particle_pbd_lambda": sum(iters),
-        "particle_stiffness_accel": sum(iters), "xsph_colorgrad": 4,
-        "surface": 4}
+        "particle_stiffness_accel": sum(iters),
+        "particle_xsph_colorgrad": 4, "surface": 4}
 
     dims, dims_b = gpu._dims()
 

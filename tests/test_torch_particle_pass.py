@@ -1,18 +1,22 @@
 """The slot list that the particle-list kernel walks, and the dispatch of
-the four passes that take it, on the CPU.
+the six passes that take it, on the CPU.
 
-On a card, pbd_lambda, stiffness_accel, divergence and surface_pressure run
-through ``column_pass_cuda.particle_pass_cuda``: one group of lanes per
-particle of the step's ``BoxIndex.slots``, writing only those slots of an
-output zeroed beforehand. That is right only if the list names every real slot of the
-grid the step fills, each once, inside the ghost ring, and marks every
-other particle with the trash value K*G. These tests hold that contract on
-the dam, on a perturbed splash (with K and box overflow) and on a jittered
-block, with the list equal to the JAX package's; then that the steps hand
-the list to exactly those four passes, and that the wrapper and the passes
-refuse what the kernel cannot take. The kernel itself runs only on the
-card (tests/test_torch_cuda.py).
+On a card, pbd_lambda, stiffness_accel, divergence, surface_pressure,
+density_colorgrad_visc and xsph_colorgrad run through
+``column_pass_cuda.particle_pass_cuda``: one group of lanes per particle
+of the step's ``BoxIndex.slots``, writing only those slots of an output
+zeroed beforehand. That is right only if the list names every real slot
+of the grid the step fills, each once, inside the ghost ring, and marks
+every other particle with the trash value K*G. These tests hold that
+contract on the dam, on a perturbed splash (with K and box overflow) and
+on a jittered block, with the list equal to the JAX package's; then that
+the steps hand the list to exactly those six passes, that it still names
+every real slot of the projected grid PBD's XSPH pass runs on, and that
+the wrapper and the passes refuse what the kernel cannot take. The kernel
+itself runs only on the card (tests/test_torch_cuda.py).
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -97,44 +101,75 @@ def test_slot_list_names_every_real_slot_once(case):
         assert bool((~valid).any())
 
 
-def _recorded_calls(solver):
-    """-> [(pass name, islots or None)] of one step of ``solver`` on the
-    block, after two frames."""
+@functools.cache
+def _recorded_calls(solver, mode="parity"):
+    """-> ([(pass name, fl, islots or None)] of one step of ``solver`` in
+    ``mode`` on the small domain's block after two frames, the step's slot
+    list)."""
+    cfg = SMALL if mode == "parity" else T.dam_break_config(
+        mode=mode, space_size=SMALL.space_size)
     seen = []
 
     def record(name, fl, bd, dims, dims_b, cfg, islots=None):
-        seen.append((name, islots))
+        seen.append((name, fl, islots))
         return tpp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
 
-    sim = T.Simulation(solver=solver, cfg=SMALL, fluid_pos=_block(),
+    sim = T.Simulation(solver=solver, cfg=cfg, fluid_pos=_block(),
                        device="cpu")
     sim.run(2)
     dims, dims_b = sim._dims()
-    tds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, SMALL, SMALL.dt,
+    tds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, cfg, cfg.dt,
                             dims, dims_b, sim.box, executor=record)
     want = tds.bx.build_box_index(
-        sim.state.pos, SMALL, dims,
+        sim.state.pos, cfg, dims,
         tdense.DenseDims(*sim.box, dims.k)).slots
     return seen, want
 
 
 # the passes of each step that take the slot list: PBD's projection
-# passes, DFSPH's two Jacobi passes, WCSPH's second traversal
-LISTED = {"pbd": {"pbd_lambda", "stiffness_accel"},
+# passes and its XSPH traversal, DFSPH's two Jacobi passes, both WCSPH
+# traversals
+LISTED = {"pbd": {"pbd_lambda", "stiffness_accel", "xsph_colorgrad"},
           "dfsph": {"stiffness_accel", "divergence"},
-          "wcsph": {"surface_pressure"}}
+          "wcsph": {"density_colorgrad_visc", "surface_pressure"}}
+# the passes of each surface-on step that still walk the whole grid
+UNLISTED = {"pbd": {"surface"},
+            "dfsph": {"density_alpha_colorgrad", "viscosity", "surface"},
+            "wcsph": set()}
 
 
 @pytest.mark.parametrize("solver", list(LISTED))
 def test_steps_hand_the_slot_list_to_the_particle_passes(solver):
-    seen, want = _recorded_calls(solver)
-    with_list = {name for name, islots in seen if islots is not None}
+    seen, want = _recorded_calls(solver, "parity")
+    with_list = {name for name, _, islots in seen if islots is not None}
     assert with_list == LISTED[solver]
     assert set.union(*LISTED.values()) == set(tpp.PARTICLE_PASSES)
-    for name, islots in seen:
+    for name, _, islots in seen:
         if name in tpp.PARTICLE_PASSES:
             assert islots is not None and torch.equal(islots, want), name
-    assert {name for name, _ in seen} - set(tpp.PARTICLE_PASSES)
+    assert ({name for name, _, _ in seen} - set(tpp.PARTICLE_PASSES)
+            == UNLISTED[solver])
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_pbd_slot_list_names_every_real_slot_of_the_projected_grid(mode):
+    """PBD's XSPH traversal runs on the projected positions over the slot
+    list the fill made: the projection's position-only clamp keeps every
+    listed slot real and every padding slot POS_PAD, so the list still
+    names every real slot of that grid once. Fast mode adds the warm-start
+    predictor and the Chebyshev extrapolation."""
+    seen, want = _recorded_calls("pbd", mode)
+    (fl, islots), = [(fl, islots) for name, fl, islots in seen
+                     if name == "xsph_colorgrad"]
+    assert torch.equal(islots, want)
+    kg = fl.shape[1] * fl.shape[2]
+    listed = islots[islots < kg]
+    assert listed.unique().numel() == listed.numel() > 0
+    real = torch.nonzero((fl[0] < tds.POS_GUARD).reshape(-1))[:, 0]
+    assert torch.equal(torch.sort(listed).values, real)
+    # the projection moved the positions the list was made for
+    first = next(f for name, f, _ in seen if name == "pbd_lambda")
+    assert not torch.equal(first[:3], fl[:3])
 
 
 def _operands():
@@ -164,10 +199,17 @@ def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="not one of"):
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG,
                                lanes=4)
+    with pytest.raises(ValueError, match="reduction 'tree' is not one of"):
+        tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG,
+                               reduction="tree")
     assert tcc.LAUNCHES == before
     assert tcc.LANES[0] in (8, 16, 32) and set(tcc.LANES) == {8, 16, 32}
+    assert tcc.REDUCTIONS == ("butterfly", "transpose")
     assert set(tcc.PASS_LANES) <= set(tpp.PARTICLE_PASSES)
+    assert set(tcc.PASS_REDUCTION) <= set(tpp.PARTICLE_PASSES)
     assert {tcc.default_lanes(n) for n in tpp.PARTICLE_PASSES} <= set(tcc.LANES)
+    assert ({tcc.default_reduction(n) for n in tpp.PARTICLE_PASSES}
+            <= set(tcc.REDUCTIONS))
 
 
 @pytest.mark.parametrize("name", tpp.PARTICLE_PASSES)
@@ -178,7 +220,10 @@ def test_particle_passes_require_the_slot_list(name):
         "pbd_lambda": (tpp.pbd_lambda_pass, slice(None)),
         "stiffness_accel": (tpp.stiffness_accel_pass, slice(None)),
         "divergence": (tpp.divergence_pass, 0),
-        "surface_pressure": (tpp.surface_pressure_pass, slice(None))}[name]
+        "surface_pressure": (tpp.surface_pressure_pass, slice(None)),
+        "density_colorgrad_visc": (tpp.density_colorgrad_visc_pass,
+                                   slice(None)),
+        "xsph_colorgrad": (tpp.xsph_colorgrad_pass, slice(None))}[name]
     rows = tpp.PASSES[name].fi
     with pytest.raises(TypeError, match="islots"):
         fn(fl[:rows], bd, d, d, TCFG)

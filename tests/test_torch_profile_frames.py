@@ -17,6 +17,10 @@ torch.set_num_threads(2)
      "namespace)::Consts)", "particle_pbd_lambda"),
     ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
      "namespace)::StiffnessAccelPass, 8>(...)", "particle_stiffness_accel"),
+    ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
+     "namespace)::DensityColorgradViscPass, 8, true>(float const*, float "
+     "const*, long const*, float*, int, int, int, int, int, int, (anonymous "
+     "namespace)::Consts)", "particle_density_colorgrad_visc"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "
      "namespace)::XsphColorgradPass>(...)", "column_xsph_colorgrad"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "
