@@ -5,8 +5,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It builds the
 hand-written kernels (cpp_fluid_particles_tpu_torch/csrc/column_pass.cu)
 with nvcc, holds each of the neighbor pass's sixteen instances, and the
 particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
-surface_pressure, density_colorgrad_visc and xsph_colorgrad on the main
-path, against the plain torch executor on the card, then drives the port's paths on the full 20,736-particle dam (``dam_break_config(mode="parity")``, device "cuda"),
+surface_pressure, density_colorgrad_visc, xsph_colorgrad, viscosity and
+surface on the main path, against the plain torch executor on the card,
+then drives the port's paths on the full 20,736-particle dam
+(``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
 WCSPH, DFSPH and PBD for 300 frames each at the reference benchmark's dt,
 PBD in its default fast mode as ``Simulation(device="cuda")`` builds it,
@@ -24,7 +26,8 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               atol 2e-5 x the row's max;
               two launches must agree bitwise. color_gradient and
               density_colorgrad, which no step runs, on PBD's [pos3, mass].
-              The six pp.PARTICLE_PASSES also through the particle-list
+              The eight pp.PARTICLE_PASSES (the fluid-only viscosity and
+              surface among them) also through the particle-list
               kernel on the step's slot list at each group width of LANES
               under each of REDUCTIONS: against the plain executor and
               column_pass_kernel at the same bar, two launches bitwise
@@ -39,21 +42,23 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               == the frames run, the column kernel's counts of both 0),
               ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
-              particle_stiffness_accel >= 5 x the frames run, the column
-              kernel's counts of both 0), plus iteration bounds, the
-              mean iterations and the host syncs per frame
+              particle_stiffness_accel >= 5 x the frames run,
+              particle_viscosity == particle_surface == the frames run,
+              the column kernel's counts of all four 0), plus iteration
+              bounds, the mean iterations and the host syncs per frame
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
               projection with its exact all-lambda-zero exit):
               particle_pbd_lambda == particle_stiffness_accel == the sum
               of the frames' iterations (the particle-list kernel; the
               column kernel's counts of both stay 0),
-              particle_xsph_colorgrad == surface == the frames run (the
-              column kernel's xsph_colorgrad 0)
+              particle_xsph_colorgrad == particle_surface == the frames
+              run (the column kernel's xsph_colorgrad and surface 0)
   5d. pbd_default  ``Simulation(device="cuda")`` as constructed (PBD in
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
               off, a short run each: the surface-off instances' launches
-              (DFSPH's divergence identity as in 5b)
+              (DFSPH's divergence identity as in 5b, and
+              particle_viscosity == the frames run)
   6. timing   kernel vs plain executor per pass at the shapes of its
               path's final state, beside the pass's bound; the
               PARTICLE_PASSES as a ladder in turns: column kernel, the
@@ -410,8 +415,8 @@ def pbd_checks(st, cfg, off=False):
     """PBD launch identities over every frame run (the warm-up and retries
     included): the particle-list kernel's pbd_lambda == stiffness_accel ==
     the sum of the frames' iterations (the column kernel's counts of both
-    stay 0), one XSPH traversal per frame (xsph_colorgrad through the
-    particle-list kernel and surface, or xsph with surface effects off);
+    stay 0), one XSPH traversal per frame (xsph_colorgrad and surface, both
+    through the particle-list kernel, or xsph with surface effects off);
     iterations in [1, pbd_max_iter]. Adds the mean iterations and host
     syncs per frame run after the constructor."""
     it, frames_run = st["pbd_iters"], st["rerun_frames"]
@@ -419,7 +424,7 @@ def pbd_checks(st, cfg, off=False):
     want = {"particle_pbd_lambda": n, "particle_stiffness_accel": n}
     want.update({"xsph": frames_run} if off else
                 {"particle_xsph_colorgrad": frames_run,
-                 "surface": frames_run})
+                 "particle_surface": frames_run})
     expect_launches(st, want)
     if not (min(it) >= 1 and max(it) <= cfg.pbd_max_iter):
         raise AssertionError(f"PBD iterations out of bounds: "
@@ -817,14 +822,15 @@ def main() -> int:
                                  "particle_surface_pressure": frames_run})
             log(phase, slice_line(st, card))
         elif solver == "dfsph":
-            # per frame run: one density_alpha_colorgrad, viscosity and
-            # surface; divergence == stiffness_accel (the divergence warm
-            # start is on; the particle-list kernel runs both), at least 5
-            # (1 + 1 + >= 1 divergence iterations and 1 + 1 + >= 2 density
-            # iterations of each)
+            # per frame run: one density_alpha_colorgrad, and one viscosity
+            # and surface through the particle-list kernel; divergence ==
+            # stiffness_accel (the divergence warm start is on; the
+            # particle-list kernel runs both), at least 5 (1 + 1 + >= 1
+            # divergence iterations and 1 + 1 + >= 2 density iterations of
+            # each)
             expect_launches(st, {"density_alpha_colorgrad": frames_run,
-                                 "viscosity": frames_run,
-                                 "surface": frames_run,
+                                 "particle_viscosity": frames_run,
+                                 "particle_surface": frames_run,
                                  "particle_divergence":
                                      (5 * frames_run, None),
                                  "particle_stiffness_accel":
@@ -881,7 +887,8 @@ def main() -> int:
         if solver == "wcsph":
             expect_launches(st, {"density_visc": n, "pressure_force": n})
         elif solver == "dfsph":
-            expect_launches(st, {"density_alpha": n, "viscosity": n,
+            expect_launches(st, {"density_alpha": n,
+                                 "particle_viscosity": n,
                                  "particle_divergence": (5 * n, None),
                                  "particle_stiffness_accel": (5 * n, None)})
             divergence_is_stiffness_accel(st)

@@ -52,12 +52,12 @@
 // times of both, on each brick, are in PERF.md's kernel table.
 //
 // particle_pass_kernel (below) runs pbd_lambda, stiffness_accel,
-// divergence, surface_pressure, density_colorgrad_visc and xsph_colorgrad
-// on the main path: a group of lanes per particle of the step's slot list
-// splits that particle's 27-cell walk, and the group's sums are reduced by
-// an xor butterfly or, for passes with many sums, a transpose reduction.
-// column_pass_kernel still runs all six as its yardstick; the note above
-// the template says why.
+// divergence, surface_pressure, density_colorgrad_visc, xsph_colorgrad and
+// the fluid-only viscosity and surface on the main path: a group of lanes
+// per particle of the step's slot list splits that particle's 27-cell
+// walk, and the group's sums are reduced by an xor butterfly or, for
+// passes with many sums, a transpose reduction. column_pass_kernel still
+// runs all eight as its yardstick; the note above the template says why.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -730,25 +730,34 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 }
 
 // --- the particle-list kernel (PbdLambdaPass, StiffnessAccelPass,
-// DivergencePass, SurfacePressurePass, DensityColorgradViscPass and
-// XsphColorgradPass) ---
+// DivergencePass, SurfacePressurePass, DensityColorgradViscPass,
+// XsphColorgradPass, ViscosityPass and SurfacePass) ---
 //
 // Replaces the same TPU kernel as column_pass_kernel, pallas_passes.py:107
-// `column_pass`, for six instances: the PBD projection passes pbd_lambda
+// `column_pass`, for eight instances: the PBD projection passes pbd_lambda
 // and stiffness_accel, the DFSPH Jacobi passes divergence and
 // stiffness_accel (each runs in every iteration of its solve), WCSPH's two
-// traversals density_colorgrad_visc and surface_pressure, and PBD's
-// xsph_colorgrad, each once a frame. column_pass_kernel gives every (slot,
+// traversals density_colorgrad_visc and surface_pressure, PBD's
+// xsph_colorgrad, and the fluid-only viscosity (DFSPH) and surface (DFSPH
+// and PBD), each once a frame. column_pass_kernel gives every (slot,
 // cell) of the ghosted grid a thread: at these shapes (27^3 cells, K 16-22)
 // that is 315k-354k threads of which 6% hold a particle, scattered over the
 // warps, and each busy thread walks its 27 neighbour cells alone, a chain of
 // some 300-400 dependent load-and-test steps; a warp waits on its densest
 // lane. What bounds that kernel is the latency of the chain, not bytes or
 // operations (PERF.md section 6). Here the chain is about 27/W cells long.
-// What bounds the six instances then is not measured; the likely bound is
+// What bounds the eight instances then is not measured; the likely bound is
 // their uncoalesced neighbour loads: 4 (pbd_lambda), 5 (stiffness_accel),
-// 7 (divergence, density_colorgrad_visc, xsph_colorgrad) or 9
-// (surface_pressure) rows per candidate, gathered from scattered cells.
+// 7 (divergence, density_colorgrad_visc, xsph_colorgrad, viscosity,
+// surface) or 9 (surface_pressure) rows per candidate, gathered from
+// scattered cells.
+//
+// The two fluid-only instances (kBoundary false: viscosity and surface, 3
+// sums each) take bd = nullptr and kb = 0 and walk the 27 fluid cells only,
+// the boundary loop compiled out: at W 32, 27 lanes take one cell each and
+// 5 hold zeros. Their i side is per lane: every lane of a group loads the
+// particle's rows itself (surface also forms |cg|^2 and its sqrtf gate),
+// which costs no shuffle but repeats that work W times.
 //
 // Here a group of W lanes (8, 16 or 32, inside one warp) serves one
 // particle of the step's list islots (ops/box.py BoxIndex.slots: (N,)
@@ -1146,13 +1155,14 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
 }
 
 // The particle-list kernel on pass ids 1 (density_colorgrad_visc), 2
-// (surface_pressure), 4 (divergence), 5 (stiffness_accel), 11 (pbd_lambda)
-// and 12 (xsph_colorgrad) of column_pass_launch, W = lanes in {8, 16, 32},
+// (surface_pressure), 4 (divergence), 5 (stiffness_accel), 6 (viscosity,
+// fluid only), 7 (surface, fluid only), 11 (pbd_lambda) and 12
+// (xsph_colorgrad) of column_pass_launch, W = lanes in {8, 16, 32},
 // reduction 0 (the xor butterfly) or 1 (the transpose reduction), over the
 // n particles of islots (int64, a slot in [0, K*G) or the trash value K*G).
-// out must be zeroed by the caller: only listed slots are written. Returns
-// a cudaError_t; any other pass id, width or reduction is
-// cudaErrorInvalidValue.
+// A fluid-only pass takes bd = nullptr and kb = 0. out must be zeroed by
+// the caller: only listed slots are written. Returns a cudaError_t; any
+// other pass id, width or reduction is cudaErrorInvalidValue.
 extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
                                     const float* fl, const float* bd,
                                     const int64_t* islots, float* out, int n,
@@ -1178,6 +1188,12 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
     case 5:
       return launch_lanes<StiffnessAccelPass>(
           lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+    case 6:
+      return launch_lanes<ViscosityPass>(lanes, reduction, fl, bd, islots,
+                                         out, n, k, kb, gx, gy, gz, c, s);
+    case 7:
+      return launch_lanes<SurfacePass>(lanes, reduction, fl, bd, islots, out,
+                                       n, k, kb, gx, gy, gz, c, s);
     case 11:
       return launch_lanes<PbdLambdaPass>(lanes, reduction, fl, bd, islots,
                                          out, n, k, kb, gx, gy, gz, c, s);

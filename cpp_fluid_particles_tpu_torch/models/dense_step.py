@@ -442,12 +442,13 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
 
     # --- non-pressure forces ---
     vel_d = _grav(vel_d, cfg, dt)
-    vel_d = vel_d + pp.viscosity_pass((pm, vel_d), dims, cfg,
-                                      executor) * _visc_dt(cfg, dt)
+    vel_d = vel_d + pp.viscosity_pass(
+        (pm, vel_d), dims, cfg, executor,
+        islots=lo.idx.slots) * _visc_dt(cfg, dt)
     if surface_on:
         # cg came fused with the density/alpha traversal above
         sa = pp.surface_pass(torch.cat([pos_d, mass_d, cg], 0), dims, cfg,
-                             executor)
+                             executor, islots=lo.idx.slots)
         vel_d = vel_d + sa * dt
 
     # --- density solve with warm start (src/DFSPHSolver.cu:160-210) ---
@@ -559,11 +560,12 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
         it += 1
 
     # --- velocity from the position delta (src/PBDSolver.cu:55-60), then
-    # XSPH viscosity (:89-125) fused with the color field, both over the
-    # projected positions. The slots stay where the fill put them, so the
-    # step's slot list still names every real slot once: a listed slot's x
-    # stays below POS_PAD/2 through _clamp_pos_only, and a padding slot's
-    # stays POS_PAD ---
+    # XSPH viscosity (:89-125) fused with the color field, then the surface
+    # forces from that color field, all over the projected positions. The
+    # slots stay where the fill put them, so the step's slot list still
+    # names every real slot once for xsph_colorgrad and surface alike: a
+    # listed slot's x stays below POS_PAD/2 through _clamp_pos_only, and a
+    # padding slot's stays POS_PAD ---
     vel_d = (pos_d - plast_d) / _const(dt, pos_d)
     xsph_c = _f32(cfg.pbd_xsph_c / cfg.rho0)
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
@@ -573,7 +575,7 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
         vel_d = vel_d + o[0:3] * xsph_c
         cg = o[3:6] / torch.clamp(o[6], min=cfg.epsilon)[None]
         sa = pp.surface_pass(torch.cat([pos_d, mass_d, cg], 0), dims, cfg,
-                             executor)
+                             executor, islots=lo.idx.slots)
         vel_d = vel_d + sa * dt
     else:
         vel_d = vel_d + pp.xsph_pass(pmv, dims, cfg, executor) * xsph_c

@@ -10,11 +10,11 @@ hash of the source and the flags, and loaded with ctypes. A missing
 ``column_pass_cuda`` has the executor signature of
 ``ops.passes.column_pass_plain`` and takes CUDA tensors only.
 ``particle_pass_cuda`` runs ``passes.PARTICLE_PASSES`` (pbd_lambda,
-stiffness_accel, divergence, surface_pressure, density_colorgrad_visc and
-xsph_colorgrad) through the particle-list kernel, a group of ``LANES``
-lanes per particle of the step's slot list whose sums one of
-``REDUCTIONS`` combines; ``passes.column_pass`` sends those six passes
-there on a card.
+stiffness_accel, divergence, surface_pressure, density_colorgrad_visc,
+xsph_colorgrad and the fluid-only viscosity and surface) through the
+particle-list kernel, a group of ``LANES`` lanes per particle of the step's
+slot list whose sums one of ``REDUCTIONS`` combines; ``passes.column_pass``
+sends those eight passes there on a card.
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
@@ -69,10 +69,11 @@ BRICKS = ((2, 4, 4), (2, 2, 4), (2, 2, 2))
 SHARED_LIMIT = 232_448   # dynamic shared memory of one Hopper block, bytes
 
 # group widths of the particle-list kernel (lanes per particle), the
-# default first: 32 lanes (one offset each, 5 idle) took 0.88-0.95x the
-# time of 8 or 16 for pbd_lambda, stiffness_accel and divergence on the
-# full dam at K 16-18 (divergence: 0.0591 ms at W 32, 0.0652 at W 8,
-# 0.0668 at W 16; PERF.md, kernel table)
+# default first: 32 lanes (one offset each, 5 idle) took 0.88-0.96x the
+# time of 8 or 16 for pbd_lambda, stiffness_accel, divergence, viscosity
+# and surface on the full dam at K 16-18 (divergence: 0.0591 ms at W 32,
+# 0.0652 at W 8, 0.0668 at W 16; viscosity: 0.0598 at W 32, 0.0624 at
+# W 8, 0.0630 at W 16, butterfly; PERF.md, kernel table)
 LANES = (32, 8, 16)
 
 # passes whose default width is not LANES[0]: surface_pressure, 6 sums
@@ -94,9 +95,13 @@ REDUCTIONS = ("butterfly", "transpose")
 # (W 16: 0.0879 / 0.0889, W 8: 0.0940 / 0.0946), xsph_colorgrad (7 sums)
 # 0.0734 against 0.0758 (its best butterfly, W 8: 0.0747); for
 # surface_pressure (6 sums) the transpose was no faster at any width (W 8
-# 0.0765 against 0.0755; PERF.md, kernel table)
+# 0.0765 against 0.0755; PERF.md, kernel table). The fluid-only surface (3
+# sums, K 16) took 0.0605 ms transposed at W 32 against the butterfly's
+# 0.0632 (W 8: 0.0665 / 0.0674, W 16: 0.0680 / 0.0682); for viscosity (3
+# sums, K 16) the two tied at W 32 (0.0599 / 0.0598), so it keeps the
+# butterfly
 PASS_REDUCTION = {"density_colorgrad_visc": "transpose",
-                  "xsph_colorgrad": "transpose"}
+                  "xsph_colorgrad": "transpose", "surface": "transpose"}
 
 # launches per pass instance, per particle-list instance (particle_<name>),
 # and per fluid-only instance of the prototype's bodies (flat_<body>: the
@@ -246,9 +251,10 @@ def column_pass_cuda(name: str, fl: torch.Tensor,
     return out
 
 
-def particle_pass_cuda(name: str, fl: torch.Tensor, bd: torch.Tensor,
-                       islots: torch.Tensor, dims: DenseDims,
-                       dims_b: DenseDims, cfg: SimConfig,
+def particle_pass_cuda(name: str, fl: torch.Tensor,
+                       bd: Optional[torch.Tensor], islots: torch.Tensor,
+                       dims: DenseDims, dims_b: Optional[DenseDims],
+                       cfg: SimConfig,
                        lanes: Optional[int] = None,
                        reduction: Optional[str] = None) -> torch.Tensor:
     """Pass ``name`` (one of ``passes.PARTICLE_PASSES``) through the
@@ -257,7 +263,10 @@ def particle_pass_cuda(name: str, fl: torch.Tensor, bd: torch.Tensor,
     each particle of ``islots``, the step's ``BoxIndex.slots`` ((N,) int64
     into the flat (K, G) slot axis, K*G for an invalid particle), its sums
     combined by ``reduction`` (one of REDUCTIONS; default
-    ``default_reduction(name)``). Returns (n_out, K, G), zeroed by one
+    ``default_reduction(name)``). A fluid-only pass (``has_bd`` False)
+    takes ``bd=None, dims_b=None``, and the kernel gets a null boundary
+    pointer and Kb = 0; a boundary operand where a pass takes none, or
+    none where it takes one, is refused. Returns (n_out, K, G), zeroed by one
     memset before the launch (it counts in the kernel's time): the kernel
     writes only the listed slots. Counted as ``particle_<name>``."""
     fn = "particle_pass_cuda"

@@ -24,8 +24,9 @@ list, ``BoxIndex.slots``, which the callers of ``PARTICLE_PASSES`` give):
 
 ``column_pass`` dispatches by device: CPU tensors take the plain executor,
 CUDA tensors the kernel (which raises rather than falls back). On a card,
-``PARTICLE_PASSES`` (pbd_lambda, stiffness_accel, divergence and
-surface_pressure) take the particle-list kernel
+``PARTICLE_PASSES`` (pbd_lambda, stiffness_accel, divergence,
+surface_pressure, density_colorgrad_visc, xsph_colorgrad and the fluid-only
+viscosity and surface) take the particle-list kernel
 (``column_pass_cuda.particle_pass_cuda``), which needs ``islots``.
 Outputs are zero on ghost cells and on empty i slots, up to the sign of
 zero.
@@ -492,7 +493,7 @@ BOUNDARY_ROWS = 4      # [pos3, mass]
 # step's slot list (ops/column_pass_cuda.py particle_pass_cuda)
 PARTICLE_PASSES = ("pbd_lambda", "stiffness_accel", "divergence",
                    "surface_pressure", "density_colorgrad_visc",
-                   "xsph_colorgrad")
+                   "xsph_colorgrad", "viscosity", "surface")
 
 # the bodies of the flat-grid prototype (exp/flat_pallas_proto.py:147-188:
 # density_terms, sa_terms, dcv_terms) -> the pass whose fluid half each is;
@@ -658,15 +659,19 @@ def stiffness_accel_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                        executor, islots=islots)
 
 
-def viscosity_pass(fl, dims, cfg, executor=None):
-    """fl: the field groups ([pos3, mass], vel3); fluid only. Returns
-    (3, K, G); the caller scales by visc*dt."""
-    return column_pass("viscosity", fl, None, dims, None, cfg, executor)
+def viscosity_pass(fl, dims, cfg, executor=None, *, islots):
+    """fl: the field groups ([pos3, mass], vel3); fluid only; islots: the
+    step's ``BoxIndex.slots``. Returns (3, K, G); the caller scales by
+    visc*dt."""
+    return column_pass("viscosity", fl, None, dims, None, cfg, executor,
+                       islots=islots)
 
 
-def surface_pass(fl, dims, cfg, executor=None):
-    """fl: [pos3, mass, cg3]; fluid only. Returns (3, K, G)."""
-    return column_pass("surface", fl, None, dims, None, cfg, executor)
+def surface_pass(fl, dims, cfg, executor=None, *, islots):
+    """fl: [pos3, mass, cg3]; fluid only; islots: the step's
+    ``BoxIndex.slots``. Returns (3, K, G)."""
+    return column_pass("surface", fl, None, dims, None, cfg, executor,
+                       islots=islots)
 
 
 def pbd_lambda_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):

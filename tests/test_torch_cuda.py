@@ -1,7 +1,8 @@
 """The hand-written CUDA neighbor-pass kernel, its particle-list variant
 for pbd_lambda, stiffness_accel, divergence, surface_pressure,
-density_colorgrad_visc and xsph_colorgrad (at each group width, under
-both reductions), and its brick-tiled fluid-only variant on the card.
+density_colorgrad_visc, xsph_colorgrad and the fluid-only viscosity and
+surface (at each group width, under both reductions), and its brick-tiled
+fluid-only variant on the card.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -107,6 +108,15 @@ def test_wrapper_checks_operands(operands):
         cc.column_pass_cuda("viscosity", fl, bd, dims, dims_b, CFG)
     with pytest.raises(ValueError, match="a boundary operand"):
         cc.column_pass_cuda("divergence", fl, None, dims, None, CFG)
+    # the particle-list wrapper refuses the same, in both directions
+    _, vfl, _, vdims, _, vslots = operands["viscosity"]
+    with pytest.raises(ValueError, match="no boundary operand"):
+        cc.particle_pass_cuda("viscosity", vfl, bd, vslots, vdims, dims_b,
+                              CFG)
+    _, dfl, _, ddims, _, dslots = operands["divergence"]
+    with pytest.raises(ValueError, match="a boundary operand"):
+        cc.particle_pass_cuda("divergence", dfl, None, dslots, ddims, None,
+                              CFG)
 
 
 @pytest.mark.parametrize("reduction", cc.REDUCTIONS)
@@ -235,15 +245,16 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
     la = cc.LAUNCHES
-    for name in ("density_alpha_colorgrad", "viscosity", "surface"):
+    for name in ("density_alpha_colorgrad", "particle_viscosity",
+                 "particle_surface"):
         assert la[name] == frames, (name, la)
     assert la["particle_divergence"] == la["particle_stiffness_accel"] \
         >= 5 * frames
     assert la["density"] == 1
     for name in ("density_colorgrad_visc", "surface_pressure",
                  "density_alpha", "density_visc", "pressure_force",
-                 "stiffness_accel", "divergence", "particle_pbd_lambda",
-                 "particle_surface_pressure",
+                 "stiffness_accel", "divergence", "viscosity", "surface",
+                 "particle_pbd_lambda", "particle_surface_pressure",
                  "particle_density_colorgrad_visc",
                  "particle_xsph_colorgrad"):
         assert la[name] == 0, (name, la)
@@ -271,9 +282,9 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
 def test_pbd_simulation_runs_through_the_kernel(dev):
     """Every pass of the card's PBD frames launched a kernel, the two
     projection passes the particle-list kernel once per projection
-    iteration and xsph_colorgrad once per frame; then one step from the state they reached agrees on the
-    card and on the CPU at the one-step bars, with equal iteration
-    counts."""
+    iteration, xsph_colorgrad and surface once per frame; then one step
+    from the state they reached agrees on the card and on the CPU at the
+    one-step bars, with equal iteration counts."""
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="pbd", cfg=CFG, fluid_pos=_block(),
                        device=dev)
@@ -285,11 +296,11 @@ def test_pbd_simulation_runs_through_the_kernel(dev):
     la = cc.LAUNCHES
     assert la["particle_pbd_lambda"] == la["particle_stiffness_accel"] \
         == sum(iters)
-    assert la["particle_xsph_colorgrad"] == la["surface"] == 4
+    assert la["particle_xsph_colorgrad"] == la["particle_surface"] == 4
     assert {k: n for k, n in la.items() if n} == {
         "density": 1, "particle_pbd_lambda": sum(iters),
         "particle_stiffness_accel": sum(iters),
-        "particle_xsph_colorgrad": 4, "surface": 4}
+        "particle_xsph_colorgrad": 4, "particle_surface": 4}
 
     dims, dims_b = gpu._dims()
 

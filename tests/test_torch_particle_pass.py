@@ -1,8 +1,9 @@
 """The slot list that the particle-list kernel walks, and the dispatch of
-the six passes that take it, on the CPU.
+the eight passes that take it, on the CPU.
 
 On a card, pbd_lambda, stiffness_accel, divergence, surface_pressure,
-density_colorgrad_visc and xsph_colorgrad run through
+density_colorgrad_visc, xsph_colorgrad and the fluid-only viscosity and
+surface run through
 ``column_pass_cuda.particle_pass_cuda``: one group of lanes per particle
 of the step's ``BoxIndex.slots``, writing only those slots of an output
 zeroed beforehand. That is right only if the list names every real slot
@@ -10,8 +11,9 @@ of the grid the step fills, each once, inside the ghost ring, and marks
 every other particle with the trash value K*G. These tests hold that
 contract on the dam, on a perturbed splash (with K and box overflow) and
 on a jittered block, with the list equal to the JAX package's; then that
-the steps hand the list to exactly those six passes, that it still names
-every real slot of the projected grid PBD's XSPH pass runs on, and that
+the steps hand the list to exactly those eight passes, that it still names
+every real slot of the projected grid PBD's XSPH and surface passes run on,
+and that
 the wrapper and the passes refuse what the kernel cannot take. The kernel
 itself runs only on the card (tests/test_torch_cuda.py).
 """
@@ -127,14 +129,15 @@ def _recorded_calls(solver, mode="parity"):
 
 
 # the passes of each step that take the slot list: PBD's projection
-# passes and its XSPH traversal, DFSPH's two Jacobi passes, both WCSPH
-# traversals
-LISTED = {"pbd": {"pbd_lambda", "stiffness_accel", "xsph_colorgrad"},
-          "dfsph": {"stiffness_accel", "divergence"},
+# passes, its XSPH traversal and surface, DFSPH's two Jacobi passes,
+# viscosity and surface, both WCSPH traversals
+LISTED = {"pbd": {"pbd_lambda", "stiffness_accel", "xsph_colorgrad",
+                  "surface"},
+          "dfsph": {"stiffness_accel", "divergence", "viscosity", "surface"},
           "wcsph": {"density_colorgrad_visc", "surface_pressure"}}
 # the passes of each surface-on step that still walk the whole grid
-UNLISTED = {"pbd": {"surface"},
-            "dfsph": {"density_alpha_colorgrad", "viscosity", "surface"},
+UNLISTED = {"pbd": set(),
+            "dfsph": {"density_alpha_colorgrad"},
             "wcsph": set()}
 
 
@@ -153,23 +156,29 @@ def test_steps_hand_the_slot_list_to_the_particle_passes(solver):
 
 @pytest.mark.parametrize("mode", ["parity", "fast"])
 def test_pbd_slot_list_names_every_real_slot_of_the_projected_grid(mode):
-    """PBD's XSPH traversal runs on the projected positions over the slot
-    list the fill made: the projection's position-only clamp keeps every
-    listed slot real and every padding slot POS_PAD, so the list still
-    names every real slot of that grid once. Fast mode adds the warm-start
-    predictor and the Chebyshev extrapolation."""
+    """PBD's XSPH traversal and its surface pass run on the projected
+    positions over the slot list the fill made: the projection's
+    position-only clamp keeps every listed slot real and every padding slot
+    POS_PAD, so the list still names every real slot of that grid once.
+    Fast mode adds the warm-start predictor and the Chebyshev
+    extrapolation."""
     seen, want = _recorded_calls("pbd", mode)
-    (fl, islots), = [(fl, islots) for name, fl, islots in seen
-                     if name == "xsph_colorgrad"]
-    assert torch.equal(islots, want)
-    kg = fl.shape[1] * fl.shape[2]
-    listed = islots[islots < kg]
-    assert listed.unique().numel() == listed.numel() > 0
-    real = torch.nonzero((fl[0] < tds.POS_GUARD).reshape(-1))[:, 0]
-    assert torch.equal(torch.sort(listed).values, real)
-    # the projection moved the positions the list was made for
     first = next(f for name, f, _ in seen if name == "pbd_lambda")
-    assert not torch.equal(first[:3], fl[:3])
+    for pass_name in ("xsph_colorgrad", "surface"):
+        (fl, islots), = [(fl, islots) for name, fl, islots in seen
+                         if name == pass_name]
+        assert torch.equal(islots, want), pass_name
+        kg = fl.shape[1] * fl.shape[2]
+        listed = islots[islots < kg]
+        assert listed.unique().numel() == listed.numel() > 0
+        real = torch.nonzero((fl[0] < tds.POS_GUARD).reshape(-1))[:, 0]
+        assert torch.equal(torch.sort(listed).values, real), pass_name
+        # the projection moved the positions the list was made for
+        assert not torch.equal(first[:3], fl[:3]), pass_name
+    # surface runs on xsph_colorgrad's positions
+    xsph_fl, surf_fl = (next(f for name, f, _ in seen if name == n)
+                        for n in ("xsph_colorgrad", "surface"))
+    assert torch.equal(xsph_fl[:4], surf_fl[:4])
 
 
 def _operands():
@@ -195,7 +204,8 @@ def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots[None], d, d,
                                TCFG)
     with pytest.raises(ValueError, match="no particle-list kernel"):
-        tcc.particle_pass_cuda("viscosity", fl, bd, islots, d, d, TCFG)
+        tcc.particle_pass_cuda("density_alpha_colorgrad", fl, bd, islots, d,
+                               d, TCFG)
     with pytest.raises(ValueError, match="not one of"):
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG,
                                lanes=4)
@@ -223,11 +233,17 @@ def test_particle_passes_require_the_slot_list(name):
         "surface_pressure": (tpp.surface_pressure_pass, slice(None)),
         "density_colorgrad_visc": (tpp.density_colorgrad_visc_pass,
                                    slice(None)),
-        "xsph_colorgrad": (tpp.xsph_colorgrad_pass, slice(None))}[name]
+        "xsph_colorgrad": (tpp.xsph_colorgrad_pass, slice(None)),
+        "viscosity": (tpp.viscosity_pass, slice(None)),
+        "surface": (tpp.surface_pass, slice(None))}[name]
     rows = tpp.PASSES[name].fi
+    # a fluid-only pass function takes no boundary operand
+    args = ((fl[:rows], bd, d, d) if tpp.PASSES[name].has_bd
+            else (fl[:rows], d))
     with pytest.raises(TypeError, match="islots"):
-        fn(fl[:rows], bd, d, d, TCFG)
+        fn(*args, TCFG)
     islots = torch.full((4,), d.k * d.g, dtype=torch.int64)
-    out = fn(fl[:rows], bd, d, d, TCFG, islots=islots)
-    assert torch.equal(out, tpp.column_pass_plain(name, fl[:rows], bd, d, d,
-                                                  TCFG)[rows_out])
+    out = fn(*args, TCFG, islots=islots)
+    bd_plain, d_b = (bd, d) if tpp.PASSES[name].has_bd else (None, None)
+    assert torch.equal(out, tpp.column_pass_plain(name, fl[:rows], bd_plain,
+                                                  d, d_b, TCFG)[rows_out])
