@@ -5,8 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It builds the
 hand-written kernels (cpp_fluid_particles_tpu_torch/csrc/column_pass.cu)
 with nvcc, holds each of the neighbor pass's sixteen instances, and the
 particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
-surface_pressure, density_colorgrad_visc, xsph_colorgrad, viscosity and
-surface on the main path, against the plain torch executor on the card,
+surface_pressure, density_colorgrad_visc, xsph_colorgrad,
+density_alpha_colorgrad, density_visc, viscosity and surface on the main
+path, against the plain torch executor on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
@@ -18,21 +19,25 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of the kernels, seconds taken, and ptxas's
               registers and spills for every instance, the particle-list
-              kernel's at each group width and reduction too; for the six
-              fluid-only instances of phase 7 also their shared memory
+              kernel's at each (group width, reduction) of
+              ``variants(name)`` too; for the six fluid-only instances of
+              phase 7 also their shared memory
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
               its path gives it, at frame 0 and after the path's run;
               per-row tolerance ``utils.check.PASS_BAR``: rtol 2e-5,
               atol 2e-5 x the row's max;
               two launches must agree bitwise. color_gradient and
               density_colorgrad, which no step runs, on PBD's [pos3, mass].
-              The eight pp.PARTICLE_PASSES (the fluid-only viscosity and
+              The ten pp.PARTICLE_PASSES (the fluid-only viscosity and
               surface among them) also through the particle-list
-              kernel on the step's slot list at each group width of LANES
-              under each of REDUCTIONS: against the plain executor and
-              column_pass_kernel at the same bar, two launches bitwise
-              (and whether the transpose reduction is bitwise equal to
-              the butterfly at the same width)
+              kernel on the step's slot list at each (group width,
+              reduction) of ``variants(name)`` (the transpose needs the
+              pass's sums padded to a power of two to fit the group:
+              density_alpha_colorgrad's 9 take it at W 16 and 32 only):
+              against the plain executor and column_pass_kernel at the
+              same bar, two launches bitwise (and whether the transpose
+              reduction is bitwise equal to the butterfly at the same
+              width)
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps
@@ -43,9 +48,11 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
               particle_stiffness_accel >= 5 x the frames run,
-              particle_viscosity == particle_surface == the frames run,
-              the column kernel's counts of all four 0), plus iteration
-              bounds, the mean iterations and the host syncs per frame
+              particle_density_alpha_colorgrad == particle_viscosity ==
+              particle_surface == the frames run, the column kernel's
+              counts of all five 0, so it launches only the scene's
+              density), plus iteration bounds, the mean iterations and the
+              host syncs per frame
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
               projection with its exact all-lambda-zero exit):
               particle_pbd_lambda == particle_stiffness_accel == the sum
@@ -57,14 +64,18 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
               off, a short run each: the surface-off instances' launches
-              (DFSPH's divergence identity as in 5b, and
-              particle_viscosity == the frames run)
+              (WCSPH particle_density_visc == pressure_force == the frames
+              run, the column kernel's density_visc 0; DFSPH's divergence
+              identity as in 5b, and particle_viscosity == the frames
+              run)
   6. timing   kernel vs plain executor per pass at the shapes of its
-              path's final state, beside the pass's bound; the
+              solver's 300-frame state (WCSPH's for density_visc and
+              pressure_force), beside the pass's bound; the
               PARTICLE_PASSES as a ladder in turns: column kernel, the
               particle-list kernel with the butterfly at 8, 16, 32 lanes
-              and the transpose reduction at 8, 16, 32, then the same six
-              backwards, column kernel (best of two each)
+              and the transpose reduction at 8, 16, 32 (where
+              ``variants(name)`` has it), then the same backwards, column
+              kernel (best of two each)
   7. flat     the flat-grid prototype's entry point
               (cpp_fluid_particles_tpu_torch/exp/flat_pallas_proto.py): the
               state after 150 WCSPH frames of the dam on a K = 24
@@ -178,9 +189,10 @@ def surface_off(cfg):
 
 def capture(sim, ds, pp, dt):
     """The operands the main path gives each pass instance from sim.state:
-    WCSPH: the scene build's density pass and one step's two passes.
-    DFSPH: one step's five passes, then one surface-off WCSPH step and one
-    surface-off DFSPH step on the same state for the surface-off
+    WCSPH: the scene build's density pass, one step's two passes and one
+    surface-off step's two (phase 6 times those on this state, the WCSPH
+    dam's). DFSPH: one step's five passes, then one surface-off WCSPH step
+    and one surface-off DFSPH step on the same state for the surface-off
     instances. PBD: one step's four passes (stiffness_accel on lambda) and
     one surface-off step's xsph; color_gradient and density_colorgrad,
     which no step runs, on the first projection iteration's [pos3, mass]
@@ -191,8 +203,9 @@ def capture(sim, ds, pp, dt):
     if sim.solver_name == "wcsph":
         ds.build_dense_scene(sim.cfg, boundary_positions(sim.cfg), sim._kb,
                              sim.device, executor=rec)
-        ds.wcsph_step(sim.state, (), sim.scene, sim.cfg, dt, dims, dims_b,
-                      sim.box, executor=rec)
+        for cfg in (sim.cfg, surface_off(sim.cfg)):
+            ds.wcsph_step(sim.state, (), sim.scene, cfg, dt, dims, dims_b,
+                          sim.box, executor=rec)
     elif sim.solver_name == "dfsph":
         off = surface_off(sim.cfg)
         ds.dfsph_step(sim.state, sim.carry, sim.scene, sim.cfg, dt, dims,
@@ -231,10 +244,11 @@ def launch_twice(tag, fn, torch):
 
 def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
     """Each pass's column kernel against the plain executor; each of
-    pp.PARTICLE_PASSES also through the particle-list kernel at each group
-    width and reduction, against the plain executor and the column kernel
-    (errors kept as ``particle_<name>``), and the transpose reduction
-    against the butterfly at the same width (bitwise or not, logged)."""
+    pp.PARTICLE_PASSES also through the particle-list kernel at each
+    (group width, reduction) of ``cc.variants(name)``, against the plain
+    executor and the column kernel (errors kept as ``particle_<name>``),
+    and the transpose reduction against the butterfly at the same width
+    (bitwise or not, logged)."""
     from cpp_fluid_particles_tpu_torch.utils.check import row_errors
     for name, fl, bd, dims, dims_b, islots in calls:
         want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
@@ -250,25 +264,24 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
             continue
         if islots is None:
             raise AssertionError(f"{tag} {name}: the step gave no slot list")
-        for lanes in cc.LANES:
-            outs = {}
-            for red in cc.REDUCTIONS:
-                what = f"{tag} particle {name} W={lanes} {red}"
-                part = outs[red] = launch_twice(
-                    what, lambda: cc.particle_pass_cuda(
-                        name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
-                        reduction=red), torch)
-                max_abs, worst_rel = row_errors(what, part, want)
-                _, vs_column = row_errors(f"{what} vs column kernel", part,
-                                          got)
-                note_err(errs, f"particle_{name}", max_abs, worst_rel)
-                same = torch.equal(part, outs[cc.REDUCTIONS[0]])
-                log("kernel", f"{what} N={islots.shape[0]} K={dims.k} "
-                    f"Kb={kb}: vs plain max_abs_err={max_abs:.3e} "
-                    f"max_err/row_max={worst_rel:.3e}, vs column kernel "
-                    f"max_err/row_max={vs_column:.3e}, bitwise_repeat=yes, "
-                    f"bitwise equal to {cc.REDUCTIONS[0]}: "
-                    f"{'yes' if same else 'no'}")
+        outs = {}
+        for lanes, red in cc.variants(name):
+            what = f"{tag} particle {name} W={lanes} {red}"
+            part = outs[lanes, red] = launch_twice(
+                what, lambda: cc.particle_pass_cuda(
+                    name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
+                    reduction=red), torch)
+            max_abs, worst_rel = row_errors(what, part, want)
+            _, vs_column = row_errors(f"{what} vs column kernel", part, got)
+            note_err(errs, f"particle_{name}", max_abs, worst_rel)
+            # the butterfly exists at every width and comes first
+            same = torch.equal(part, outs[lanes, cc.REDUCTIONS[0]])
+            log("kernel", f"{what} N={islots.shape[0]} K={dims.k} "
+                f"Kb={kb}: vs plain max_abs_err={max_abs:.3e} "
+                f"max_err/row_max={worst_rel:.3e}, vs column kernel "
+                f"max_err/row_max={vs_column:.3e}, bitwise_repeat=yes, "
+                f"bitwise equal to {cc.REDUCTIONS[0]}: "
+                f"{'yes' if same else 'no'}")
 
 
 ITER_KEYS = ("divergence_iters", "density_iters", "pbd_iters")
@@ -589,10 +602,11 @@ def pass_bound(pp, torch, name, fl, bd, dims, dims_b, cfg, n_out):
 
 
 def time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc, time_ms):
-    """The particle-list kernel at each group width and reduction beside
-    the column kernel, in turns within this call: column; butterfly W 8,
-    16, 32, transpose W 8, 16, 32, and the same six backwards; column ->
-    {"column": [two runs], "<reduction> W<lanes>": [two runs]}."""
+    """The particle-list kernel at each (group width, reduction) of
+    ``cc.variants(name)`` beside the column kernel, in turns within this
+    call: column; butterfly W 8, 16, 32, transpose W 8, 16, 32 (those the
+    pass takes), and the same backwards; column -> {"column": [two runs],
+    "<reduction> W<lanes>": [two runs]}."""
     def column():
         cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
 
@@ -601,7 +615,8 @@ def time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc, time_ms):
                                              dims_b, cfg, lanes=lanes,
                                              reduction=red)
     order = [(red, lanes) for red in cc.REDUCTIONS
-             for lanes in sorted(cc.LANES)]
+             for lanes in sorted(cc.LANES)
+             if (lanes, red) in cc.variants(name)]
     runs = {"column": [time_ms(column, 50)]}
     for red, lanes in order + order[::-1]:
         runs.setdefault(f"{red} W{lanes}", []).append(
@@ -652,8 +667,8 @@ def time_passes(calls, cfg, pp, cc, torch, card, times):
                  reduction=red, particle_ms=best[f"{red} W{lanes}"],
                  ladder=runs)
         log("timing", f"{name} ladder N={islots.shape[0]} K={dims.k} Kb={kb}"
-            f" (column kernel; particle-list kernel, butterfly W 8, 16, 32,"
-            f" transpose W 8, 16, 32, and back; column kernel; best of "
+            f" (column kernel; particle-list kernel at each variant, "
+            f"butterfly first, and back; column kernel; best of "
             f"two): column kernel {best['column']:.4f} ms; "
             + "; ".join(f"{w} {best[w]:.4f} ms" for w in runs
                         if w != "column")
@@ -770,12 +785,12 @@ def main() -> int:
         r, sp, _ = ptxas_entry(ptxas, "column_pass_kernel", name, False)
         regs[name] = {"registers": r, "spill_bytes": sp}
     for name in pp.PARTICLE_PASSES:
-        for red in cc.REDUCTIONS:
-            for lanes in sorted(cc.LANES):
-                r, sp, _ = ptxas_entry(ptxas, "particle_pass_kernel", name,
-                                       False, lanes, red == "transpose")
-                regs[f"particle_{name}_W{lanes}_{red}"] = {
-                    "registers": r, "spill_bytes": sp}
+        for lanes, red in sorted(cc.variants(name),
+                                 key=lambda v: (v[1], v[0])):
+            r, sp, _ = ptxas_entry(ptxas, "particle_pass_kernel", name,
+                                   False, lanes, red == "transpose")
+            regs[f"particle_{name}_W{lanes}_{red}"] = {
+                "registers": r, "spill_bytes": sp}
     flat_regs = {}
     for body, name in pp.FLAT_BODIES.items():
         rows = pp.PASSES[name].fi
@@ -822,13 +837,14 @@ def main() -> int:
                                  "particle_surface_pressure": frames_run})
             log(phase, slice_line(st, card))
         elif solver == "dfsph":
-            # per frame run: one density_alpha_colorgrad, and one viscosity
-            # and surface through the particle-list kernel; divergence ==
+            # per frame run: one density_alpha_colorgrad, viscosity and
+            # surface through the particle-list kernel; divergence ==
             # stiffness_accel (the divergence warm start is on; the
             # particle-list kernel runs both), at least 5 (1 + 1 + >= 1
             # divergence iterations and 1 + 1 + >= 2 density iterations of
-            # each)
-            expect_launches(st, {"density_alpha_colorgrad": frames_run,
+            # each); the column kernel launches only the scene's density
+            expect_launches(st, {"particle_density_alpha_colorgrad":
+                                     frames_run,
                                  "particle_viscosity": frames_run,
                                  "particle_surface": frames_run,
                                  "particle_divergence":
@@ -885,7 +901,8 @@ def main() -> int:
                         tally=(solver == "pbd"))
         n, tail = st["rerun_frames"], ""
         if solver == "wcsph":
-            expect_launches(st, {"density_visc": n, "pressure_force": n})
+            expect_launches(st, {"particle_density_visc": n,
+                                 "pressure_force": n})
         elif solver == "dfsph":
             expect_launches(st, {"density_alpha": n,
                                  "particle_viscosity": n,

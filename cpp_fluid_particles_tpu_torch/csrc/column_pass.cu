@@ -52,12 +52,13 @@
 // times of both, on each brick, are in PERF.md's kernel table.
 //
 // particle_pass_kernel (below) runs pbd_lambda, stiffness_accel,
-// divergence, surface_pressure, density_colorgrad_visc, xsph_colorgrad and
-// the fluid-only viscosity and surface on the main path: a group of lanes
-// per particle of the step's slot list splits that particle's 27-cell
-// walk, and the group's sums are reduced by an xor butterfly or, for
-// passes with many sums, a transpose reduction. column_pass_kernel still
-// runs all eight as its yardstick; the note above the template says why.
+// divergence, surface_pressure, density_colorgrad_visc, xsph_colorgrad,
+// density_alpha_colorgrad, the surface-off density_visc and the fluid-only
+// viscosity and surface on the main path: a group of lanes per particle of
+// the step's slot list splits that particle's 27-cell walk, and the group's
+// sums are reduced by an xor butterfly or, for passes with many sums, a
+// transpose reduction. column_pass_kernel still runs all ten as its
+// yardstick; the note above the template says why.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -731,14 +732,16 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 
 // --- the particle-list kernel (PbdLambdaPass, StiffnessAccelPass,
 // DivergencePass, SurfacePressurePass, DensityColorgradViscPass,
-// XsphColorgradPass, ViscosityPass and SurfacePass) ---
+// XsphColorgradPass, DensityAlphaColorgradPass, DensityViscPass,
+// ViscosityPass and SurfacePass) ---
 //
 // Replaces the same TPU kernel as column_pass_kernel, pallas_passes.py:107
-// `column_pass`, for eight instances: the PBD projection passes pbd_lambda
+// `column_pass`, for ten instances: the PBD projection passes pbd_lambda
 // and stiffness_accel, the DFSPH Jacobi passes divergence and
 // stiffness_accel (each runs in every iteration of its solve), WCSPH's two
 // traversals density_colorgrad_visc and surface_pressure, PBD's
-// xsph_colorgrad, and the fluid-only viscosity (DFSPH) and surface (DFSPH
+// xsph_colorgrad, DFSPH's density_alpha_colorgrad, WCSPH's surface-off
+// density_visc, and the fluid-only viscosity (DFSPH) and surface (DFSPH
 // and PBD), each once a frame. column_pass_kernel gives every (slot,
 // cell) of the ghosted grid a thread: at these shapes (27^3 cells, K 16-22)
 // that is 315k-354k threads of which 6% hold a particle, scattered over the
@@ -746,9 +749,10 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 // some 300-400 dependent load-and-test steps; a warp waits on its densest
 // lane. What bounds that kernel is the latency of the chain, not bytes or
 // operations (PERF.md section 6). Here the chain is about 27/W cells long.
-// What bounds the eight instances then is not measured; the likely bound is
-// their uncoalesced neighbour loads: 4 (pbd_lambda), 5 (stiffness_accel),
-// 7 (divergence, density_colorgrad_visc, xsph_colorgrad, viscosity,
+// What bounds the ten instances then is not measured; the likely bound is
+// their uncoalesced neighbour loads: 4 (pbd_lambda,
+// density_alpha_colorgrad), 5 (stiffness_accel), 7 (divergence,
+// density_colorgrad_visc, xsph_colorgrad, density_visc, viscosity,
 // surface) or 9 (surface_pressure) rows per candidate, gathered from
 // scattered cells.
 //
@@ -771,7 +775,9 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 //
 // - kTranspose false, the xor butterfly: log2 W xor steps, each adding
 //   every sum, so kOut * log2 W shuffles per lane (40 at W 32 for 8 sums);
-//   lane n stores sum n.
+//   every lane then holds every sum, and lane n % W stores sum n, so in a
+//   group narrower than kOut (density_alpha_colorgrad's 9 sums at W 8)
+//   lane 0 stores sums 0 and 8.
 // - kTranspose true, the transpose reduction for passes with many sums: the
 //   sums are padded with zeros to S, the least power of two >= kOut. At the
 //   xor steps m = W/2, W/4, ..., W/S a lane keeps half of the sums it still
@@ -782,7 +788,10 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 //   complete it. S - 1 + log2(W/S) shuffles per lane (7 at W 8 and 9 at
 //   W 32 for 8 sums, where the butterfly takes 24 and 40); lane n * W/S
 //   stores sum n. The sums are indexed with compile-time constants only
-//   (transpose_step below), so acc stays in registers.
+//   (transpose_step below), so acc stays in registers. Each lane ends
+//   with one sum, so the transpose needs S <= W: for 9 sums S is 16 and
+//   only W 16 and 32 take it (launch_reduction refuses W 8), where lanes
+//   n * W/16 for n < 9 store and the lanes of the padded sums 9-15 do not.
 //
 // Both add the same pairs of lanes in the same order, so their outputs are
 // bitwise equal; they differ only in the shuffles each lane issues.
@@ -829,7 +838,9 @@ __global__ void __launch_bounds__(kThreads)
                 "a group is 8, 16 or 32 lanes of one warp");
   // the sums held per lane: kOut, padded to a power of two to transpose
   constexpr int S = kTranspose ? pow2_at_least(P::kOut) : P::kOut;
-  static_assert(S <= W, "every sum needs a lane to store it");
+  static_assert(!kTranspose || S <= W,
+                "the transpose leaves each lane one sum: every sum needs a "
+                "lane to store it");
   static_assert(kThreads % 32 == 0, "blocks hold whole warps");
   const int64_t g = static_cast<int64_t>(gx) * gy * gz;
   const int64_t kg = k * g;
@@ -906,7 +917,7 @@ __global__ void __launch_bounds__(kThreads)
     if (active) {
 #pragma unroll
       for (int j = 0; j < S; ++j)
-        if (lane == j) out[j * kg + t] = acc[j];
+        if (lane == j % W) out[j * kg + t] = acc[j];
     }
   }
 }
@@ -925,14 +936,19 @@ cudaError_t launch_particles(const float* fl, const float* bd,
   return cudaGetLastError();
 }
 
-// the reduction: 0 the xor butterfly, 1 the transpose reduction
+// the reduction: 0 the xor butterfly, 1 the transpose reduction, which is
+// instantiated only where its padded sums fit the group (ops/
+// column_pass_cuda.py:variants gives the same pairs)
 template <class P, int W, class... A>
 cudaError_t launch_reduction(int reduction, A... a) {
   switch (reduction) {
     case 0:
       return launch_particles<P, W, false>(a...);
     case 1:
-      return launch_particles<P, W, true>(a...);
+      if constexpr (pow2_at_least(P::kOut) <= W)
+        return launch_particles<P, W, true>(a...);
+      else
+        return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -1155,14 +1171,17 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
 }
 
 // The particle-list kernel on pass ids 1 (density_colorgrad_visc), 2
-// (surface_pressure), 4 (divergence), 5 (stiffness_accel), 6 (viscosity,
-// fluid only), 7 (surface, fluid only), 11 (pbd_lambda) and 12
-// (xsph_colorgrad) of column_pass_launch, W = lanes in {8, 16, 32},
-// reduction 0 (the xor butterfly) or 1 (the transpose reduction), over the
-// n particles of islots (int64, a slot in [0, K*G) or the trash value K*G).
-// A fluid-only pass takes bd = nullptr and kb = 0. out must be zeroed by
-// the caller: only listed slots are written. Returns a cudaError_t; any
-// other pass id, width or reduction is cudaErrorInvalidValue.
+// (surface_pressure), 3 (density_alpha_colorgrad), 4 (divergence), 5
+// (stiffness_accel), 6 (viscosity, fluid only), 7 (surface, fluid only), 9
+// (density_visc), 11 (pbd_lambda) and 12 (xsph_colorgrad) of
+// column_pass_launch, W = lanes in {8, 16, 32}, reduction 0 (the xor
+// butterfly) or 1 (the transpose reduction, only where the pass's sums
+// padded to a power of two fit W: not density_alpha_colorgrad at W 8),
+// over the n particles of islots (int64, a slot in [0, K*G) or the trash
+// value K*G). A fluid-only pass takes bd = nullptr and kb = 0. out must be
+// zeroed by the caller: only listed slots are written. Returns a
+// cudaError_t; any other pass id, width or reduction is
+// cudaErrorInvalidValue.
 extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
                                     const float* fl, const float* bd,
                                     const int64_t* islots, float* out, int n,
@@ -1182,6 +1201,9 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
     case 2:
       return launch_lanes<SurfacePressurePass>(
           lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+    case 3:
+      return launch_lanes<DensityAlphaColorgradPass>(
+          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
     case 4:
       return launch_lanes<DivergencePass>(lanes, reduction, fl, bd, islots,
                                           out, n, k, kb, gx, gy, gz, c, s);
@@ -1194,6 +1216,9 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
     case 7:
       return launch_lanes<SurfacePass>(lanes, reduction, fl, bd, islots, out,
                                        n, k, kb, gx, gy, gz, c, s);
+    case 9:
+      return launch_lanes<DensityViscPass>(lanes, reduction, fl, bd, islots,
+                                           out, n, k, kb, gx, gy, gz, c, s);
     case 11:
       return launch_lanes<PbdLambdaPass>(lanes, reduction, fl, bd, islots,
                                          out, n, k, kb, gx, gy, gz, c, s);

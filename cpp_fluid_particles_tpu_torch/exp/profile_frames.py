@@ -50,7 +50,8 @@ FUNCTORS = {"PbdLambdaPass": "pbd_lambda",
             "DensityAlphaColorgradPass": "density_alpha_colorgrad",
             "ViscosityPass": "viscosity",
             "DensityColorgradViscPass": "density_colorgrad_visc",
-            "SurfacePressurePass": "surface_pressure"}
+            "SurfacePressurePass": "surface_pressure",
+            "DensityViscPass": "density_visc"}
 
 
 def card() -> str:

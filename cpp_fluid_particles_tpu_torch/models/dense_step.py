@@ -317,7 +317,8 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
         vel_d = vel_d + sp[0:3] * dt
         vel_d = vel_d + _accel_clamp(sp[3:6], cfg) * dt
     else:
-        o = pp.density_visc_pass(pmv, bdx, dims, dims_b, cfg, executor)
+        o = pp.density_visc_pass(pmv, bdx, dims, dims_b, cfg, executor,
+                                 islots=lo.idx.slots)
         rho = o[0]
         vel_d = vel_d + o[1:4] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
@@ -401,7 +402,7 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     if surface_on:
         # fused traversal: rho/alpha + color-field sums share [pos, mass]
         da = pp.density_alpha_colorgrad_pass(pm, bdx, dims, dims_b, cfg,
-                                             executor)
+                                             executor, islots=lo.idx.slots)
         cg = da[5:8] / torch.clamp(da[8], min=cfg.epsilon)[None]
     else:
         da = pp.density_alpha_pass(pm, bdx, dims, dims_b, cfg, executor)

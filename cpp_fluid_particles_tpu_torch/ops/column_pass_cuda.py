@@ -11,17 +11,19 @@ hash of the source and the flags, and loaded with ctypes. A missing
 ``ops.passes.column_pass_plain`` and takes CUDA tensors only.
 ``particle_pass_cuda`` runs ``passes.PARTICLE_PASSES`` (pbd_lambda,
 stiffness_accel, divergence, surface_pressure, density_colorgrad_visc,
-xsph_colorgrad and the fluid-only viscosity and surface) through the
-particle-list kernel, a group of ``LANES`` lanes per particle of the step's
-slot list whose sums one of ``REDUCTIONS`` combines; ``passes.column_pass``
-sends those eight passes there on a card.
+xsph_colorgrad, density_alpha_colorgrad, density_visc and the fluid-only
+viscosity and surface) through the particle-list kernel, a group of
+``LANES`` lanes per particle of the step's slot list whose sums one of
+``REDUCTIONS`` combines, at the (width, reduction) pairs ``variants`` gives
+for the pass's sum count; ``passes.column_pass`` sends those ten passes
+there on a card.
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
 through the untiled kernel as its yardstick.
 ``LAUNCHES`` counts the launches of each pass instance, of each
-particle-list instance (``particle_<name>``) and of each of those six
-fluid-only instances.
+particle-list instance (``particle_<name>``) and of each fluid-only
+instance of the prototype's bodies, tiled and untiled.
 """
 
 from __future__ import annotations
@@ -79,8 +81,12 @@ LANES = (32, 8, 16)
 # passes whose default width is not LANES[0]: surface_pressure, 6 sums
 # that each group's butterfly reduces, took 0.0754 ms at W 8 against 0.0841
 # at W 16 and 0.0865 at W 32 on the full dam at K 22, in both runs of each
-# width in one call (PERF.md, kernel table)
-PASS_LANES = {"surface_pressure": 8}
+# width in one call; density_visc (4 sums) on the WCSPH dam at K 22 took
+# 0.0608 ms at W 16 (transpose; butterfly 0.0611) against 0.0613 / 0.0624
+# at W 8 and 0.0660 / 0.0671 at W 32 (transpose / butterfly); on DFSPH's
+# state at K 16, where it never runs, W 8 and 32 led by 2-3% (PERF.md,
+# kernel table)
+PASS_LANES = {"surface_pressure": 8, "density_visc": 16}
 
 # how the particle-list kernel reduces a group's sums, as its template
 # argument kTranspose: "butterfly", xor adds of every sum at every step
@@ -99,9 +105,14 @@ REDUCTIONS = ("butterfly", "transpose")
 # sums, K 16) took 0.0605 ms transposed at W 32 against the butterfly's
 # 0.0632 (W 8: 0.0665 / 0.0674, W 16: 0.0680 / 0.0682); for viscosity (3
 # sums, K 16) the two tied at W 32 (0.0599 / 0.0598), so it keeps the
-# butterfly
+# butterfly. density_alpha_colorgrad (9 sums, K 16; the transpose only at
+# W 16 and 32) took 0.0625 transposed at W 32 against the butterfly's
+# 0.0655 (W 16: 0.0661 / 0.0683, butterfly W 8 0.0654); density_visc
+# (4 sums) the transpose by a hair at its W 16 (0.0608 / 0.0611)
 PASS_REDUCTION = {"density_colorgrad_visc": "transpose",
-                  "xsph_colorgrad": "transpose", "surface": "transpose"}
+                  "xsph_colorgrad": "transpose", "surface": "transpose",
+                  "density_alpha_colorgrad": "transpose",
+                  "density_visc": "transpose"}
 
 # launches per pass instance, per particle-list instance (particle_<name>),
 # and per fluid-only instance of the prototype's bodies (flat_<body>: the
@@ -111,6 +122,18 @@ LAUNCHES = {name: 0 for name in PASS_IDS}
 LAUNCHES.update({f"particle_{name}": 0 for name in PARTICLE_PASSES})
 LAUNCHES.update({f"{kind}_{body}": 0 for kind in ("flat", "untiled")
                  for body in FLAT_IDS})
+
+
+def variants(name: str) -> tuple:
+    """The (lanes, reduction) pairs the particle-list kernel takes for pass
+    ``name``, in the order of LANES and REDUCTIONS: the butterfly at every
+    width, the transpose only where the pass's sums, padded to a power of
+    two, fit the group, since it leaves each lane one sum (9 sums pad to
+    16: W 16 and 32 only). csrc/column_pass.cu:launch_reduction
+    instantiates the same pairs."""
+    padded = 1 << (PASSES[name].n_out - 1).bit_length()
+    return tuple((lanes, red) for lanes in LANES for red in REDUCTIONS
+                 if red == "butterfly" or padded <= lanes)
 
 
 def default_lanes(name: str) -> int:
@@ -263,7 +286,8 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
     each particle of ``islots``, the step's ``BoxIndex.slots`` ((N,) int64
     into the flat (K, G) slot axis, K*G for an invalid particle), its sums
     combined by ``reduction`` (one of REDUCTIONS; default
-    ``default_reduction(name)``). A fluid-only pass (``has_bd`` False)
+    ``default_reduction(name)``); a pair outside ``variants(name)`` is
+    refused before anything runs. A fluid-only pass (``has_bd`` False)
     takes ``bd=None, dims_b=None``, and the kernel gets a null boundary
     pointer and Kb = 0; a boundary operand where a pass takes none, or
     none where it takes one, is refused. Returns (n_out, K, G), zeroed by one
@@ -280,6 +304,10 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
     if reduction not in REDUCTIONS:
         raise ValueError(f"{fn}: reduction {reduction!r} is not one of "
                          f"{REDUCTIONS}")
+    if (lanes, reduction) not in variants(name):
+        raise ValueError(f"{fn}: pass {name} has {PASSES[name].n_out} sums, "
+                         f"too many for the {reduction} reduction at {lanes} "
+                         f"lanes; its variants are {variants(name)}")
     if islots.dtype != torch.int64 or islots.dim() != 1:
         raise ValueError(f"{fn}: islots must be 1-D int64, got "
                          f"{islots.dtype} of shape {tuple(islots.shape)}")

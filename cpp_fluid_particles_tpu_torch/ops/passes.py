@@ -25,8 +25,9 @@ list, ``BoxIndex.slots``, which the callers of ``PARTICLE_PASSES`` give):
 ``column_pass`` dispatches by device: CPU tensors take the plain executor,
 CUDA tensors the kernel (which raises rather than falls back). On a card,
 ``PARTICLE_PASSES`` (pbd_lambda, stiffness_accel, divergence,
-surface_pressure, density_colorgrad_visc, xsph_colorgrad and the fluid-only
-viscosity and surface) take the particle-list kernel
+surface_pressure, density_colorgrad_visc, xsph_colorgrad,
+density_alpha_colorgrad, density_visc and the fluid-only viscosity and
+surface) take the particle-list kernel
 (``column_pass_cuda.particle_pass_cuda``), which needs ``islots``.
 Outputs are zero on ghost cells and on empty i slots, up to the sign of
 zero.
@@ -493,7 +494,8 @@ BOUNDARY_ROWS = 4      # [pos3, mass]
 # step's slot list (ops/column_pass_cuda.py particle_pass_cuda)
 PARTICLE_PASSES = ("pbd_lambda", "stiffness_accel", "divergence",
                    "surface_pressure", "density_colorgrad_visc",
-                   "xsph_colorgrad", "viscosity", "surface")
+                   "xsph_colorgrad", "viscosity", "surface",
+                   "density_alpha_colorgrad", "density_visc")
 
 # the bodies of the flat-grid prototype (exp/flat_pallas_proto.py:147-188:
 # density_terms, sa_terms, dcv_terms) -> the pass whose fluid half each is;
@@ -618,10 +620,11 @@ def surface_pressure_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                        executor, islots=islots)
 
 
-def density_visc_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl: [pos3, mass, vel3]; bd: [pos3, mass]. Returns (4, K, G):
-    [rho, dvx, dvy, dvz]."""
-    return column_pass("density_visc", fl, bd, dims, dims_b, cfg, executor)
+def density_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
+    """fl: [pos3, mass, vel3]; bd: [pos3, mass]; islots: the step's
+    ``BoxIndex.slots``. Returns (4, K, G): [rho, dvx, dvy, dvz]."""
+    return column_pass("density_visc", fl, bd, dims, dims_b, cfg, executor,
+                       islots=islots)
 
 
 def pressure_force_pass(fl, bd, dims, dims_b, cfg, executor=None):
@@ -636,11 +639,12 @@ def density_alpha_pass(fl, bd, dims, dims_b, cfg, executor=None):
     return column_pass("density_alpha", fl, bd, dims, dims_b, cfg, executor)
 
 
-def density_alpha_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl, bd: [pos3, mass]. Returns (9, K, G): density_alpha's five rows,
-    then [numx, numy, numz, den]."""
+def density_alpha_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
+                                 islots):
+    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.slots``. Returns
+    (9, K, G): density_alpha's five rows, then [numx, numy, numz, den]."""
     return column_pass("density_alpha_colorgrad", fl, bd, dims, dims_b, cfg,
-                       executor)
+                       executor, islots=islots)
 
 
 def divergence_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):

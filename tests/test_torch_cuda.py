@@ -1,8 +1,9 @@
 """The hand-written CUDA neighbor-pass kernel, its particle-list variant
 for pbd_lambda, stiffness_accel, divergence, surface_pressure,
-density_colorgrad_visc, xsph_colorgrad and the fluid-only viscosity and
-surface (at each group width, under both reductions), and its brick-tiled
-fluid-only variant on the card.
+density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
+density_visc and the fluid-only viscosity and surface (at each group
+width and reduction the pass takes; the wrapper refuses the others), and
+its brick-tiled fluid-only variant on the card.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -119,6 +120,21 @@ def test_wrapper_checks_operands(operands):
                               CFG)
 
 
+def _refused(name, fl, bd, islots, dims, dims_b, lanes, reduction):
+    """Whether (lanes, reduction) lies outside the pass's variants; if so,
+    check that the wrapper refuses it and launches nothing."""
+    if (lanes, reduction) in cc.variants(name):
+        return False
+    n0 = dict(cc.LAUNCHES)
+    with pytest.raises(ValueError, match=f"{name} has "
+                       f"{pp.PASSES[name].n_out} sums, too many for the "
+                       f"{reduction} reduction at {lanes} lanes"):
+        cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                              lanes=lanes, reduction=reduction)
+    assert cc.LAUNCHES == n0
+    return True
+
+
 @pytest.mark.parametrize("reduction", cc.REDUCTIONS)
 @pytest.mark.parametrize("lanes", cc.LANES)
 @pytest.mark.parametrize("name", pp.PARTICLE_PASSES)
@@ -128,9 +144,12 @@ def test_particle_kernel_matches_plain_and_column_kernel(operands, name,
     BAR of the plain executor and of column_pass_kernel (its sums run in
     another order), two launches bitwise equal, each launch counted once.
     The transpose reduction adds the same pairs in the same order as the
-    butterfly, so the two are bitwise equal at one width."""
+    butterfly, so the two are bitwise equal at one width. A pair outside
+    the pass's variants is refused before anything launches."""
     _, fl, bd, dims, dims_b, islots = operands[name]
     assert islots is not None
+    if _refused(name, fl, bd, islots, dims, dims_b, lanes, reduction):
+        return
     want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
     old = cc.column_pass_cuda(name, fl, bd, dims, dims_b, CFG)
     n0 = cc.LAUNCHES[f"particle_{name}"]
@@ -157,8 +176,11 @@ def test_particle_kernel_matches_plain_and_column_kernel(operands, name,
 def test_particle_kernel_writes_only_listed_slots(operands, name, lanes,
                                                   reduction):
     """Invalid particles (slot K*G) leave their slots 0 and the others as
-    with the whole list; an empty list gives an all-zero output."""
+    with the whole list; an empty list gives an all-zero output. A pair
+    outside the pass's variants is refused."""
     _, fl, bd, dims, dims_b, islots = operands[name]
+    if _refused(name, fl, bd, islots, dims, dims_b, lanes, reduction):
+        return
     full = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
                                  lanes=lanes, reduction=reduction)
     kg = dims.k * dims.g
@@ -235,6 +257,30 @@ def test_simulation_runs_through_the_kernel(dev):
                                cpu.state.vel.numpy(), atol=2e-3)
 
 
+def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
+    """With surface effects off, the card's WCSPH frames launch
+    density_visc through the particle-list kernel and pressure_force
+    through the column kernel, once a frame each, and agree with the CPU's
+    at the one-step bars after 3 frames."""
+    off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
+    cc.reset_launch_counts()
+    gpu = T.Simulation(solver="wcsph", cfg=off, fluid_pos=_block(),
+                       device=dev)
+    gpu.run(3)
+    frames = 4 + gpu.retries                    # warm-up + 3 + retries
+    assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
+        "density": 1, "particle_density_visc": frames,
+        "pressure_force": frames}
+    cpu = T.Simulation(solver="wcsph", cfg=off, fluid_pos=_block(),
+                       device="cpu")
+    cpu.run(3)
+    assert gpu.config_key == cpu.config_key
+    np.testing.assert_allclose(gpu.state.pos.cpu().numpy(),
+                               cpu.state.pos.numpy(), atol=2e-6)
+    np.testing.assert_allclose(gpu.state.vel.cpu().numpy(),
+                               cpu.state.vel.numpy(), atol=2e-3)
+
+
 def test_dfsph_simulation_runs_through_the_kernel(dev):
     """Every pass of the card's DFSPH frames launched the kernel; then one
     step from the state they reached agrees on the card and on the CPU at
@@ -245,17 +291,18 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
     la = cc.LAUNCHES
-    for name in ("density_alpha_colorgrad", "particle_viscosity",
+    for name in ("particle_density_alpha_colorgrad", "particle_viscosity",
                  "particle_surface"):
         assert la[name] == frames, (name, la)
     assert la["particle_divergence"] == la["particle_stiffness_accel"] \
         >= 5 * frames
     assert la["density"] == 1
     for name in ("density_colorgrad_visc", "surface_pressure",
-                 "density_alpha", "density_visc", "pressure_force",
-                 "stiffness_accel", "divergence", "viscosity", "surface",
-                 "particle_pbd_lambda", "particle_surface_pressure",
-                 "particle_density_colorgrad_visc",
+                 "density_alpha_colorgrad", "density_alpha", "density_visc",
+                 "pressure_force", "stiffness_accel", "divergence",
+                 "viscosity", "surface", "particle_pbd_lambda",
+                 "particle_surface_pressure",
+                 "particle_density_colorgrad_visc", "particle_density_visc",
                  "particle_xsph_colorgrad"):
         assert la[name] == 0, (name, la)
 

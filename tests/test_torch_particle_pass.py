@@ -1,9 +1,9 @@
 """The slot list that the particle-list kernel walks, and the dispatch of
-the eight passes that take it, on the CPU.
+the ten passes that take it, on the CPU.
 
 On a card, pbd_lambda, stiffness_accel, divergence, surface_pressure,
-density_colorgrad_visc, xsph_colorgrad and the fluid-only viscosity and
-surface run through
+density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
+density_visc and the fluid-only viscosity and surface run through
 ``column_pass_cuda.particle_pass_cuda``: one group of lanes per particle
 of the step's ``BoxIndex.slots``, writing only those slots of an output
 zeroed beforehand. That is right only if the list names every real slot
@@ -11,10 +11,11 @@ of the grid the step fills, each once, inside the ghost ring, and marks
 every other particle with the trash value K*G. These tests hold that
 contract on the dam, on a perturbed splash (with K and box overflow) and
 on a jittered block, with the list equal to the JAX package's; then that
-the steps hand the list to exactly those eight passes, that it still names
-every real slot of the projected grid PBD's XSPH and surface passes run on,
-and that
-the wrapper and the passes refuse what the kernel cannot take. The kernel
+the steps, surface effects on and off, hand the list to exactly those ten
+passes, that it still names every real slot of the projected grid PBD's
+XSPH and surface passes run on, that each pass's (width, reduction) pairs
+follow from its sum count, and that the wrapper and the passes refuse
+what the kernel cannot take. The kernel
 itself runs only on the card (tests/test_torch_cuda.py).
 """
 
@@ -104,12 +105,14 @@ def test_slot_list_names_every_real_slot_once(case):
 
 
 @functools.cache
-def _recorded_calls(solver, mode="parity"):
+def _recorded_calls(solver, mode="parity", surface=True):
     """-> ([(pass name, fl, islots or None)] of one step of ``solver`` in
-    ``mode`` on the small domain's block after two frames, the step's slot
-    list)."""
+    ``mode``, with surface effects on or off, on the small domain's block
+    after two frames, the step's slot list)."""
     cfg = SMALL if mode == "parity" else T.dam_break_config(
         mode=mode, space_size=SMALL.space_size)
+    if not surface:
+        cfg = cfg.replace(surface_tension=0.0, air_pressure=0.0)
     seen = []
 
     def record(name, fl, bd, dims, dims_b, cfg, islots=None):
@@ -128,22 +131,30 @@ def _recorded_calls(solver, mode="parity"):
     return seen, want
 
 
-# the passes of each step that take the slot list: PBD's projection
-# passes, its XSPH traversal and surface, DFSPH's two Jacobi passes,
-# viscosity and surface, both WCSPH traversals
+# the passes of each step that take the slot list, surface effects on:
+# PBD's projection passes, its XSPH traversal and surface, DFSPH's
+# density_alpha_colorgrad, two Jacobi passes, viscosity and surface, both
+# WCSPH traversals; "_off" with surface effects off: PBD's projection
+# passes, DFSPH's Jacobi passes and viscosity, WCSPH's density_visc
 LISTED = {"pbd": {"pbd_lambda", "stiffness_accel", "xsph_colorgrad",
                   "surface"},
-          "dfsph": {"stiffness_accel", "divergence", "viscosity", "surface"},
-          "wcsph": {"density_colorgrad_visc", "surface_pressure"}}
-# the passes of each surface-on step that still walk the whole grid
-UNLISTED = {"pbd": set(),
-            "dfsph": {"density_alpha_colorgrad"},
-            "wcsph": set()}
+          "dfsph": {"density_alpha_colorgrad", "stiffness_accel",
+                    "divergence", "viscosity", "surface"},
+          "wcsph": {"density_colorgrad_visc", "surface_pressure"},
+          "pbd_off": {"pbd_lambda", "stiffness_accel"},
+          "dfsph_off": {"stiffness_accel", "divergence", "viscosity"},
+          "wcsph_off": {"density_visc"}}
+# the passes of each step that still walk the whole grid: none with
+# surface effects on
+UNLISTED = {"pbd": set(), "dfsph": set(), "wcsph": set(),
+            "pbd_off": {"xsph"}, "dfsph_off": {"density_alpha"},
+            "wcsph_off": {"pressure_force"}}
 
 
 @pytest.mark.parametrize("solver", list(LISTED))
 def test_steps_hand_the_slot_list_to_the_particle_passes(solver):
-    seen, want = _recorded_calls(solver, "parity")
+    name_of_solver, off, _ = solver.partition("_off")
+    seen, want = _recorded_calls(name_of_solver, "parity", surface=not off)
     with_list = {name for name, _, islots in seen if islots is not None}
     assert with_list == LISTED[solver]
     assert set.union(*LISTED.values()) == set(tpp.PARTICLE_PASSES)
@@ -204,8 +215,7 @@ def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots[None], d, d,
                                TCFG)
     with pytest.raises(ValueError, match="no particle-list kernel"):
-        tcc.particle_pass_cuda("density_alpha_colorgrad", fl, bd, islots, d,
-                               d, TCFG)
+        tcc.particle_pass_cuda("pressure_force", fl, bd, islots, d, d, TCFG)
     with pytest.raises(ValueError, match="not one of"):
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG,
                                lanes=4)
@@ -222,6 +232,37 @@ def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
             <= set(tcc.REDUCTIONS))
 
 
+def test_variants_follow_the_sum_count():
+    """The butterfly runs at every width; the transpose leaves each lane one
+    of the sums padded to a power of two, so a pass with 9 sums (16 padded)
+    takes it at W 16 and 32 only. The wrapper refuses any other pair on the
+    CPU, before it looks at the operands' device, and launches nothing."""
+    every = {(w, r) for w in tcc.LANES for r in tcc.REDUCTIONS}
+    for name in tpp.PARTICLE_PASSES:
+        got = tcc.variants(name)
+        assert len(set(got)) == len(got)
+        if tpp.PASSES[name].n_out <= 8:
+            assert set(got) == every, name
+        assert (tcc.default_lanes(name), tcc.default_reduction(name)) in got
+    assert tpp.PASSES["density_alpha_colorgrad"].n_out == 9
+    assert set(tcc.variants("density_alpha_colorgrad")) == every - {
+        (8, "transpose")}
+    fl, bd, d = _operands()
+    fl = fl[:tpp.PASSES["density_alpha_colorgrad"].fi]
+    islots = torch.full((4,), d.k * d.g, dtype=torch.int64)
+    before = dict(tcc.LAUNCHES)
+    with pytest.raises(ValueError, match="density_alpha_colorgrad has 9 "
+                       "sums, too many for the transpose reduction at 8 "
+                       "lanes"):
+        tcc.particle_pass_cuda("density_alpha_colorgrad", fl, bd, islots, d,
+                               d, TCFG, lanes=8, reduction="transpose")
+    assert tcc.LAUNCHES == before
+    # the butterfly at 8 lanes gets past the pair check to the device check
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tcc.particle_pass_cuda("density_alpha_colorgrad", fl, bd, islots, d,
+                               d, TCFG, lanes=8, reduction="butterfly")
+
+
 @pytest.mark.parametrize("name", tpp.PARTICLE_PASSES)
 def test_particle_passes_require_the_slot_list(name):
     fl, bd, d = _operands()
@@ -235,7 +276,10 @@ def test_particle_passes_require_the_slot_list(name):
                                    slice(None)),
         "xsph_colorgrad": (tpp.xsph_colorgrad_pass, slice(None)),
         "viscosity": (tpp.viscosity_pass, slice(None)),
-        "surface": (tpp.surface_pass, slice(None))}[name]
+        "surface": (tpp.surface_pass, slice(None)),
+        "density_alpha_colorgrad": (tpp.density_alpha_colorgrad_pass,
+                                    slice(None)),
+        "density_visc": (tpp.density_visc_pass, slice(None))}[name]
     rows = tpp.PASSES[name].fi
     # a fluid-only pass function takes no boundary operand
     args = ((fl[:rows], bd, d, d) if tpp.PASSES[name].has_bd

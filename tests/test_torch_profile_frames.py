@@ -21,6 +21,11 @@ torch.set_num_threads(2)
      "namespace)::DensityColorgradViscPass, 8, true>(float const*, float "
      "const*, long const*, float*, int, int, int, int, int, int, (anonymous "
      "namespace)::Consts)", "particle_density_colorgrad_visc"),
+    ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
+     "namespace)::DensityViscPass, 32, false>(...)", "particle_density_visc"),
+    ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
+     "namespace)::DensityAlphaColorgradPass, 16, true>(...)",
+     "particle_density_alpha_colorgrad"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "
      "namespace)::XsphColorgradPass>(...)", "column_xsph_colorgrad"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "
