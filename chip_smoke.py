@@ -13,8 +13,10 @@ then drives the port's paths on the full 20,736-particle dam
 each with the launch counts reset just before it and read just after:
 WCSPH, DFSPH and PBD for 300 frames each at the reference benchmark's dt,
 PBD in its default fast mode as ``Simulation(device="cuda")`` builds it,
-and the three solvers with surface effects off for a short run, and last
-the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
+and the three solvers with surface effects off for a short run, then
+the flat-grid prototype's entry point with its brick-tiled kernel, and
+last the README's first command through the port's ``simulate`` CLI.
+Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of the kernels, seconds taken, and ptxas's
@@ -85,6 +87,17 @@ the flat-grid prototype's entry point with its brick-tiled kernel. Phases:
               (bitwise), the untiled kernel on the same functor and the
               plain executor (per row, the phase-3 bar), then timed,
               and the tiled kernel timed on each brick that fits K 24
+  8. app      ``simulate.main`` as a user runs it, the launch counts reset
+              just before each run and read just after: 100 frames of the
+              default dam (PBD fast) rendered every 4th frame at 700 px
+              into a GIF (25 frames), and ``--solver wcsph --parity``
+              for 50 frames into a PNG; positions finite and in range,
+              dropped_frames 0, the PBD (5d) and WCSPH (5) launch
+              identities, the card's render of the final state against
+              the CPU's (``utils.check.render_errors``: at most 0.5% of
+              pixels over 1e-3, the others within 1e-5), the render's ms
+              per call at 700 px, the CLI's ms/frame and the GIF encoder
+              that ran
 
 A pass's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s (float32, H100 SXM data sheet), both counted on
@@ -114,6 +127,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FRAMES = 300
 OFF_FRAMES = 50          # the surface-off runs of phase 5e
+APP_STEPS, APP_EVERY = 100, 4   # phase 8: the CLI's GIF run
+APP_PNG_STEPS = 50              # phase 8: the CLI's PNG run
 CHUNK = 25
 STEP_POS_ATOL = 2e-6
 STEP_VEL_ATOL = 2e-3
@@ -339,20 +354,45 @@ class Tally:
         return torch.stack([m[key] for m in self.frames]).cpu().tolist()
 
 
-def construct(cfp, ds, solver, cfg, tally):
-    """Simulation(solver=..., cfg=..., device="cuda"), or with solver None
-    ``Simulation(device="cuda")`` as a user builds it; with a Tally, its
-    step is the tallied one."""
-    name = cfp.resolve_solver(solver or "pbd")
+def build_tallied(ds, name, tally, build):
+    """build() with solver ``name``'s step in ``DENSE_STEPS`` swapped for
+    the tallied one while it runs (a Simulation binds its step when it is
+    constructed); tally None: build() alone."""
     saved = ds.DENSE_STEPS[name]
     if tally is not None:
         ds.DENSE_STEPS[name] = tally.step
     try:
-        if solver is None:
-            return cfp.Simulation(device="cuda")
-        return cfp.Simulation(solver=solver, cfg=cfg, device="cuda")
+        return build()
     finally:
         ds.DENSE_STEPS[name] = saved
+
+
+def construct(cfp, ds, solver, cfg, tally):
+    """Simulation(solver=..., cfg=..., device="cuda"), or with solver None
+    ``Simulation(device="cuda")`` as a user builds it; with a Tally, its
+    step is the tallied one."""
+    if solver is None:
+        build = lambda: cfp.Simulation(device="cuda")  # noqa: E731
+    else:
+        build = lambda: cfp.Simulation(  # noqa: E731
+            solver=solver, cfg=cfg, device="cuda")
+    return build_tallied(ds, cfp.resolve_solver(solver or "pbd"), tally,
+                         build)
+
+
+def check_final(sim, frames, torch):
+    """A path's end: ``frames`` frames run, positions finite and in
+    [0, 0.99*space], no frame committed with dropped particles."""
+    pos = sim.state.pos
+    space = torch.tensor(sim.cfg.space_size, device=pos.device)
+    if sim.frame != frames:
+        raise AssertionError(f"ran {sim.frame} frames, not {frames}")
+    if not bool(torch.isfinite(pos).all()):
+        raise AssertionError("non-finite positions")
+    if not bool(((pos >= 0) & (pos <= 0.99 * space)).all()):
+        raise AssertionError("positions outside [0, 0.99*space]")
+    if sim.dropped_frames != 0:
+        raise AssertionError(f"dropped_frames={sim.dropped_frames}")
 
 
 def drive(cfp, ds, cc, torch, cfg, solver, dt, frames, tally=False):
@@ -384,19 +424,10 @@ def drive(cfp, ds, cc, torch, cfg, solver, dt, frames, tally=False):
     wall_s = time.perf_counter() - t_run
     launches = dict(cc.LAUNCHES)
 
-    pos = sim.state.pos
-    space = torch.tensor(cfg.space_size, device=pos.device)
-    if sim.frame != frames:
-        raise AssertionError(f"ran {sim.frame} frames, not {frames}")
-    if not bool(torch.isfinite(pos).all()):
-        raise AssertionError("non-finite positions")
-    if not bool(((pos >= 0) & (pos <= 0.99 * space)).all()):
-        raise AssertionError("positions outside [0, 0.99*space]")
-    y1 = float(pos[:, 1].mean())
+    check_final(sim, frames, torch)
+    y1 = float(sim.state.pos[:, 1].mean())
     if not y1 < y0:
         raise AssertionError(f"mean y did not decrease: {y0} -> {y1}")
-    if sim.dropped_frames != 0:
-        raise AssertionError(f"dropped_frames={sim.dropped_frames}")
     stats = {
         "solver": solver, "frames": frames, "dt": dt,
         "surface": cfg.surface_tension > 0 or cfg.air_pressure > 0,
@@ -728,6 +759,169 @@ def flat_phase(cfg, cc, pp, torch, card):
             "launches": launched, "bodies": bodies}
 
 
+def gif_frame_count(data: bytes) -> int:
+    """Image descriptors in a GIF89a, walked block by block."""
+    if data[:6] != b"GIF89a":
+        raise AssertionError("not a GIF89a")
+    i = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+    n = 0
+    while data[i] != 0x3B:
+        if data[i] == 0x21:          # extension: introducer, label
+            i += 2
+        elif data[i] == 0x2C:        # image: descriptor, LZW code size
+            n += 1
+            i += 11
+        else:
+            raise AssertionError(f"GIF block {data[i]:#x} at {i}")
+        while data[i]:               # data sub-blocks up to the 0 length
+            i += data[i] + 1
+        i += 1
+    return n
+
+
+def app_run(cfp, ds, cc, torch, argv):
+    """``simulate.main(argv)`` on the card, as a user runs the CLI, with
+    the launch counts reset just before it and read just after; its
+    make_sim wrapped so that the Simulation it builds is kept and its
+    solver's step tallied -> (sim, args, stats)."""
+    from cpp_fluid_particles_tpu_torch import simulate
+    made = []
+    make_sim = simulate.make_sim
+
+    def kept(args):
+        name = cfp.resolve_solver(args.solver)
+        tl = Tally(ds, name)
+        sim = build_tallied(ds, name, tl, lambda: make_sim(args))
+        made.append((sim, tl, len(tl.frames)))
+        return sim
+
+    simulate.make_sim = kept
+    try:
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = simulate.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(cc.LAUNCHES)
+    finally:
+        simulate.make_sim = make_sim
+    args = simulate.build_argparser().parse_args(argv)
+    if rc != 0:
+        raise AssertionError(f"simulate {' '.join(argv)} returned {rc}")
+    (sim, tl, ctor_frames), = made
+    if sim.device.type != "cuda":
+        raise AssertionError(f"the CLI ran on {sim.device}")
+    check_final(sim, args.steps, torch)
+    st = {"solver": sim.solver_name, "argv": argv, "frames": sim.frame,
+          "fluid": sim.fluid_size, "K": sim.max_per_cell,
+          "box": list(sim.box), "retries": sim.retries,
+          "dropped_frames": 0, "launches": launches,
+          "rerun_frames": len(tl.frames), "ctor_frames": ctor_frames,
+          "wall_s": wall_s, "wall_ms_per_frame": wall_s * 1e3 / sim.frame,
+          "step_ms_per_frame": sim.total_ms / sim.frame}
+    for key in ITER_KEYS + ("host_syncs",):
+        if key in tl.frames[0]:
+            st[key] = tl.column(key, torch)
+    return sim, args, st
+
+
+def render_ops(fn, torch, calls=5, top=6):
+    """Device time of fn (a render) by torch op, from torch.profiler over
+    ``calls`` calls after a warm-up -> [(op, ms per call)], the ``top``
+    largest, and the total. An ``aten::`` op's self device time is that
+    of the kernels it launched; the kernels' own entries are left out, so
+    nothing counts twice."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / calls)
+                   for e in prof.key_averages()
+                   if e.key.startswith("aten::")
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return rows[:top], sum(ms for _, ms in rows)
+
+
+def app_phase(cfp, ds, cc, torch, card):
+    """Phase 8: the README's first command through the port's CLI on the
+    card: 100 frames of the default fast PBD dam rendered every 4th frame
+    at 700 px into a GIF, and 50 parity WCSPH frames into a PNG; the
+    launch identities of each path, the card's render of the final state
+    against the CPU's (``utils.check.render_errors``), and the render's
+    ms per call -> a record."""
+    from cpp_fluid_particles_tpu_torch.runtime import native
+    from cpp_fluid_particles_tpu_torch.simulate import make_camera
+    from cpp_fluid_particles_tpu_torch.utils.check import (render_errors,
+                                                           time_ms)
+    from cpp_fluid_particles_tpu_torch.utils.render import (draw_cube_edges,
+                                                            render)
+    out_dir = ROOT / "chiprun_out" / "app"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    gif, png = out_dir / "dam.gif", out_dir / "wcsph_parity.png"
+    runs = {}
+    for tag, argv in (
+            ("pbd_gif", ["--steps", str(APP_STEPS), "--render-every",
+                         str(APP_EVERY), "--size", "700", "--gif", str(gif),
+                         "--quiet"]),
+            ("wcsph_png", ["--solver", "wcsph", "--parity", "--steps",
+                           str(APP_PNG_STEPS), "--png", str(png),
+                           "--quiet"])):
+        sim, args, st = app_run(cfp, ds, cc, torch, argv)
+        if tag == "pbd_gif":
+            if sim.cfg != cfp.dam_break_config():
+                raise AssertionError(f"the CLI built {sim.cfg}")
+            n = gif_frame_count(gif.read_bytes())
+            if n != APP_STEPS // APP_EVERY:
+                raise AssertionError(f"GIF has {n} frames")
+            st["gif_frames"], st["gif_bytes"] = n, gif.stat().st_size
+            tail = pbd_checks(st, sim.cfg)
+        else:
+            if png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError("no PNG header")
+            n = st["rerun_frames"]
+            expect_launches(st, {"particle_density_colorgrad_visc": n,
+                                 "particle_surface_pressure": n})
+            tail = ""
+        drop_columns(st)
+        # the card's render of the final state against the CPU's
+        cam = make_camera(args)
+        pos, rho = sim.state.pos, sim.state.density
+        cube = draw_cube_edges(device="cuda")
+        img = render(pos, rho, cam, *cube)
+        share, rest = render_errors(f"app {tag} card vs cpu", img, render(
+            pos.cpu(), rho.cpu(), cam, *draw_cube_edges()))
+        draw = lambda: render(pos, rho, cam, *cube)  # noqa: E731
+        ops, busy = render_ops(draw, torch)
+        st.update(render_ms=time_ms(draw, 20), render_px=cam.width,
+                  render_outlier_share=share, render_max_err_rest=rest,
+                  render_device_ms=busy, render_top_ops=ops)
+        runs[tag] = st
+        log("app", f"simulate {' '.join(argv)}: {st['fluid']} fluid, "
+            f"{st['frames']} frames, K={st['K']} box={tuple(st['box'])} "
+            f"retries={st['retries']} dropped_frames=0 launches="
+            f"{ {k: v for k, v in st['launches'].items() if v} }{tail} | "
+            f"card vs cpu render: {share:.4%} of pixels over 1e-3, others "
+            f"within {rest:.3e} | {card}")
+        del sim
+    encoder = "native" if native.available() else "python"
+    for tag, st in runs.items():
+        log("app", f"{tag}: render {st['render_ms']:.3f} ms per call at "
+            f"{st['render_px']} px (CUDA events, 20 calls), device "
+            f"{st['render_device_ms']:.3f} ms by op (torch.profiler, 5 "
+            "calls): " + ", ".join(f"{k} {ms:.3f}"
+                                   for k, ms in st['render_top_ops'])
+            + "; CLI "
+            f"{st['wall_ms_per_frame']:.3f} ms/frame wall (steps, renders, "
+            f"fetches and image writing; {st['wall_s']:.2f} s), steps "
+            f"{st['step_ms_per_frame']:.3f} ms/frame (CUDA events); GIF "
+            f"encoder {encoder} | {card}")
+    return {"runs": runs, "gif_encoder": encoder}
+
+
 def kernel_row(name, paths, owner, errs, times, pp):
     """The kernels-table row of pass ``name``. The PARTICLE_PASSES give the
     particle-list kernel that their paths run: its launches, errors and ms
@@ -918,6 +1112,9 @@ def main() -> int:
 
     # 7. flat: the prototype's entry point on the 150-frame WCSPH dam
     record["flat"] = flat = flat_phase(cfg, cc, pp, torch, card)
+
+    # 8. app: the simulate CLI on the card
+    record["app"] = app_phase(cfp, ds, cc, torch, card)
 
     record["paths"], record["times"], record["errors"] = paths, times, errs
     owner = {"density": "wcsph", "density_colorgrad_visc": "wcsph",

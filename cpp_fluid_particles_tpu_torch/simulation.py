@@ -27,6 +27,7 @@ from .config import SimConfig, dam_break_config
 from .models import dense_step, dfsph, pbd
 from .ops.dense import DenseDims, dims_for
 from .state import boundary_positions, dam_break_positions, make_fluid_state
+from .utils.metrics import nan_guard
 
 # every solver of the JAX package, all ported
 SOLVERS = ("wcsph", "dfsph", "pbd")
@@ -347,8 +348,7 @@ class Simulation:
                 self._warn_dropping(n, ov_k, ov_b, occ)
                 break
             self.retries += 1
-        if self.nan_rollback and not all(
-                bool(torch.isfinite(x).all()) for x in st):
+        if self.nan_rollback and not bool(nan_guard(st)):
             raise FloatingPointError(
                 f"non-finite state after frame {self.frame + n}; "
                 "state rolled back to the last healthy frame")

@@ -1,5 +1,6 @@
-"""The yardstick that holds a kernel against its plain version on the card:
-the per-row tolerance and the CUDA-event timer.
+"""The yardsticks that hold a kernel against its plain version on the card
+and the renderer against another render: the per-row tolerance, the
+render bar and the CUDA-event timer.
 
 ``PASS_BAR`` is the JAX package's Pallas bar
 (tests/test_pallas_engine.py:125-126): per output row, rtol 2e-5 plus atol
@@ -44,3 +45,29 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+# render: a pixel is an outlier when its largest channel error is over
+# RENDER_OUTLIER; at most RENDER_OUTLIER_SHARE of the pixels may be, and
+# every other pixel must agree within RENDER_ATOL (sub-pixel rounding moves
+# whole sprite-edge pixels; equal-depth ties may resolve either way)
+RENDER_ATOL = 1e-5
+RENDER_OUTLIER = 1e-3
+RENDER_OUTLIER_SHARE = 0.005
+
+
+def render_errors(tag: str, got, want):
+    """Two (H, W, 3) images -> (outlier share, max error of the other
+    pixels); raises if over the render bar."""
+    err = (torch.as_tensor(got, dtype=torch.float32).cpu()
+           - torch.as_tensor(want, dtype=torch.float32).cpu()).abs()
+    err = err.amax(-1)
+    outlier = err > RENDER_OUTLIER
+    share = float(outlier.float().mean())
+    rest = float(err[~outlier].max()) if bool((~outlier).any()) else 0.0
+    if share > RENDER_OUTLIER_SHARE or rest > RENDER_ATOL:
+        raise AssertionError(f"{tag}: {share:.4%} of pixels over "
+                             f"{RENDER_OUTLIER} (bar {RENDER_OUTLIER_SHARE:.1%}"
+                             f"), the others within {rest:.3e} (bar "
+                             f"{RENDER_ATOL})")
+    return share, rest
