@@ -6,8 +6,9 @@ hand-written kernels (cpp_fluid_particles_tpu_torch/csrc/column_pass.cu)
 with nvcc, holds each of the neighbor pass's sixteen instances, and the
 particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
 surface_pressure, density_colorgrad_visc, xsph_colorgrad,
-density_alpha_colorgrad, density_visc, viscosity and surface on the main
-path, against the plain torch executor on the card,
+density_alpha_colorgrad, density_visc, pressure_force, density_alpha,
+viscosity and surface on the main path, against the plain torch executor
+on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
@@ -30,7 +31,7 @@ Phases:
               atol 2e-5 x the row's max;
               two launches must agree bitwise. color_gradient and
               density_colorgrad, which no step runs, on PBD's [pos3, mass].
-              The ten pp.PARTICLE_PASSES (the fluid-only viscosity and
+              The twelve pp.PARTICLE_PASSES (the fluid-only viscosity and
               surface among them) also through the particle-list
               kernel on the step's slot list at each (group width,
               reduction) of ``variants(name)`` (the transpose needs the
@@ -42,7 +43,8 @@ Phases:
               width)
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
-              the drift after 5 steps
+              the drift after 5 steps; for WCSPH and DFSPH also with
+              surface effects off
   5. slice    WCSPH: 300 frames at dt 0.001 through the constructor,
               run() and run_scan(); physics and launch-count checks
               (particle_density_colorgrad_visc == particle_surface_pressure
@@ -66,13 +68,16 @@ Phases:
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
               off, a short run each: the surface-off instances' launches
-              (WCSPH particle_density_visc == pressure_force == the frames
-              run, the column kernel's density_visc 0; DFSPH's divergence
-              identity as in 5b, and particle_viscosity == the frames
-              run)
+              (WCSPH particle_density_visc == particle_pressure_force ==
+              the frames run; DFSPH particle_density_alpha ==
+              particle_viscosity == the frames run and the divergence
+              identity as in 5b; the column kernel's counts of all four 0,
+              so WCSPH and DFSPH launch it only for the scene's density;
+              PBD as in 5c with xsph on the column kernel)
   6. timing   kernel vs plain executor per pass at the shapes of its
               solver's 300-frame state (WCSPH's for density_visc and
-              pressure_force), beside the pass's bound; the
+              pressure_force; density_alpha on DFSPH's, one surface-off
+              step from it), beside the pass's bound; the
               PARTICLE_PASSES as a ladder in turns: column kernel, the
               particle-list kernel with the butterfly at 8, 16, 32 lanes
               and the transpose reduction at 8, 16, 32 (where
@@ -306,14 +311,18 @@ def iters(m) -> str:
     return "".join(f" {k}={int(m[k])}" for k in ITER_KEYS if k in m)
 
 
-def step_vs_plain(sim, ds, pp, torch, dt, n_drift=5):
+def step_vs_plain(sim, ds, pp, torch, dt, cfg=None, n_drift=5):
+    """Steps from sim's state with the kernels against the plain executor,
+    with sim.cfg or ``cfg`` (its surface-off copy)."""
     dims, dims_b = sim._dims()
     step = ds.DENSE_STEPS[sim.solver_name]
+    cfg = sim.cfg if cfg is None else cfg
+    what = sim.solver_name + ("" if cfg == sim.cfg else " surface off")
 
     def run(executor, n):
         st, ca, m = sim.state, sim.carry, {}
         for _ in range(n):
-            st, ca, m = step(st, ca, sim.scene, sim.cfg, dt, dims, dims_b,
+            st, ca, m = step(st, ca, sim.scene, cfg, dt, dims, dims_b,
                              sim.box, executor=executor)
         return st, m
 
@@ -321,13 +330,13 @@ def step_vs_plain(sim, ds, pp, torch, dt, n_drift=5):
     dpos = float((a.pos - b.pos).abs().max())
     dvel = float((a.vel - b.vel).abs().max())
     if not (dpos <= STEP_POS_ATOL and dvel <= STEP_VEL_ATOL):
-        raise AssertionError(f"step: kernel vs plain dpos={dpos} "
+        raise AssertionError(f"step: {what} kernel vs plain dpos={dpos} "
                              f"dvel={dvel} over the bars")
     if iters(ma) != iters(mb):
-        raise AssertionError(f"step: iterations differ, kernel{iters(ma)}"
-                             f" plain{iters(mb)}")
+        raise AssertionError(f"step: {what} iterations differ, "
+                             f"kernel{iters(ma)} plain{iters(mb)}")
     (a, _), (b, _) = run(None, n_drift), run(pp.column_pass_plain, n_drift)
-    log("step", f"{sim.solver_name} one step kernel vs plain: dpos={dpos:.3e}"
+    log("step", f"{what} one step kernel vs plain: dpos={dpos:.3e}"
         f" (bar {STEP_POS_ATOL}) dvel={dvel:.3e} (bar {STEP_VEL_ATOL});"
         f" kernel{iters(ma)} plain{iters(mb)}; after {n_drift} steps: "
         f"dpos={float((a.pos - b.pos).abs().max()):.3e} "
@@ -1016,6 +1025,8 @@ def main() -> int:
         compare_passes(f"{solver} frame0", capture(probe, ds, pp, dt), cfg,
                        pp, cc, torch, errs)
         step_vs_plain(probe, ds, pp, torch, dt)
+        if solver != "pbd":
+            step_vs_plain(probe, ds, pp, torch, dt, cfg=surface_off(cfg))
         del probe
 
         # 5 / 5b / 5c. the path
@@ -1096,9 +1107,9 @@ def main() -> int:
         n, tail = st["rerun_frames"], ""
         if solver == "wcsph":
             expect_launches(st, {"particle_density_visc": n,
-                                 "pressure_force": n})
+                                 "particle_pressure_force": n})
         elif solver == "dfsph":
-            expect_launches(st, {"density_alpha": n,
+            expect_launches(st, {"particle_density_alpha": n,
                                  "particle_viscosity": n,
                                  "particle_divergence": (5 * n, None),
                                  "particle_stiffness_accel": (5 * n, None)})

@@ -53,12 +53,13 @@
 //
 // particle_pass_kernel (below) runs pbd_lambda, stiffness_accel,
 // divergence, surface_pressure, density_colorgrad_visc, xsph_colorgrad,
-// density_alpha_colorgrad, the surface-off density_visc and the fluid-only
-// viscosity and surface on the main path: a group of lanes per particle of
-// the step's slot list splits that particle's 27-cell walk, and the group's
-// sums are reduced by an xor butterfly or, for passes with many sums, a
-// transpose reduction. column_pass_kernel still runs all ten as its
-// yardstick; the note above the template says why.
+// density_alpha_colorgrad, the surface-off density_visc, pressure_force and
+// density_alpha, and the fluid-only viscosity and surface on the main path:
+// a group of lanes per particle of the step's slot list splits that
+// particle's 27-cell walk, and the group's sums are reduced by an xor
+// butterfly or, for passes with many sums, a transpose reduction.
+// column_pass_kernel still runs all twelve as its yardstick; the note above
+// the template says why.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -733,28 +734,29 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 // --- the particle-list kernel (PbdLambdaPass, StiffnessAccelPass,
 // DivergencePass, SurfacePressurePass, DensityColorgradViscPass,
 // XsphColorgradPass, DensityAlphaColorgradPass, DensityViscPass,
-// ViscosityPass and SurfacePass) ---
+// PressureForcePass, DensityAlphaPass, ViscosityPass and SurfacePass) ---
 //
 // Replaces the same TPU kernel as column_pass_kernel, pallas_passes.py:107
-// `column_pass`, for ten instances: the PBD projection passes pbd_lambda
-// and stiffness_accel, the DFSPH Jacobi passes divergence and
+// `column_pass`, for twelve instances: the PBD projection passes
+// pbd_lambda and stiffness_accel, the DFSPH Jacobi passes divergence and
 // stiffness_accel (each runs in every iteration of its solve), WCSPH's two
 // traversals density_colorgrad_visc and surface_pressure, PBD's
 // xsph_colorgrad, DFSPH's density_alpha_colorgrad, WCSPH's surface-off
-// density_visc, and the fluid-only viscosity (DFSPH) and surface (DFSPH
-// and PBD), each once a frame. column_pass_kernel gives every (slot,
+// density_visc and pressure_force, DFSPH's surface-off density_alpha, and
+// the fluid-only viscosity (DFSPH) and surface (DFSPH and PBD), each once a
+// frame. column_pass_kernel gives every (slot,
 // cell) of the ghosted grid a thread: at these shapes (27^3 cells, K 16-22)
 // that is 315k-354k threads of which 6% hold a particle, scattered over the
 // warps, and each busy thread walks its 27 neighbour cells alone, a chain of
 // some 300-400 dependent load-and-test steps; a warp waits on its densest
 // lane. What bounds that kernel is the latency of the chain, not bytes or
 // operations (PERF.md section 6). Here the chain is about 27/W cells long.
-// What bounds the ten instances then is not measured; the likely bound is
-// their uncoalesced neighbour loads: 4 (pbd_lambda,
-// density_alpha_colorgrad), 5 (stiffness_accel), 7 (divergence,
-// density_colorgrad_visc, xsph_colorgrad, density_visc, viscosity,
-// surface) or 9 (surface_pressure) rows per candidate, gathered from
-// scattered cells.
+// What bounds the twelve instances then is not measured; the likely bound
+// is their uncoalesced neighbour loads: 4 (pbd_lambda,
+// density_alpha_colorgrad, density_alpha), 5 (stiffness_accel), 6
+// (pressure_force), 7 (divergence, density_colorgrad_visc, xsph_colorgrad,
+// density_visc, viscosity, surface) or 9 (surface_pressure) rows per
+// candidate, gathered from scattered cells.
 //
 // The two fluid-only instances (kBoundary false: viscosity and surface, 3
 // sums each) take bd = nullptr and kb = 0 and walk the 27 fluid cells only,
@@ -1172,8 +1174,9 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
 
 // The particle-list kernel on pass ids 1 (density_colorgrad_visc), 2
 // (surface_pressure), 3 (density_alpha_colorgrad), 4 (divergence), 5
-// (stiffness_accel), 6 (viscosity, fluid only), 7 (surface, fluid only), 9
-// (density_visc), 11 (pbd_lambda) and 12 (xsph_colorgrad) of
+// (stiffness_accel), 6 (viscosity, fluid only), 7 (surface, fluid only), 8
+// (density_alpha), 9 (density_visc), 10 (pressure_force), 11 (pbd_lambda)
+// and 12 (xsph_colorgrad) of
 // column_pass_launch, W = lanes in {8, 16, 32}, reduction 0 (the xor
 // butterfly) or 1 (the transpose reduction, only where the pass's sums
 // padded to a power of two fit W: not density_alpha_colorgrad at W 8),
@@ -1216,9 +1219,15 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
     case 7:
       return launch_lanes<SurfacePass>(lanes, reduction, fl, bd, islots, out,
                                        n, k, kb, gx, gy, gz, c, s);
+    case 8:
+      return launch_lanes<DensityAlphaPass>(lanes, reduction, fl, bd, islots,
+                                            out, n, k, kb, gx, gy, gz, c, s);
     case 9:
       return launch_lanes<DensityViscPass>(lanes, reduction, fl, bd, islots,
                                            out, n, k, kb, gx, gy, gz, c, s);
+    case 10:
+      return launch_lanes<PressureForcePass>(
+          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
     case 11:
       return launch_lanes<PbdLambdaPass>(lanes, reduction, fl, bd, islots,
                                          out, n, k, kb, gx, gy, gz, c, s);

@@ -51,7 +51,9 @@ FUNCTORS = {"PbdLambdaPass": "pbd_lambda",
             "ViscosityPass": "viscosity",
             "DensityColorgradViscPass": "density_colorgrad_visc",
             "SurfacePressurePass": "surface_pressure",
-            "DensityViscPass": "density_visc"}
+            "DensityViscPass": "density_visc",
+            "PressureForcePass": "pressure_force",
+            "DensityAlphaPass": "density_alpha", "DensityPass": "density"}
 
 
 def card() -> str:

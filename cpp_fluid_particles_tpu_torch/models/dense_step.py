@@ -322,9 +322,10 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
         rho = o[0]
         vel_d = vel_d + o[1:4] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
+        # no position moved since the fill: the list names every real slot
         a = pp.pressure_force_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None]], 0),
-            bdx, dims, dims_b, cfg, executor)
+            bdx, dims, dims_b, cfg, executor, islots=lo.idx.slots)
         vel_d = vel_d + _accel_clamp(a, cfg) * dt
 
     pos, vel, out = _advect_read(lo, state, cfg, dt, pos_d, vel_d, [rho, p])
@@ -405,7 +406,9 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
                                              executor, islots=lo.idx.slots)
         cg = da[5:8] / torch.clamp(da[8], min=cfg.epsilon)[None]
     else:
-        da = pp.density_alpha_pass(pm, bdx, dims, dims_b, cfg, executor)
+        # the fill's own grid: the list names every real slot once
+        da = pp.density_alpha_pass(pm, bdx, dims, dims_b, cfg, executor,
+                                   islots=lo.idx.slots)
     rho = da[0]
     alpha = _const(-1.0, rho) / torch.clamp(
         da[1] * da[1] + da[2] * da[2] + da[3] * da[3] + da[4],

@@ -11,12 +11,12 @@ hash of the source and the flags, and loaded with ctypes. A missing
 ``ops.passes.column_pass_plain`` and takes CUDA tensors only.
 ``particle_pass_cuda`` runs ``passes.PARTICLE_PASSES`` (pbd_lambda,
 stiffness_accel, divergence, surface_pressure, density_colorgrad_visc,
-xsph_colorgrad, density_alpha_colorgrad, density_visc and the fluid-only
-viscosity and surface) through the particle-list kernel, a group of
-``LANES`` lanes per particle of the step's slot list whose sums one of
-``REDUCTIONS`` combines, at the (width, reduction) pairs ``variants`` gives
-for the pass's sum count; ``passes.column_pass`` sends those ten passes
-there on a card.
+xsph_colorgrad, density_alpha_colorgrad, density_visc, pressure_force,
+density_alpha and the fluid-only viscosity and surface) through the
+particle-list kernel, a group of ``LANES`` lanes per particle of the step's
+slot list whose sums one of ``REDUCTIONS`` combines, at the (width,
+reduction) pairs ``variants`` gives for the pass's sum count;
+``passes.column_pass`` sends those twelve passes there on a card.
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
@@ -84,9 +84,13 @@ LANES = (32, 8, 16)
 # width in one call; density_visc (4 sums) on the WCSPH dam at K 22 took
 # 0.0608 ms at W 16 (transpose; butterfly 0.0611) against 0.0613 / 0.0624
 # at W 8 and 0.0660 / 0.0671 at W 32 (transpose / butterfly); on DFSPH's
-# state at K 16, where it never runs, W 8 and 32 led by 2-3% (PERF.md,
+# state at K 16, where it never runs, W 8 and 32 led by 2-3%; the
+# surface-off pressure_force (3 sums, the WCSPH dam at K 22) took 0.0618
+# and 0.0610 ms at W 8 (transpose) in two calls, against 0.0619-0.0623 at
+# W 16 and 0.0625-0.0634 at W 32, where it alone does not spill (PERF.md,
 # kernel table)
-PASS_LANES = {"surface_pressure": 8, "density_visc": 16}
+PASS_LANES = {"surface_pressure": 8, "density_visc": 16,
+              "pressure_force": 8}
 
 # how the particle-list kernel reduces a group's sums, as its template
 # argument kTranspose: "butterfly", xor adds of every sum at every step
@@ -108,11 +112,17 @@ REDUCTIONS = ("butterfly", "transpose")
 # butterfly. density_alpha_colorgrad (9 sums, K 16; the transpose only at
 # W 16 and 32) took 0.0625 transposed at W 32 against the butterfly's
 # 0.0655 (W 16: 0.0661 / 0.0683, butterfly W 8 0.0654); density_visc
-# (4 sums) the transpose by a hair at its W 16 (0.0608 / 0.0611)
+# (4 sums) the transpose by a hair at its W 16 (0.0608 / 0.0611). The
+# surface-off density_alpha (5 sums, DFSPH's state at K 16) took 0.0565 ms
+# transposed at W 32 against the butterfly's 0.0581 (W 8: 0.0598 / 0.0599,
+# W 16: 0.0609 / 0.0614, transpose / butterfly), and pressure_force (3
+# sums) 0.0618 / 0.0610 transposed at its W 8 against the butterfly's
+# 0.0620 / 0.0623, two calls
 PASS_REDUCTION = {"density_colorgrad_visc": "transpose",
                   "xsph_colorgrad": "transpose", "surface": "transpose",
                   "density_alpha_colorgrad": "transpose",
-                  "density_visc": "transpose"}
+                  "density_visc": "transpose", "density_alpha": "transpose",
+                  "pressure_force": "transpose"}
 
 # launches per pass instance, per particle-list instance (particle_<name>),
 # and per fluid-only instance of the prototype's bodies (flat_<body>: the

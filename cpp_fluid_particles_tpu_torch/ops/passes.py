@@ -495,7 +495,8 @@ BOUNDARY_ROWS = 4      # [pos3, mass]
 PARTICLE_PASSES = ("pbd_lambda", "stiffness_accel", "divergence",
                    "surface_pressure", "density_colorgrad_visc",
                    "xsph_colorgrad", "viscosity", "surface",
-                   "density_alpha_colorgrad", "density_visc")
+                   "density_alpha_colorgrad", "density_visc",
+                   "pressure_force", "density_alpha")
 
 # the bodies of the flat-grid prototype (exp/flat_pallas_proto.py:147-188:
 # density_terms, sa_terms, dcv_terms) -> the pass whose fluid half each is;
@@ -627,16 +628,19 @@ def density_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
                        islots=islots)
 
 
-def pressure_force_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl: [pos3, mass, rho, p]; bd: [pos3, mass]. Returns (3, K, G)."""
+def pressure_force_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
+                        islots):
+    """fl: [pos3, mass, rho, p]; bd: [pos3, mass]; islots: the step's
+    ``BoxIndex.slots``. Returns (3, K, G)."""
     return column_pass("pressure_force", fl, bd, dims, dims_b, cfg,
-                       executor)
+                       executor, islots=islots)
 
 
-def density_alpha_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl, bd: [pos3, mass]. Returns (5, K, G):
-    [rho, gsumx, gsumy, gsumz, slam]."""
-    return column_pass("density_alpha", fl, bd, dims, dims_b, cfg, executor)
+def density_alpha_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
+    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.slots``. Returns
+    (5, K, G): [rho, gsumx, gsumy, gsumz, slam]."""
+    return column_pass("density_alpha", fl, bd, dims, dims_b, cfg, executor,
+                       islots=islots)
 
 
 def density_alpha_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,

@@ -1,8 +1,9 @@
 """The hand-written CUDA neighbor-pass kernel, its particle-list variant
 for pbd_lambda, stiffness_accel, divergence, surface_pressure,
 density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
-density_visc and the fluid-only viscosity and surface (at each group
-width and reduction the pass takes; the wrapper refuses the others), and
+density_visc, pressure_force, density_alpha and the fluid-only viscosity
+and surface (at each group width and reduction the pass takes; the
+wrapper refuses the others), and
 its brick-tiled fluid-only variant on the card.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
@@ -259,9 +260,9 @@ def test_simulation_runs_through_the_kernel(dev):
 
 def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
     """With surface effects off, the card's WCSPH frames launch
-    density_visc through the particle-list kernel and pressure_force
-    through the column kernel, once a frame each, and agree with the CPU's
-    at the one-step bars after 3 frames."""
+    density_visc and pressure_force through the particle-list kernel, once
+    a frame each, and the column kernel only for the scene's density; they
+    agree with the CPU's at the one-step bars after 3 frames."""
     off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="wcsph", cfg=off, fluid_pos=_block(),
@@ -270,7 +271,7 @@ def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
     assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
         "density": 1, "particle_density_visc": frames,
-        "pressure_force": frames}
+        "particle_pressure_force": frames}
     cpu = T.Simulation(solver="wcsph", cfg=off, fluid_pos=_block(),
                        device="cpu")
     cpu.run(3)
@@ -281,35 +282,28 @@ def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
                                cpu.state.vel.numpy(), atol=2e-3)
 
 
-def test_dfsph_simulation_runs_through_the_kernel(dev):
-    """Every pass of the card's DFSPH frames launched the kernel; then one
-    step from the state they reached agrees on the card and on the CPU at
-    the one-step bars, with equal iteration counts."""
-    cc.reset_launch_counts()
-    gpu = T.Simulation(solver="dfsph", cfg=CFG, fluid_pos=_block(),
-                       device=dev)
-    gpu.run(3)
-    frames = 4 + gpu.retries                    # warm-up + 3 + retries
+def _dfsph_frames_launched(per_frame, frames):
+    """The card's DFSPH frames launched ``per_frame`` (particle-list
+    instances, once a frame each) and divergence == stiffness_accel >= 5 a
+    frame, the column kernel only the scene's density, nothing else."""
     la = cc.LAUNCHES
-    for name in ("particle_density_alpha_colorgrad", "particle_viscosity",
-                 "particle_surface"):
+    for name in per_frame:
         assert la[name] == frames, (name, la)
     assert la["particle_divergence"] == la["particle_stiffness_accel"] \
         >= 5 * frames
-    assert la["density"] == 1
-    for name in ("density_colorgrad_visc", "surface_pressure",
-                 "density_alpha_colorgrad", "density_alpha", "density_visc",
-                 "pressure_force", "stiffness_accel", "divergence",
-                 "viscosity", "surface", "particle_pbd_lambda",
-                 "particle_surface_pressure",
-                 "particle_density_colorgrad_visc", "particle_density_visc",
-                 "particle_xsph_colorgrad"):
-        assert la[name] == 0, (name, la)
+    assert {k: n for k, n in la.items() if n} == dict(
+        {name: frames for name in per_frame}, density=1,
+        particle_divergence=la["particle_divergence"],
+        particle_stiffness_accel=la["particle_stiffness_accel"])
 
+
+def _dfsph_step_agrees(gpu, cfg):
+    """One DFSPH step from the card's state agrees on the card and on the
+    CPU at the one-step bars, with equal iteration counts."""
     dims, dims_b = gpu._dims()
 
     def step(state, carry, scene):
-        return ds.dfsph_step(state, carry, scene, CFG, CFG.dt, dims, dims_b,
+        return ds.dfsph_step(state, carry, scene, cfg, CFG.dt, dims, dims_b,
                              gpu.box)
 
     def cpu(x):
@@ -324,6 +318,39 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
                                atol=2e-6)
     np.testing.assert_allclose(g1.vel.cpu().numpy(), c1.vel.numpy(),
                                atol=2e-3)
+
+
+def test_dfsph_simulation_runs_through_the_kernel(dev):
+    """Every pass of the card's DFSPH frames launched the particle-list
+    kernel; then one step from the state they reached agrees on the card
+    and on the CPU at the one-step bars, with equal iteration counts."""
+    cc.reset_launch_counts()
+    gpu = T.Simulation(solver="dfsph", cfg=CFG, fluid_pos=_block(),
+                       device=dev)
+    gpu.run(3)
+    frames = 4 + gpu.retries                    # warm-up + 3 + retries
+    _dfsph_frames_launched(("particle_density_alpha_colorgrad",
+                            "particle_viscosity", "particle_surface"),
+                           frames)
+    _dfsph_step_agrees(gpu, CFG)
+
+
+def test_surface_off_dfsph_simulation_runs_through_the_kernel(dev):
+    """With surface effects off, the card's DFSPH frames launch
+    density_alpha and viscosity through the particle-list kernel once a
+    frame each, the Jacobi passes as with surface effects on, and the
+    column kernel only for the scene's density; one step from the state
+    they reached agrees with the CPU's at the one-step bars, with equal
+    iteration counts."""
+    off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
+    cc.reset_launch_counts()
+    gpu = T.Simulation(solver="dfsph", cfg=off, fluid_pos=_block(),
+                       device=dev)
+    gpu.run(3)
+    frames = 4 + gpu.retries                    # warm-up + 3 + retries
+    _dfsph_frames_launched(("particle_density_alpha", "particle_viscosity"),
+                           frames)
+    _dfsph_step_agrees(gpu, off)
 
 
 def test_pbd_simulation_runs_through_the_kernel(dev):

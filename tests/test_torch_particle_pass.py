@@ -1,9 +1,10 @@
 """The slot list that the particle-list kernel walks, and the dispatch of
-the ten passes that take it, on the CPU.
+the twelve passes that take it, on the CPU.
 
 On a card, pbd_lambda, stiffness_accel, divergence, surface_pressure,
 density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
-density_visc and the fluid-only viscosity and surface run through
+density_visc, pressure_force, density_alpha and the fluid-only viscosity
+and surface run through
 ``column_pass_cuda.particle_pass_cuda``: one group of lanes per particle
 of the step's ``BoxIndex.slots``, writing only those slots of an output
 zeroed beforehand. That is right only if the list names every real slot
@@ -11,11 +12,11 @@ of the grid the step fills, each once, inside the ghost ring, and marks
 every other particle with the trash value K*G. These tests hold that
 contract on the dam, on a perturbed splash (with K and box overflow) and
 on a jittered block, with the list equal to the JAX package's; then that
-the steps, surface effects on and off, hand the list to exactly those ten
-passes, that it still names every real slot of the projected grid PBD's
-XSPH and surface passes run on, that each pass's (width, reduction) pairs
-follow from its sum count, and that the wrapper and the passes refuse
-what the kernel cannot take. The kernel
+the steps, surface effects on and off, hand the list to exactly those
+twelve passes, that it still names every real slot of the projected grid
+PBD's XSPH and surface passes run on, that each pass's (width, reduction)
+pairs follow from its sum count, and that the wrapper and the passes
+refuse what the kernel cannot take. The kernel
 itself runs only on the card (tests/test_torch_cuda.py).
 """
 
@@ -135,20 +136,21 @@ def _recorded_calls(solver, mode="parity", surface=True):
 # PBD's projection passes, its XSPH traversal and surface, DFSPH's
 # density_alpha_colorgrad, two Jacobi passes, viscosity and surface, both
 # WCSPH traversals; "_off" with surface effects off: PBD's projection
-# passes, DFSPH's Jacobi passes and viscosity, WCSPH's density_visc
+# passes, DFSPH's density_alpha, Jacobi passes and viscosity, both WCSPH
+# traversals
 LISTED = {"pbd": {"pbd_lambda", "stiffness_accel", "xsph_colorgrad",
                   "surface"},
           "dfsph": {"density_alpha_colorgrad", "stiffness_accel",
                     "divergence", "viscosity", "surface"},
           "wcsph": {"density_colorgrad_visc", "surface_pressure"},
           "pbd_off": {"pbd_lambda", "stiffness_accel"},
-          "dfsph_off": {"stiffness_accel", "divergence", "viscosity"},
-          "wcsph_off": {"density_visc"}}
-# the passes of each step that still walk the whole grid: none with
-# surface effects on
+          "dfsph_off": {"density_alpha", "stiffness_accel", "divergence",
+                        "viscosity"},
+          "wcsph_off": {"density_visc", "pressure_force"}}
+# the passes of each step that still walk the whole grid: PBD's xsph with
+# surface effects off, no other
 UNLISTED = {"pbd": set(), "dfsph": set(), "wcsph": set(),
-            "pbd_off": {"xsph"}, "dfsph_off": {"density_alpha"},
-            "wcsph_off": {"pressure_force"}}
+            "pbd_off": {"xsph"}, "dfsph_off": set(), "wcsph_off": set()}
 
 
 @pytest.mark.parametrize("solver", list(LISTED))
@@ -215,7 +217,8 @@ def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots[None], d, d,
                                TCFG)
     with pytest.raises(ValueError, match="no particle-list kernel"):
-        tcc.particle_pass_cuda("pressure_force", fl, bd, islots, d, d, TCFG)
+        tcc.particle_pass_cuda("xsph", _operands()[0][:tpp.PASSES["xsph"].fi],
+                               None, islots, d, None, TCFG)
     with pytest.raises(ValueError, match="not one of"):
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG,
                                lanes=4)
@@ -245,6 +248,13 @@ def test_variants_follow_the_sum_count():
             assert set(got) == every, name
         assert (tcc.default_lanes(name), tcc.default_reduction(name)) in got
     assert tpp.PASSES["density_alpha_colorgrad"].n_out == 9
+    # pressure_force's 3 sums pad to 4 and density_alpha's 5 to 8: each
+    # takes the transpose at every width, six variants
+    assert (tpp.PASSES["pressure_force"].n_out,
+            tpp.PASSES["density_alpha"].n_out) == (3, 5)
+    for name in ("pressure_force", "density_alpha"):
+        assert len(tcc.variants(name)) == 6 and set(tcc.variants(name)) \
+            == every, name
     assert set(tcc.variants("density_alpha_colorgrad")) == every - {
         (8, "transpose")}
     fl, bd, d = _operands()
@@ -279,7 +289,9 @@ def test_particle_passes_require_the_slot_list(name):
         "surface": (tpp.surface_pass, slice(None)),
         "density_alpha_colorgrad": (tpp.density_alpha_colorgrad_pass,
                                     slice(None)),
-        "density_visc": (tpp.density_visc_pass, slice(None))}[name]
+        "density_visc": (tpp.density_visc_pass, slice(None)),
+        "pressure_force": (tpp.pressure_force_pass, slice(None)),
+        "density_alpha": (tpp.density_alpha_pass, slice(None))}[name]
     rows = tpp.PASSES[name].fi
     # a fluid-only pass function takes no boundary operand
     args = ((fl[:rows], bd, d, d) if tpp.PASSES[name].has_bd

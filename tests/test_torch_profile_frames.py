@@ -26,6 +26,13 @@ torch.set_num_threads(2)
     ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
      "namespace)::DensityAlphaColorgradPass, 16, true>(...)",
      "particle_density_alpha_colorgrad"),
+    ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
+     "namespace)::PressureForcePass, 8, false>(...)",
+     "particle_pressure_force"),
+    ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
+     "namespace)::DensityAlphaPass, 32, true>(...)", "particle_density_alpha"),
+    ("void (anonymous namespace)::column_pass_kernel<(anonymous "
+     "namespace)::DensityPass>(...)", "column_density"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "
      "namespace)::XsphColorgradPass>(...)", "column_xsph_colorgrad"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "

@@ -102,7 +102,7 @@ def test_one_step_matches_jax(scenes, which):
         assert cap_t[6] > 0       # the boundary window is not empty
 
 
-def test_surface_off_step_not_ported(scenes):
+def test_surface_off_step_matches_jax(scenes):
     """The surface-off WCSPH step (density_visc + pressure_force passes)
     against JAX's, one step on the floor block, at the step bars."""
     off = dict(surface_tension=0.0, air_pressure=0.0)
