@@ -7,7 +7,8 @@ with nvcc, holds each of the neighbor pass's sixteen instances, and the
 particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
 surface_pressure, density_colorgrad_visc, xsph_colorgrad,
 density_alpha_colorgrad, density_visc, pressure_force, density_alpha,
-viscosity and surface on the main path, against the plain torch executor
+viscosity, surface, xsph and the scene build's density on the main path
+(so no path launches the column kernel), against the plain torch executor
 on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
@@ -31,9 +32,12 @@ Phases:
               atol 2e-5 x the row's max;
               two launches must agree bitwise. color_gradient and
               density_colorgrad, which no step runs, on PBD's [pos3, mass].
-              The twelve pp.PARTICLE_PASSES (the fluid-only viscosity and
-              surface among them) also through the particle-list
-              kernel on the step's slot list at each (group width,
+              The fourteen pp.PARTICLE_PASSES (the fluid-only viscosity,
+              surface and xsph among them) also through the particle-list
+              kernel on the step's slot list (density: the scene build's
+              boundary grid with the boundary index's slot list, then
+              the scene's boundary masses from the kernel against those
+              from plain, per row at the same bar) at each (group width,
               reduction) of ``variants(name)`` (the transpose needs the
               pass's sums padded to a power of two to fit the group:
               density_alpha_colorgrad's 9 take it at W 16 and 32 only):
@@ -48,22 +52,19 @@ Phases:
   5. slice    WCSPH: 300 frames at dt 0.001 through the constructor,
               run() and run_scan(); physics and launch-count checks
               (particle_density_colorgrad_visc == particle_surface_pressure
-              == the frames run, the column kernel's counts of both 0),
-              ms/frame from CUDA events
+              == the frames run, particle_density == 1, the scene build's;
+              on this and every later path the column kernel's count of
+              every instance is 0), ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
               particle_stiffness_accel >= 5 x the frames run,
               particle_density_alpha_colorgrad == particle_viscosity ==
-              particle_surface == the frames run, the column kernel's
-              counts of all five 0, so it launches only the scene's
-              density), plus iteration bounds, the mean iterations and the
-              host syncs per frame
+              particle_surface == the frames run), plus iteration bounds,
+              the mean iterations and the host syncs per frame
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
               projection with its exact all-lambda-zero exit):
               particle_pbd_lambda == particle_stiffness_accel == the sum
-              of the frames' iterations (the particle-list kernel; the
-              column kernel's counts of both stay 0),
-              particle_xsph_colorgrad == particle_surface == the frames
-              run (the column kernel's xsph_colorgrad and surface 0)
+              of the frames' iterations, particle_xsph_colorgrad ==
+              particle_surface == the frames run
   5d. pbd_default  ``Simulation(device="cuda")`` as constructed (PBD in
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
@@ -71,13 +72,13 @@ Phases:
               (WCSPH particle_density_visc == particle_pressure_force ==
               the frames run; DFSPH particle_density_alpha ==
               particle_viscosity == the frames run and the divergence
-              identity as in 5b; the column kernel's counts of all four 0,
-              so WCSPH and DFSPH launch it only for the scene's density;
-              PBD as in 5c with xsph on the column kernel)
+              identity as in 5b; PBD as in 5c with particle_xsph == the
+              frames run in place of xsph_colorgrad and surface)
   6. timing   kernel vs plain executor per pass at the shapes of its
               solver's 300-frame state (WCSPH's for density_visc and
-              pressure_force; density_alpha on DFSPH's, one surface-off
-              step from it), beside the pass's bound; the
+              pressure_force; density_alpha on DFSPH's and xsph on PBD's,
+              one surface-off step from it; density on the scene build's
+              boundary grid), beside the pass's bound; the
               PARTICLE_PASSES as a ladder in turns: column kernel, the
               particle-list kernel with the butterfly at 8, 16, 32 lanes
               and the transpose reduction at 8, 16, 32 (where
@@ -163,6 +164,12 @@ PAIR_FLOPS = {"density": (10, 10), "density_colorgrad_visc": (46, 30),
 OFF_PATH = {name: "no step runs it; held on the PBD path's [pos3, mass] "
             "operands at frame 0 and after the PBD run"
             for name in ("color_gradient", "density_colorgrad")}
+# the operands of the two rows that no step of a 300-frame path gives
+STATE = {"density": "the scene build's boundary grid (full domain, Kb = K) "
+         "and its zero-mass clone, with the boundary index's slot list; "
+         "launched once per scene, by the Simulation constructor",
+         "xsph": "one surface-off PBD step from the 300-frame PBD parity "
+         "state, with that step's slot list"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -209,7 +216,8 @@ def surface_off(cfg):
 
 def capture(sim, ds, pp, dt):
     """The operands the main path gives each pass instance from sim.state:
-    WCSPH: the scene build's density pass, one step's two passes and one
+    WCSPH: the scene build's density pass (the boundary grid, its zero-mass
+    clone and the boundary index's slot list), one step's two passes and one
     surface-off step's two (phase 6 times those on this state, the WCSPH
     dam's). DFSPH: one step's five passes, then one surface-off WCSPH step
     and one surface-off DFSPH step on the same state for the surface-off
@@ -302,6 +310,32 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
                 f"max_err/row_max={vs_column:.3e}, bitwise_repeat=yes, "
                 f"bitwise equal to {cc.REDUCTIONS[0]}: "
                 f"{'yes' if same else 'no'}")
+
+
+def scene_mass_vs_plain(sim, ds, pp, torch, errs):
+    """The scene build as the constructor runs it (density through the
+    particle-list kernel on the boundary index's slot list) against the
+    same build with the plain executor: the boundary positions bitwise,
+    the Akinci masses per row within PASS_BAR (errors kept as
+    ``b_mass``); and the build repeated equals sim's scene bitwise."""
+    from cpp_fluid_particles_tpu_torch.state import boundary_positions
+    from cpp_fluid_particles_tpu_torch.utils.check import row_errors
+    b_pos = boundary_positions(sim.cfg)
+    got = ds.build_dense_scene(sim.cfg, b_pos, sim._kb, sim.device).bd
+    want = ds.build_dense_scene(sim.cfg, b_pos, sim._kb, sim.device,
+                                executor=pp.column_pass_plain).bd
+    torch.cuda.synchronize()
+    if not torch.equal(got, sim.scene.bd):
+        raise AssertionError("scene: two builds differ")
+    if not torch.equal(got[:3], want[:3]):
+        raise AssertionError("scene: boundary positions differ from plain's")
+    max_abs, worst_rel = row_errors("scene b_mass", got[3:4], want[3:4])
+    note_err(errs, "b_mass", max_abs, worst_rel)
+    real = int((got[0] < ds.POS_GUARD).sum())
+    log("kernel", f"scene b_mass ({real} boundary particles, Kb="
+        f"{sim._kb}) kernel vs plain: max_abs_err={max_abs:.3e} "
+        f"max_err/row_max={worst_rel:.3e}; positions bitwise equal; "
+        "bitwise_repeat=yes")
 
 
 ITER_KEYS = ("divergence_iters", "density_iters", "pbd_iters")
@@ -466,16 +500,15 @@ def drop_columns(st):
 
 def pbd_checks(st, cfg, off=False):
     """PBD launch identities over every frame run (the warm-up and retries
-    included): the particle-list kernel's pbd_lambda == stiffness_accel ==
-    the sum of the frames' iterations (the column kernel's counts of both
-    stay 0), one XSPH traversal per frame (xsph_colorgrad and surface, both
-    through the particle-list kernel, or xsph with surface effects off);
-    iterations in [1, pbd_max_iter]. Adds the mean iterations and host
-    syncs per frame run after the constructor."""
+    included), all through the particle-list kernel: pbd_lambda ==
+    stiffness_accel == the sum of the frames' iterations, one XSPH
+    traversal per frame (xsph_colorgrad and surface, or xsph with surface
+    effects off); iterations in [1, pbd_max_iter]. Adds the mean iterations
+    and host syncs per frame run after the constructor."""
     it, frames_run = st["pbd_iters"], st["rerun_frames"]
     n = sum(it)
     want = {"particle_pbd_lambda": n, "particle_stiffness_accel": n}
-    want.update({"xsph": frames_run} if off else
+    want.update({"particle_xsph": frames_run} if off else
                 {"particle_xsph_colorgrad": frames_run,
                  "particle_surface": frames_run})
     expect_launches(st, want)
@@ -494,12 +527,13 @@ def pbd_checks(st, cfg, off=False):
 
 def expect_launches(stats, want):
     """want: pass name -> exact count, or (lo, None) for a lower bound;
-    names not listed must not have launched, apart from density, which
-    the scene build launches once."""
+    names not listed must not have launched, apart from particle_density,
+    which the scene build launches once (a path builds one scene). So the
+    column kernel's count of every instance must be 0."""
     got = stats["launches"]
     bad = []
     for name, n in got.items():
-        w = want.get(name, 1 if name == "density" else 0)
+        w = want.get(name, 1 if name == "particle_density" else 0)
         ok = n >= w[0] if isinstance(w, tuple) else n == w
         if not ok:
             bad.append(f"{name}={n} (want {w})")
@@ -950,6 +984,10 @@ def kernel_row(name, paths, owner, errs, times, pp):
                    ms=t["particle_ms"],
                    column_kernel_ms=t["column_kernel_ms"], lanes=t["lanes"],
                    reduction=t["reduction"])
+    if name in STATE:
+        row["state"] = STATE[name]
+    if name == "density":
+        row["b_mass_max_rel_err"] = errs["b_mass"]["max_rel_err"]
     if name in OFF_PATH:
         row["note"] = OFF_PATH[name]
     else:
@@ -1024,6 +1062,8 @@ def main() -> int:
         probe = cfp.Simulation(solver=solver, cfg=cfg, device="cuda")
         compare_passes(f"{solver} frame0", capture(probe, ds, pp, dt), cfg,
                        pp, cc, torch, errs)
+        if solver == "wcsph":
+            scene_mass_vs_plain(probe, ds, pp, torch, errs)
         step_vs_plain(probe, ds, pp, torch, dt)
         if solver != "pbd":
             step_vs_plain(probe, ds, pp, torch, dt, cfg=surface_off(cfg))
@@ -1036,7 +1076,7 @@ def main() -> int:
         if solver == "wcsph":
             # each frame run (warm-up, retries included) launches both
             # WCSPH passes once, each through the particle-list kernel,
-            # plus the scene build's density launch
+            # plus the scene build's particle_density launch
             expect_launches(st, {"particle_density_colorgrad_visc":
                                      frames_run,
                                  "particle_surface_pressure": frames_run})
@@ -1047,7 +1087,7 @@ def main() -> int:
             # stiffness_accel (the divergence warm start is on; the
             # particle-list kernel runs both), at least 5 (1 + 1 + >= 1
             # divergence iterations and 1 + 1 + >= 2 density iterations of
-            # each); the column kernel launches only the scene's density
+            # each); the column kernel launches nothing
             expect_launches(st, {"particle_density_alpha_colorgrad":
                                      frames_run,
                                  "particle_viscosity": frames_run,

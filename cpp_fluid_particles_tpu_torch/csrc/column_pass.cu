@@ -51,15 +51,18 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
-// particle_pass_kernel (below) runs pbd_lambda, stiffness_accel,
-// divergence, surface_pressure, density_colorgrad_visc, xsph_colorgrad,
-// density_alpha_colorgrad, the surface-off density_visc, pressure_force and
-// density_alpha, and the fluid-only viscosity and surface on the main path:
-// a group of lanes per particle of the step's slot list splits that
-// particle's 27-cell walk, and the group's sums are reduced by an xor
-// butterfly or, for passes with many sums, a transpose reduction.
-// column_pass_kernel still runs all twelve as its yardstick; the note above
-// the template says why.
+// particle_pass_kernel (below) runs fourteen instances on the main path:
+// pbd_lambda, stiffness_accel, divergence, surface_pressure,
+// density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad, the
+// surface-off density_visc, pressure_force and density_alpha, the
+// fluid-only viscosity, surface and (PBD with surface effects off) xsph,
+// and the scene build's density over the boundary grid. A group of lanes
+// per particle of the slot list splits that particle's 27-cell walk, and
+// the group's sums are reduced by an xor butterfly or, for passes with many
+// sums, a transpose reduction. No path launches column_pass_kernel any
+// more: it runs only as the yardstick of those fourteen (the note above the
+// particle template says why it is slower) and for color_gradient and
+// density_colorgrad, which nothing runs.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -734,41 +737,48 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 // --- the particle-list kernel (PbdLambdaPass, StiffnessAccelPass,
 // DivergencePass, SurfacePressurePass, DensityColorgradViscPass,
 // XsphColorgradPass, DensityAlphaColorgradPass, DensityViscPass,
-// PressureForcePass, DensityAlphaPass, ViscosityPass and SurfacePass) ---
+// PressureForcePass, DensityAlphaPass, ViscosityPass, SurfacePass,
+// XsphPass and DensityPass) ---
 //
 // Replaces the same TPU kernel as column_pass_kernel, pallas_passes.py:107
-// `column_pass`, for twelve instances: the PBD projection passes
+// `column_pass`, for fourteen instances: the PBD projection passes
 // pbd_lambda and stiffness_accel, the DFSPH Jacobi passes divergence and
 // stiffness_accel (each runs in every iteration of its solve), WCSPH's two
 // traversals density_colorgrad_visc and surface_pressure, PBD's
 // xsph_colorgrad, DFSPH's density_alpha_colorgrad, WCSPH's surface-off
 // density_visc and pressure_force, DFSPH's surface-off density_alpha, and
-// the fluid-only viscosity (DFSPH) and surface (DFSPH and PBD), each once a
-// frame. column_pass_kernel gives every (slot,
+// the fluid-only viscosity (DFSPH), surface (DFSPH and PBD) and xsph (PBD,
+// surface effects off), each once a frame; and density once a scene, the
+// Akinci boundary mass, over the boundary grid with its own slot list
+// (ops/dense.py DenseIndex.slots, trash K*G as here) and a zero-mass clone
+// of that grid as the boundary operand, so its boundary terms add +0.0.
+// column_pass_kernel gives every (slot,
 // cell) of the ghosted grid a thread: at these shapes (27^3 cells, K 16-22)
 // that is 315k-354k threads of which 6% hold a particle, scattered over the
 // warps, and each busy thread walks its 27 neighbour cells alone, a chain of
 // some 300-400 dependent load-and-test steps; a warp waits on its densest
 // lane. What bounds that kernel is the latency of the chain, not bytes or
 // operations (PERF.md section 6). Here the chain is about 27/W cells long.
-// What bounds the twelve instances then is not measured; the likely bound
-// is their uncoalesced neighbour loads: 4 (pbd_lambda,
+// What bounds the fourteen instances then is not measured; the likely bound
+// is their uncoalesced neighbour loads: 4 (density, pbd_lambda,
 // density_alpha_colorgrad, density_alpha), 5 (stiffness_accel), 6
 // (pressure_force), 7 (divergence, density_colorgrad_visc, xsph_colorgrad,
-// density_visc, viscosity, surface) or 9 (surface_pressure) rows per
+// density_visc, viscosity, surface, xsph) or 9 (surface_pressure) rows per
 // candidate, gathered from scattered cells.
 //
-// The two fluid-only instances (kBoundary false: viscosity and surface, 3
-// sums each) take bd = nullptr and kb = 0 and walk the 27 fluid cells only,
+// The three fluid-only instances (kBoundary false: viscosity, surface and
+// xsph, 3 sums each) take bd = nullptr and kb = 0 and walk the 27 fluid
+// cells only,
 // the boundary loop compiled out: at W 32, 27 lanes take one cell each and
 // 5 hold zeros. Their i side is per lane: every lane of a group loads the
 // particle's rows itself (surface also forms |cg|^2 and its sqrtf gate),
 // which costs no shuffle but repeats that work W times.
 //
 // Here a group of W lanes (8, 16 or 32, inside one warp) serves one
-// particle of the step's list islots (ops/box.py BoxIndex.slots: (N,)
-// int64 into the flat (K, G) slot axis; an invalid particle holds the trash
-// value K*G and its group does nothing). Lane l takes the offsets l, l+W,
+// particle of the list islots (the step's ops/box.py BoxIndex.slots, or for
+// the scene's density the boundary's DenseIndex.slots: (N,) int64 into the
+// flat (K, G) slot axis; an invalid particle holds the trash value K*G and
+// its group does nothing). Lane l takes the offsets l, l+W,
 // l+2W, ... < 27 in the reference's m-order and walks each neighbour cell
 // exactly as column_pass_kernel does (fluid slots up to the first padding
 // slot, then the boundary slots, the same functor), which cuts the chain to
@@ -1172,12 +1182,13 @@ extern "C" int column_pass_launch(int pass_id, const float* fl,
   }
 }
 
-// The particle-list kernel on pass ids 1 (density_colorgrad_visc), 2
-// (surface_pressure), 3 (density_alpha_colorgrad), 4 (divergence), 5
-// (stiffness_accel), 6 (viscosity, fluid only), 7 (surface, fluid only), 8
-// (density_alpha), 9 (density_visc), 10 (pressure_force), 11 (pbd_lambda)
-// and 12 (xsph_colorgrad) of
-// column_pass_launch, W = lanes in {8, 16, 32}, reduction 0 (the xor
+// The particle-list kernel on pass ids 0 (density), 1
+// (density_colorgrad_visc), 2 (surface_pressure), 3
+// (density_alpha_colorgrad), 4 (divergence), 5 (stiffness_accel), 6
+// (viscosity, fluid only), 7 (surface, fluid only), 8 (density_alpha), 9
+// (density_visc), 10 (pressure_force), 11 (pbd_lambda), 12
+// (xsph_colorgrad) and 13 (xsph, fluid only) of column_pass_launch, W =
+// lanes in {8, 16, 32}, reduction 0 (the xor
 // butterfly) or 1 (the transpose reduction, only where the pass's sums
 // padded to a power of two fit W: not density_alpha_colorgrad at W 8),
 // over the n particles of islots (int64, a slot in [0, K*G) or the trash
@@ -1198,6 +1209,9 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (pass_id) {
+    case 0:
+      return launch_lanes<DensityPass>(lanes, reduction, fl, bd, islots, out,
+                                       n, k, kb, gx, gy, gz, c, s);
     case 1:
       return launch_lanes<DensityColorgradViscPass>(
           lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
@@ -1234,6 +1248,9 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
     case 12:
       return launch_lanes<XsphColorgradPass>(
           lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+    case 13:
+      return launch_lanes<XsphPass>(lanes, reduction, fl, bd, islots, out, n,
+                                    k, kb, gx, gy, gz, c, s);
     default:
       return cudaErrorInvalidValue;
   }

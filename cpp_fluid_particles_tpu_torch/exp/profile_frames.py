@@ -1,15 +1,18 @@
 """Where a frame's device time goes, per window of frames of the dam.
 
     python -m cpp_fluid_particles_tpu_torch.exp.profile_frames \\
-        [--solver pbd|dfsph|wcsph] [--mode parity|fast] \\
+        [--solver pbd|dfsph|wcsph] [--mode parity|fast] [--surface on|off] \\
         [--windows 101 251] [--frames 25] [--out DIR]
 
 Runs ``Simulation(solver, cfg=dam_break_config(mode), device="cuda")`` on
 the 20,736-particle dam at the reference's dt (``BENCH_DT``) up to the
 frame before each window, then runs the window's frames from the same
 state three times: twice timed by CUDA events (``run_scan``, one chunk),
-once under ``torch.profiler``. Each window prints one line and one JSON
-record (also written to ``DIR/profile_<solver>_<mode>.json``):
+once under ``torch.profiler``. ``--surface off`` sets surface tension and
+air pressure to 0 (``make_config``), so the steps take their surface-off
+passes. Each window prints one line and one JSON record (also written to
+``DIR/profile_<solver>_<mode>.json``, ``..._surface_off.json`` with
+``--surface off``):
 
   * ms/frame of the two timed runs, and of the profiled run;
   * solver iterations and host syncs per frame (DFSPH: divergence and
@@ -54,6 +57,14 @@ FUNCTORS = {"PbdLambdaPass": "pbd_lambda",
             "DensityViscPass": "density_visc",
             "PressureForcePass": "pressure_force",
             "DensityAlphaPass": "density_alpha", "DensityPass": "density"}
+
+
+def make_config(mode: str, surface: str = "on"):
+    """The dam's config in ``mode``; surface "off": surface tension and air
+    pressure 0."""
+    cfg = dam_break_config(mode)
+    return (cfg if surface == "on"
+            else cfg.replace(surface_tension=0.0, air_pressure=0.0))
 
 
 def card() -> str:
@@ -154,21 +165,27 @@ def profile_window(sim, tally, frames: int, dt: float) -> dict:
     return rec
 
 
-def main(argv=None) -> int:
+def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--solver", default="pbd",
                     choices=("pbd", "dfsph", "wcsph"))
     ap.add_argument("--mode", default="parity", choices=("parity", "fast"))
+    ap.add_argument("--surface", default="on", choices=("on", "off"))
     ap.add_argument("--windows", type=int, nargs="+", default=[101, 251])
     ap.add_argument("--frames", type=int, default=CHUNK)
     ap.add_argument("--out", default="chiprun_out")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_frames needs a CUDA device: "
                          "torch.cuda.is_available() is False")
     dt = BENCH_DT[args.solver]
-    sim = Simulation(solver=args.solver, cfg=dam_break_config(args.mode),
-                     device="cuda")
+    sim = Simulation(solver=args.solver,
+                     cfg=make_config(args.mode, args.surface), device="cuda")
+    tag = args.mode + ("" if args.surface == "on" else " surface off")
     tally = Tally(sim)
     smi = card()
     records = []
@@ -177,10 +194,12 @@ def main(argv=None) -> int:
             sim.run_scan(min(CHUNK, first - 1 - sim.frame), dt)
         rec = profile_window(sim, tally, args.frames, dt)
         rec.update(solver=args.solver, mode=args.mode, card=smi)
+        if args.surface == "off":
+            rec["surface"] = "off"
         records.append(rec)
         iters = ", ".join(f"{k} {rec[k]:.2f}" for k in ITER_KEYS if k in rec)
         busy = rec["device_busy_ms_per_frame"]
-        print(f"[profile] {args.solver} {args.mode} frames {first}-"
+        print(f"[profile] {args.solver} {tag} frames {first}-"
               f"{first + args.frames - 1}, K {rec['K']}, box "
               f"{tuple(rec['box'])}{' (refit)' if rec['refit'] else ''}: "
               f"ms/frame {rec['ms_per_frame'][0]:.3f}, "
@@ -197,7 +216,8 @@ def main(argv=None) -> int:
         print(json.dumps(rec), flush=True)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"profile_{args.solver}_{args.mode}.json").write_text(
+    suffix = "" if args.surface == "on" else "_surface_off"
+    (out / f"profile_{args.solver}_{args.mode}{suffix}.json").write_text(
         json.dumps(records, indent=1))
     return 0
 

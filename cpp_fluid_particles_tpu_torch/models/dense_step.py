@@ -109,10 +109,14 @@ def build_dense_scene(cfg: SimConfig, b_pos: np.ndarray, kb: int,
     fl = fill_dense(idx, [b_pos[:, 0], b_pos[:, 1], b_pos[:, 2], ones],
                     pads, dims_b)
     # the "boundary" j-source contributes nothing here (zero masses, real
-    # positions): the W-sum runs boundary-vs-boundary through the fluid slot
+    # positions): the W-sum runs boundary-vs-boundary through the fluid
+    # slot. The index's slot list names every real slot of fl once, in an
+    # interior cell, and marks the rest with the trash value K*G; read_dense
+    # reads only those slots back
     zero_bd = fl.clone()
     zero_bd[3] = 0.0
-    wsum = pp.density_pass(fl, zero_bd, dims_b, dims_b, cfg, executor)
+    wsum = pp.density_pass(fl, zero_bd, dims_b, dims_b, cfg, executor,
+                           islots=idx.slots)
     b_mass = _const(cfg.rho_boundary, wsum) / torch.clamp(
         read_dense(idx, wsum[None])[0], min=cfg.epsilon)
     bd = fill_dense(idx, [b_pos[:, 0], b_pos[:, 1], b_pos[:, 2], b_mass],
@@ -565,11 +569,12 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
 
     # --- velocity from the position delta (src/PBDSolver.cu:55-60), then
     # XSPH viscosity (:89-125) fused with the color field, then the surface
-    # forces from that color field, all over the projected positions. The
-    # slots stay where the fill put them, so the step's slot list still
-    # names every real slot once for xsph_colorgrad and surface alike: a
-    # listed slot's x stays below POS_PAD/2 through _clamp_pos_only, and a
-    # padding slot's stays POS_PAD ---
+    # forces from that color field, all over the projected positions (with
+    # surface effects off, the fluid-only xsph alone). The slots stay where
+    # the fill put them, so the step's slot list still names every real
+    # slot once for xsph_colorgrad, surface and xsph alike: a listed slot's
+    # x stays below POS_PAD/2 through _clamp_pos_only, and a padding slot's
+    # stays POS_PAD ---
     vel_d = (pos_d - plast_d) / _const(dt, pos_d)
     xsph_c = _f32(cfg.pbd_xsph_c / cfg.rho0)
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
@@ -582,7 +587,8 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
                              executor, islots=lo.idx.slots)
         vel_d = vel_d + sa * dt
     else:
-        vel_d = vel_d + pp.xsph_pass(pmv, dims, cfg, executor) * xsph_c
+        vel_d = vel_d + pp.xsph_pass(pmv, dims, cfg, executor,
+                                     islots=lo.idx.slots) * xsph_c
     vel_d = _grav(vel_d, cfg, dt)
 
     # --- remember + predict (src/PBDSolver.cu:71-79); the warm carry is

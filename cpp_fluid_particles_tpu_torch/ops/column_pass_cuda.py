@@ -12,11 +12,13 @@ hash of the source and the flags, and loaded with ctypes. A missing
 ``particle_pass_cuda`` runs ``passes.PARTICLE_PASSES`` (pbd_lambda,
 stiffness_accel, divergence, surface_pressure, density_colorgrad_visc,
 xsph_colorgrad, density_alpha_colorgrad, density_visc, pressure_force,
-density_alpha and the fluid-only viscosity and surface) through the
-particle-list kernel, a group of ``LANES`` lanes per particle of the step's
-slot list whose sums one of ``REDUCTIONS`` combines, at the (width,
-reduction) pairs ``variants`` gives for the pass's sum count;
-``passes.column_pass`` sends those twelve passes there on a card.
+density_alpha, the fluid-only viscosity, surface and xsph, and the scene
+build's density) through the particle-list kernel, a group of ``LANES``
+lanes per particle of a slot list whose sums one of ``REDUCTIONS``
+combines, at the (width, reduction) pairs ``variants`` gives for the pass's
+sum count; ``passes.column_pass`` sends those fourteen passes there on a
+card, so no path launches ``column_pass_cuda``: it stays the yardstick, and
+the executor of color_gradient and density_colorgrad, which nothing runs.
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
@@ -117,12 +119,22 @@ REDUCTIONS = ("butterfly", "transpose")
 # transposed at W 32 against the butterfly's 0.0581 (W 8: 0.0598 / 0.0599,
 # W 16: 0.0609 / 0.0614, transpose / butterfly), and pressure_force (3
 # sums) 0.0618 / 0.0610 transposed at its W 8 against the butterfly's
-# 0.0620 / 0.0623, two calls
+# 0.0620 / 0.0623, two calls. In two calls, the fluid-only xsph (3 sums,
+# one surface-off PBD step from the 300-frame parity state, K 18) took
+# 0.0526 and 0.0522 ms transposed at W 32 against the butterfly's 0.0531
+# and 0.0528 (W 16: 0.0560, 0.0553 / 0.0560, 0.0554; W 8: 0.0575, 0.0565
+# / 0.0566, 0.0564, transpose / butterfly); the scene build's density (1
+# sum, the boundary grid, Kb 7, 14,408 listed slots) 0.0400 and 0.0410
+# transposed at W 32 against the butterfly's 0.0404 and 0.0410 (W 16:
+# 0.0394, 0.0416 / 0.0426, 0.0411; W 8: 0.0415, 0.0413 / 0.0439, 0.0418),
+# each pair spreading 10-20% run to run, so it keeps W 32, where it alone
+# does not spill (W 8 and 16 spill 32 B)
 PASS_REDUCTION = {"density_colorgrad_visc": "transpose",
                   "xsph_colorgrad": "transpose", "surface": "transpose",
                   "density_alpha_colorgrad": "transpose",
                   "density_visc": "transpose", "density_alpha": "transpose",
-                  "pressure_force": "transpose"}
+                  "pressure_force": "transpose", "xsph": "transpose",
+                  "density": "transpose"}
 
 # launches per pass instance, per particle-list instance (particle_<name>),
 # and per fluid-only instance of the prototype's bodies (flat_<body>: the
@@ -293,8 +305,9 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
     """Pass ``name`` (one of ``passes.PARTICLE_PASSES``) through the
     particle-list kernel on the current stream of ``fl``'s device: a group
     of ``lanes`` lanes (one of LANES; default ``default_lanes(name)``) for
-    each particle of ``islots``, the step's ``BoxIndex.slots`` ((N,) int64
-    into the flat (K, G) slot axis, K*G for an invalid particle), its sums
+    each particle of ``islots``, the step's ``BoxIndex.slots`` or the
+    scene's boundary ``DenseIndex.slots`` ((N,) int64 into the flat (K, G)
+    slot axis, K*G for an invalid particle), its sums
     combined by ``reduction`` (one of REDUCTIONS; default
     ``default_reduction(name)``); a pair outside ``variants(name)`` is
     refused before anything runs. A fluid-only pass (``has_bd`` False)

@@ -13,8 +13,9 @@ defined by two TERM functions in vector-component form over pair blocks
     boundary operand (``bd=None``, ``dims_b=None``).
 
 Executors (same signature, ``(name, fl, bd, dims, dims_b, cfg,
-islots=None) -> (n_out, K, G)``; ``islots`` is the step's particle -> slot
-list, ``BoxIndex.slots``, which the callers of ``PARTICLE_PASSES`` give):
+islots=None) -> (n_out, K, G)``; ``islots`` is the particle -> slot list
+of fl's grid, the step's ``BoxIndex.slots`` or the scene build's boundary
+``DenseIndex.slots``, which the callers of ``PARTICLE_PASSES`` give):
 
   * ``column_pass_plain`` — port of ``column_pass_xla`` (pallas_passes.py:287)
     with ``_std_body`` (:780): the plain lane-major 27-offset loop in torch
@@ -26,9 +27,11 @@ list, ``BoxIndex.slots``, which the callers of ``PARTICLE_PASSES`` give):
 CUDA tensors the kernel (which raises rather than falls back). On a card,
 ``PARTICLE_PASSES`` (pbd_lambda, stiffness_accel, divergence,
 surface_pressure, density_colorgrad_visc, xsph_colorgrad,
-density_alpha_colorgrad, density_visc and the fluid-only viscosity and
-surface) take the particle-list kernel
-(``column_pass_cuda.particle_pass_cuda``), which needs ``islots``.
+density_alpha_colorgrad, density_visc, pressure_force, density_alpha, the
+fluid-only viscosity, surface and xsph, and density) take the
+particle-list kernel (``column_pass_cuda.particle_pass_cuda``), which
+needs ``islots``; only color_gradient and density_colorgrad, which nothing
+runs, take the column kernel.
 Outputs are zero on ghost cells and on empty i slots, up to the sign of
 zero.
 """
@@ -490,13 +493,14 @@ PASSES = {
 }
 BOUNDARY_ROWS = 4      # [pos3, mass]
 
-# the passes that run, on a card, through the particle-list kernel over the
-# step's slot list (ops/column_pass_cuda.py particle_pass_cuda)
+# the passes that run, on a card, through the particle-list kernel over a
+# slot list (ops/column_pass_cuda.py particle_pass_cuda): the step's, or for
+# the scene build's density the boundary grid's own
 PARTICLE_PASSES = ("pbd_lambda", "stiffness_accel", "divergence",
                    "surface_pressure", "density_colorgrad_visc",
                    "xsph_colorgrad", "viscosity", "surface",
                    "density_alpha_colorgrad", "density_visc",
-                   "pressure_force", "density_alpha")
+                   "pressure_force", "density_alpha", "xsph", "density")
 
 # the bodies of the flat-grid prototype (exp/flat_pallas_proto.py:147-188:
 # density_terms, sa_terms, dcv_terms) -> the pass whose fluid half each is;
@@ -600,9 +604,12 @@ def flat_pallas_pass(body: str, fl: torch.Tensor, dims: DenseDims,
                              fluid_only=True)
 
 
-def density_pass(fl, bd, dims, dims_b, cfg, executor=None):
-    """fl, bd: [pos3, mass]. Returns the (K, G) density grid."""
-    return column_pass("density", fl, bd, dims, dims_b, cfg, executor)[0]
+def density_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
+    """fl, bd: [pos3, mass]; islots: the slot list of fl's grid (the scene
+    build's boundary ``DenseIndex.slots``). Returns the (K, G) density
+    grid."""
+    return column_pass("density", fl, bd, dims, dims_b, cfg, executor,
+                       islots=islots)[0]
 
 
 def density_colorgrad_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
@@ -698,10 +705,11 @@ def xsph_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                        executor, islots=islots)
 
 
-def xsph_pass(fl, dims, cfg, executor=None):
-    """fl: [pos3, mass, vel3]; fluid only. Returns (3, K, G); the caller
-    scales by c/rho0."""
-    return column_pass("xsph", fl, None, dims, None, cfg, executor)
+def xsph_pass(fl, dims, cfg, executor=None, *, islots):
+    """fl: [pos3, mass, vel3]; fluid only; islots: the step's
+    ``BoxIndex.slots``. Returns (3, K, G); the caller scales by c/rho0."""
+    return column_pass("xsph", fl, None, dims, None, cfg, executor,
+                       islots=islots)
 
 
 def color_gradient_pass(fl, bd, dims, dims_b, cfg, executor=None):

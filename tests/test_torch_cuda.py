@@ -1,10 +1,12 @@
 """The hand-written CUDA neighbor-pass kernel, its particle-list variant
 for pbd_lambda, stiffness_accel, divergence, surface_pressure,
 density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
-density_visc, pressure_force, density_alpha and the fluid-only viscosity
-and surface (at each group width and reduction the pass takes; the
-wrapper refuses the others), and
-its brick-tiled fluid-only variant on the card.
+density_visc, pressure_force, density_alpha, the fluid-only viscosity,
+surface and xsph, and the scene build's density (at each group width and
+reduction the pass takes; the wrapper refuses the others), and its
+brick-tiled fluid-only variant on the card. Every Simulation on the card
+launches the particle-list density once, for its scene, and the column
+kernel never.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -51,10 +53,11 @@ def _block():
 @pytest.fixture(scope="module")
 def operands(dev):
     """The operands the main paths give each pass: the scene build's
-    density pass, and one step of each solver with surface effects on and
-    off, after 3 frames of the solver, each with the slot list the step
-    hands it (None but for ``pp.PARTICLE_PASSES``). color_gradient and
-    density_colorgrad, which no step runs, take PBD's [pos3, mass]."""
+    density pass with the boundary index's slot list, and one step of each
+    solver with surface effects on and off, after 3 frames of the solver,
+    each with the slot list the step hands it (None but for
+    ``pp.PARTICLE_PASSES``). color_gradient and density_colorgrad, which
+    no step runs, take PBD's [pos3, mass]."""
     calls = {}
 
     def record(name, fl, bd, dims, dims_b, cfg, islots=None):
@@ -237,6 +240,34 @@ def test_particle_passes_on_the_card_need_the_slot_list(operands, name):
                               reduction="tree")
 
 
+def _scene_built_once():
+    """The Simulation's constructor built its scene once: the particle-list
+    density launched once, the column kernel's density never (nor any
+    other column-kernel instance)."""
+    la = cc.LAUNCHES
+    assert la["particle_density"] == 1 and la["density"] == 0, la
+    assert not any(la[name] for name in cc.PASS_IDS), la
+
+
+def test_scene_build_runs_through_the_kernel(dev):
+    """The scene build on the card launches the particle-list density once
+    and gives the CPU's boundary positions bitwise and its Akinci masses
+    within BAR of the row max; a second build is bitwise equal."""
+    bpos = T.boundary_positions(CFG)
+    kb = ds.boundary_k(bpos, CFG)
+    cc.reset_launch_counts()
+    gpu = ds.build_dense_scene(CFG, bpos, kb, dev).bd
+    torch.cuda.synchronize()
+    _scene_built_once()
+    again = ds.build_dense_scene(CFG, bpos, kb, dev).bd
+    assert torch.equal(gpu, again)
+    cpu = ds.build_dense_scene(CFG, bpos, kb, "cpu").bd
+    assert torch.equal(gpu[:3].cpu(), cpu[:3])
+    scale = float(cpu[3].abs().max())
+    torch.testing.assert_close(gpu[3].cpu(), cpu[3], rtol=BAR,
+                               atol=BAR * scale)
+
+
 def test_simulation_runs_through_the_kernel(dev):
     """The same frames on the card and on the CPU agree at the one-step
     bars after 3 frames, and the card's frames all launched the kernel."""
@@ -245,8 +276,9 @@ def test_simulation_runs_through_the_kernel(dev):
                        device=dev)
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
+    _scene_built_once()
     assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
-        "density": 1, "particle_density_colorgrad_visc": frames,
+        "particle_density": 1, "particle_density_colorgrad_visc": frames,
         "particle_surface_pressure": frames}
     cpu = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
                        device="cpu")
@@ -261,16 +293,17 @@ def test_simulation_runs_through_the_kernel(dev):
 def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
     """With surface effects off, the card's WCSPH frames launch
     density_visc and pressure_force through the particle-list kernel, once
-    a frame each, and the column kernel only for the scene's density; they
-    agree with the CPU's at the one-step bars after 3 frames."""
+    a frame each, and the column kernel never; they agree with the CPU's
+    at the one-step bars after 3 frames."""
     off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="wcsph", cfg=off, fluid_pos=_block(),
                        device=dev)
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
+    _scene_built_once()
     assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
-        "density": 1, "particle_density_visc": frames,
+        "particle_density": 1, "particle_density_visc": frames,
         "particle_pressure_force": frames}
     cpu = T.Simulation(solver="wcsph", cfg=off, fluid_pos=_block(),
                        device="cpu")
@@ -285,14 +318,15 @@ def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
 def _dfsph_frames_launched(per_frame, frames):
     """The card's DFSPH frames launched ``per_frame`` (particle-list
     instances, once a frame each) and divergence == stiffness_accel >= 5 a
-    frame, the column kernel only the scene's density, nothing else."""
+    frame, the particle-list density once for the scene, nothing else."""
+    _scene_built_once()
     la = cc.LAUNCHES
     for name in per_frame:
         assert la[name] == frames, (name, la)
     assert la["particle_divergence"] == la["particle_stiffness_accel"] \
         >= 5 * frames
     assert {k: n for k, n in la.items() if n} == dict(
-        {name: frames for name in per_frame}, density=1,
+        {name: frames for name in per_frame}, particle_density=1,
         particle_divergence=la["particle_divergence"],
         particle_stiffness_accel=la["particle_stiffness_accel"])
 
@@ -339,7 +373,7 @@ def test_surface_off_dfsph_simulation_runs_through_the_kernel(dev):
     """With surface effects off, the card's DFSPH frames launch
     density_alpha and viscosity through the particle-list kernel once a
     frame each, the Jacobi passes as with surface effects on, and the
-    column kernel only for the scene's density; one step from the state
+    column kernel never; one step from the state
     they reached agrees with the CPU's at the one-step bars, with equal
     iteration counts."""
     off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
@@ -353,33 +387,35 @@ def test_surface_off_dfsph_simulation_runs_through_the_kernel(dev):
     _dfsph_step_agrees(gpu, off)
 
 
-def test_pbd_simulation_runs_through_the_kernel(dev):
-    """Every pass of the card's PBD frames launched a kernel, the two
-    projection passes the particle-list kernel once per projection
-    iteration, xsph_colorgrad and surface once per frame; then one step
-    from the state they reached agrees on the card and on the CPU at the
-    one-step bars, with equal iteration counts."""
+def _pbd_frames_agree(cfg, per_frame, dev):
+    """Run the card's PBD block 3 frames in ``cfg``: the two projection
+    passes launched the particle-list kernel once per projection
+    iteration, ``per_frame`` (particle-list instances) once a frame, the
+    scene's density once, nothing else; then one step from the state they
+    reached agrees on the card and on the CPU at the one-step bars, with
+    equal iteration counts."""
     cc.reset_launch_counts()
-    gpu = T.Simulation(solver="pbd", cfg=CFG, fluid_pos=_block(),
+    gpu = T.Simulation(solver="pbd", cfg=cfg, fluid_pos=_block(),
                        device=dev)
     iters = [int(gpu.metrics["pbd_iters"])]
     for _ in range(3):
         gpu.step()
         iters.append(int(gpu.metrics["pbd_iters"]))
     assert gpu.retries == 0
+    _scene_built_once()
     la = cc.LAUNCHES
     assert la["particle_pbd_lambda"] == la["particle_stiffness_accel"] \
         == sum(iters)
-    assert la["particle_xsph_colorgrad"] == la["particle_surface"] == 4
-    assert {k: n for k, n in la.items() if n} == {
-        "density": 1, "particle_pbd_lambda": sum(iters),
-        "particle_stiffness_accel": sum(iters),
-        "particle_xsph_colorgrad": 4, "particle_surface": 4}
+    for name in per_frame:
+        assert la[name] == 4, (name, la)
+    assert {k: n for k, n in la.items() if n} == dict(
+        {name: 4 for name in per_frame}, particle_density=1,
+        particle_pbd_lambda=sum(iters), particle_stiffness_accel=sum(iters))
 
     dims, dims_b = gpu._dims()
 
     def step(state, carry, scene):
-        return ds.pbd_step(state, carry, scene, CFG, CFG.dt, dims, dims_b,
+        return ds.pbd_step(state, carry, scene, cfg, cfg.dt, dims, dims_b,
                            gpu.box)
 
     def cpu(x):
@@ -395,6 +431,25 @@ def test_pbd_simulation_runs_through_the_kernel(dev):
                                atol=2e-3)
     np.testing.assert_allclose(gc.pos_last.cpu().numpy(),
                                cc1.pos_last.numpy(), atol=2e-6)
+
+
+def test_pbd_simulation_runs_through_the_kernel(dev):
+    """Every pass of the card's PBD frames launched the particle-list
+    kernel, the two projection passes once per projection iteration,
+    xsph_colorgrad and surface once per frame; one step from the state
+    they reached agrees with the CPU's."""
+    _pbd_frames_agree(CFG, ("particle_xsph_colorgrad", "particle_surface"),
+                      dev)
+
+
+def test_surface_off_pbd_simulation_runs_through_the_kernel(dev):
+    """With surface effects off, the card's PBD frames launch the
+    fluid-only xsph through the particle-list kernel once a frame
+    (particle_xsph == the frames run) and the column kernel's xsph never;
+    one step from the state they reached agrees with the CPU's."""
+    off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
+    _pbd_frames_agree(off, ("particle_xsph",), dev)
+    assert cc.LAUNCHES["xsph"] == 0
 
 
 @pytest.fixture(scope="module")

@@ -1,23 +1,25 @@
-"""The slot list that the particle-list kernel walks, and the dispatch of
-the twelve passes that take it, on the CPU.
+"""The slot lists that the particle-list kernel walks, and the dispatch of
+the fourteen passes that take them, on the CPU.
 
 On a card, pbd_lambda, stiffness_accel, divergence, surface_pressure,
 density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
-density_visc, pressure_force, density_alpha and the fluid-only viscosity
-and surface run through
+density_visc, pressure_force, density_alpha, the fluid-only viscosity,
+surface and xsph, and the scene build's density run through
 ``column_pass_cuda.particle_pass_cuda``: one group of lanes per particle
-of the step's ``BoxIndex.slots``, writing only those slots of an output
-zeroed beforehand. That is right only if the list names every real slot
-of the grid the step fills, each once, inside the ghost ring, and marks
-every other particle with the trash value K*G. These tests hold that
-contract on the dam, on a perturbed splash (with K and box overflow) and
-on a jittered block, with the list equal to the JAX package's; then that
-the steps, surface effects on and off, hand the list to exactly those
-twelve passes, that it still names every real slot of the projected grid
-PBD's XSPH and surface passes run on, that each pass's (width, reduction)
-pairs follow from its sum count, and that the wrapper and the passes
-refuse what the kernel cannot take. The kernel
-itself runs only on the card (tests/test_torch_cuda.py).
+of a slot list (the step's ``BoxIndex.slots``; for the scene's density
+the boundary's ``DenseIndex.slots``), writing only those slots of an
+output zeroed beforehand. That is right only if the list names every real
+slot of the grid the pass reads, each once, inside the ghost ring, and
+marks every other particle with the trash value K*G. These tests hold
+that contract on the dam, on a perturbed splash (with K and box overflow)
+and on a jittered block, and on the dam's boundary and a custom one, with
+each list equal to the JAX package's; then that the steps, surface
+effects on and off, and the scene build hand the list to exactly those
+fourteen passes, that it still names every real slot of the projected
+grid PBD's XSPH and surface passes run on, that each pass's (width,
+reduction) pairs follow from its sum count, and that the wrapper and the
+passes refuse what the kernel cannot take. The kernel itself runs only on
+the card (tests/test_torch_cuda.py).
 """
 
 import functools
@@ -28,6 +30,7 @@ import pytest
 import torch
 
 import cpp_fluid_particles_tpu as J
+from cpp_fluid_particles_tpu.models import dense_step as jds
 from cpp_fluid_particles_tpu.ops import box as jbox
 from cpp_fluid_particles_tpu.ops import dense as jdense
 
@@ -136,21 +139,22 @@ def _recorded_calls(solver, mode="parity", surface=True):
 # PBD's projection passes, its XSPH traversal and surface, DFSPH's
 # density_alpha_colorgrad, two Jacobi passes, viscosity and surface, both
 # WCSPH traversals; "_off" with surface effects off: PBD's projection
-# passes, DFSPH's density_alpha, Jacobi passes and viscosity, both WCSPH
-# traversals
+# passes and xsph, DFSPH's density_alpha, Jacobi passes and viscosity, both
+# WCSPH traversals
 LISTED = {"pbd": {"pbd_lambda", "stiffness_accel", "xsph_colorgrad",
                   "surface"},
           "dfsph": {"density_alpha_colorgrad", "stiffness_accel",
                     "divergence", "viscosity", "surface"},
           "wcsph": {"density_colorgrad_visc", "surface_pressure"},
-          "pbd_off": {"pbd_lambda", "stiffness_accel"},
+          "pbd_off": {"pbd_lambda", "stiffness_accel", "xsph"},
           "dfsph_off": {"density_alpha", "stiffness_accel", "divergence",
                         "viscosity"},
           "wcsph_off": {"density_visc", "pressure_force"}}
-# the passes of each step that still walk the whole grid: PBD's xsph with
-# surface effects off, no other
+# the passes of each step that still walk the whole grid: none
 UNLISTED = {"pbd": set(), "dfsph": set(), "wcsph": set(),
-            "pbd_off": {"xsph"}, "dfsph_off": set(), "wcsph_off": set()}
+            "pbd_off": set(), "dfsph_off": set(), "wcsph_off": set()}
+# the pass the scene build hands the boundary index's slot list
+SCENE_LISTED = {"density"}
 
 
 @pytest.mark.parametrize("solver", list(LISTED))
@@ -159,7 +163,8 @@ def test_steps_hand_the_slot_list_to_the_particle_passes(solver):
     seen, want = _recorded_calls(name_of_solver, "parity", surface=not off)
     with_list = {name for name, _, islots in seen if islots is not None}
     assert with_list == LISTED[solver]
-    assert set.union(*LISTED.values()) == set(tpp.PARTICLE_PASSES)
+    assert set.union(*LISTED.values(), SCENE_LISTED) \
+        == set(tpp.PARTICLE_PASSES)
     for name, _, islots in seen:
         if name in tpp.PARTICLE_PASSES:
             assert islots is not None and torch.equal(islots, want), name
@@ -194,6 +199,79 @@ def test_pbd_slot_list_names_every_real_slot_of_the_projected_grid(mode):
     assert torch.equal(xsph_fl[:4], surf_fl[:4])
 
 
+def _custom_boundary():
+    """The small domain's walls, a 4x4x4 obstacle of boundary particles
+    inside it and three particles whose cells fall outside the grid."""
+    walls = T.boundary_positions(SMALL)
+    obstacle = T.block_positions((0.2, 0.1, 0.24), (4, 4, 4), SMALL.spacing)
+    outside = np.array([[-0.05, 0.2, 0.2], [0.2, 0.6, 0.2],
+                        [0.2, 0.2, 1.0]], np.float32)
+    return np.concatenate([walls, obstacle, outside]).astype(np.float32)
+
+
+# boundary scenes: (port config, JAX config, boundary positions)
+BOUNDARIES = {
+    "dam": lambda: (TCFG, JCFG, T.boundary_positions(TCFG)),
+    "custom": lambda: (SMALL, JSMALL, _custom_boundary()),
+}
+
+
+@pytest.mark.parametrize("which", list(BOUNDARIES))
+def test_scene_build_hands_density_the_boundary_slot_list(which):
+    """The scene build runs density on the boundary grid with the boundary
+    index's slot list: it names every real slot of that grid once, in an
+    interior cell, marks the particles outside the grid with the trash
+    value Kb*G, and equals the JAX package's index slots; the boundary
+    operand is the grid's zero-mass clone."""
+    cfg, jcfg, bpos = BOUNDARIES[which]()
+    kb = tds.boundary_k(bpos, cfg)
+    seen = []
+
+    def record(name, fl, bd, dims, dims_b, cfg, islots=None):
+        seen.append((name, fl, bd, dims, dims_b, islots))
+        return tpp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
+
+    scene = tds.build_dense_scene(cfg, bpos, kb, "cpu", executor=record)
+    (name, fl, bd, d, d_b, islots), = seen
+    assert name in SCENE_LISTED and d == d_b == tdense.dims_for(cfg, kb)
+    jslots = jdense.build_dense_index(jnp.asarray(bpos), jcfg,
+                                      jdense.dims_for(jcfg, kb)).slots
+    np.testing.assert_array_equal(islots.numpy(), np.asarray(jslots))
+    assert islots.dtype == torch.int64 and islots.is_contiguous()
+    kg = d.k * d.g
+    assert d.total == kg
+    valid = islots < kg
+    assert bool((islots[~valid] == kg).all())
+    assert int((~valid).sum()) == (3 if which == "custom" else 0)
+    listed = islots[valid]
+    assert bool((listed >= 0).all())
+    assert listed.unique().numel() == listed.numel()
+    cell = listed % d.g
+    x, y, z = cell // (d.gy * d.gz), (cell // d.gz) % d.gy, cell % d.gz
+    assert bool(((x > 0) & (x < d.gx - 1) & (y > 0) & (y < d.gy - 1)
+                 & (z > 0) & (z < d.gz - 1)).all())
+    real = torch.nonzero((fl[0] < tds.POS_GUARD).reshape(-1))[:, 0]
+    assert torch.equal(torch.sort(listed).values, real)
+    assert torch.equal(bd[:3], fl[:3]) and not bool(bd[3].any())
+    # the masses land on exactly the listed slots of the scene's grid
+    flat = scene.bd.reshape(4, -1)
+    assert torch.equal(torch.nonzero(flat[3])[:, 0],
+                       torch.sort(listed).values)
+
+
+def test_custom_scene_boundary_mass_matches_jax():
+    """The custom boundary's Akinci masses against the JAX package's scene
+    build, within rtol 2e-5 of the row max; positions bitwise."""
+    bpos = _custom_boundary()
+    kb = tds.boundary_k(bpos, SMALL)
+    got = tds.build_dense_scene(SMALL, bpos, kb, "cpu").bd.numpy()
+    want = np.asarray(jds.build_dense_scene(JSMALL, bpos, kb,
+                                            engine="xlab").bd)
+    np.testing.assert_array_equal(got[:3], want[:3])
+    np.testing.assert_allclose(got[3], want[3], rtol=2e-5,
+                               atol=2e-5 * np.abs(want[3]).max())
+
+
 def _operands():
     d = tdense.DenseDims(3, 3, 3, 2)
     fl = torch.zeros((9, d.k, d.g))   # the most rows a particle pass reads
@@ -217,8 +295,10 @@ def test_particle_wrapper_refuses_what_the_kernel_cannot_take():
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots[None], d, d,
                                TCFG)
     with pytest.raises(ValueError, match="no particle-list kernel"):
-        tcc.particle_pass_cuda("xsph", _operands()[0][:tpp.PASSES["xsph"].fi],
-                               None, islots, d, None, TCFG)
+        tcc.particle_pass_cuda(
+            "color_gradient",
+            _operands()[0][:tpp.PASSES["color_gradient"].fi], bd, islots, d,
+            d, TCFG)
     with pytest.raises(ValueError, match="not one of"):
         tcc.particle_pass_cuda("stiffness_accel", fl, bd, islots, d, d, TCFG,
                                lanes=4)
@@ -248,11 +328,12 @@ def test_variants_follow_the_sum_count():
             assert set(got) == every, name
         assert (tcc.default_lanes(name), tcc.default_reduction(name)) in got
     assert tpp.PASSES["density_alpha_colorgrad"].n_out == 9
-    # pressure_force's 3 sums pad to 4 and density_alpha's 5 to 8: each
-    # takes the transpose at every width, six variants
-    assert (tpp.PASSES["pressure_force"].n_out,
-            tpp.PASSES["density_alpha"].n_out) == (3, 5)
-    for name in ("pressure_force", "density_alpha"):
+    # pressure_force's and xsph's 3 sums pad to 4, density_alpha's 5 to 8
+    # and density's 1 stays 1: each takes the transpose at every width, six
+    # variants
+    assert [tpp.PASSES[n].n_out for n in ("pressure_force", "density_alpha",
+                                          "xsph", "density")] == [3, 5, 3, 1]
+    for name in ("pressure_force", "density_alpha", "xsph", "density"):
         assert len(tcc.variants(name)) == 6 and set(tcc.variants(name)) \
             == every, name
     assert set(tcc.variants("density_alpha_colorgrad")) == every - {
@@ -291,7 +372,9 @@ def test_particle_passes_require_the_slot_list(name):
                                     slice(None)),
         "density_visc": (tpp.density_visc_pass, slice(None)),
         "pressure_force": (tpp.pressure_force_pass, slice(None)),
-        "density_alpha": (tpp.density_alpha_pass, slice(None))}[name]
+        "density_alpha": (tpp.density_alpha_pass, slice(None)),
+        "xsph": (tpp.xsph_pass, slice(None)),
+        "density": (tpp.density_pass, 0)}[name]
     rows = tpp.PASSES[name].fi
     # a fluid-only pass function takes no boundary operand
     args = ((fl[:rows], bd, d, d) if tpp.PASSES[name].has_bd

@@ -1,10 +1,12 @@
 """The frame profiler's bookkeeping (cpp_fluid_particles_tpu_torch/exp/
-profile_frames.py) on the CPU: how it names a device event's kernel group
-and sums the device's busy time. The profile itself needs a card."""
+profile_frames.py) on the CPU: how it names a device event's kernel group,
+sums the device's busy time and builds the surface-off config. The profile
+itself needs a card."""
 
 import pytest
 import torch
 
+from cpp_fluid_particles_tpu_torch.config import dam_break_config
 from cpp_fluid_particles_tpu_torch.exp import profile_frames as pf
 
 torch.set_num_threads(2)
@@ -31,6 +33,10 @@ torch.set_num_threads(2)
      "particle_pressure_force"),
     ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
      "namespace)::DensityAlphaPass, 32, true>(...)", "particle_density_alpha"),
+    ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
+     "namespace)::XsphPass, 32, true>(...)", "particle_xsph"),
+    ("void (anonymous namespace)::particle_pass_kernel<(anonymous "
+     "namespace)::DensityPass, 32, false>(...)", "particle_density"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "
      "namespace)::DensityPass>(...)", "column_density"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "
@@ -55,3 +61,25 @@ def test_profile_needs_a_card():
         pytest.skip("a card is present: the profile would run")
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         pf.main(["--windows", "2", "--frames", "1"])
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_surface_flag_builds_the_surface_off_config(mode):
+    """--surface off is the dam's config in that mode with surface tension
+    and air pressure 0, so every step takes its surface-off passes;
+    --surface on (the default) is the config unchanged."""
+    on = pf.make_config(mode)
+    assert on == pf.make_config(mode, "on") == dam_break_config(mode)
+    assert on.surface_tension > on.epsilon or on.air_pressure > on.epsilon
+    off = pf.make_config(mode, "off")
+    assert off == on.replace(surface_tension=0.0, air_pressure=0.0)
+    assert not (off.surface_tension > off.epsilon
+                or off.air_pressure > off.epsilon)
+
+
+def test_surface_flag_parses_and_defaults_to_on():
+    ap = pf.build_argparser()
+    assert ap.parse_args([]).surface == "on"
+    assert ap.parse_args(["--surface", "off"]).surface == "off"
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--surface", "maybe"])
