@@ -92,6 +92,7 @@ struct Consts {
   float st_coef;    // 0.25 / rho0^2 * surface_tension
   float air_coef;   // air_pressure / rho0^2
   float pos_guard;  // POS_PAD / 2: a slot is real iff its x < pos_guard
+  float r2_cut;     // (h (1 + 1e-4))^2: no pair farther apart is in_support
 };
 
 constexpr int kThreads = 256;
@@ -666,6 +667,59 @@ struct DensityColorgradPass {
   }
 };
 
+// One candidate pair of every kernel below: i particle iv against slot tj
+// of f (row stride kg, row 0 already loaded as xj): the separation, its
+// length, and inside the support the functor's fluid or boundary terms.
+// Every kernel runs these float operations in this order. Most candidates
+// (over 80% on the dam) lie outside the support; the squared-distance test
+// turns them away before the square root and in_support's division.
+template <class P, bool kFluid>
+__device__ __forceinline__ void pair_terms(float* acc,
+                                           const typename P::I& iv,
+                                           const float* f, int64_t tj,
+                                           int64_t kg, float xj,
+                                           const Consts& c) {
+  const float dx = iv.x - xj;
+  const float dy = iv.y - f[kg + tj];
+  const float dz = iv.z - f[2 * kg + tj];
+  const float d2 = dx * dx + dy * dy + dz * dz;
+  // in_support needs r <= h (1 + 2^-23), so d2 <= h^2 (1 + 3 * 2^-23): a
+  // pair past r2_cut is rejected without its square root and division,
+  // and every other pair is tested exactly as before
+  if (!(d2 <= c.r2_cut)) return;
+  const float r = sqrtf(d2);
+  if (!in_support(r, c)) return;
+  if constexpr (kFluid)
+    P::fluid(acc, iv, f, tj, kg, dx, dy, dz, r, c);
+  else
+    P::bdry(acc, iv, f, tj, kg, dx, dy, dz, r, c);
+}
+
+// Neighbour cell cj of the grids in device memory (slot stride g): its
+// fluid slots up to the first padding slot (ranks fill a cell from slot 0),
+// then its boundary slots the same way.
+template <class P>
+__device__ __forceinline__ void walk_cell(float* acc, const typename P::I& iv,
+                                          const float* fl, const float* bd,
+                                          int64_t cj, int64_t g, int64_t kg,
+                                          int k, int64_t kbg, int kb,
+                                          const Consts& c) {
+  for (int s = 0; s < k; ++s) {
+    const int64_t tj = s * g + cj;
+    const float xj = fl[tj];
+    if (!(xj < c.pos_guard)) break;
+    pair_terms<P, true>(acc, iv, fl, tj, kg, xj, c);
+  }
+  if constexpr (P::kBoundary) {
+    for (int s = 0; s < kb; ++s) {
+      const int64_t tj = s * g + cj;
+      const float xj = bd[tj];
+      if (!(xj < c.pos_guard)) break;
+      pair_terms<P, false>(acc, iv, bd, tj, kbg, xj, c);
+    }
+  }
+}
+
 template <class P>
 __global__ void __launch_bounds__(kThreads)
     column_pass_kernel(const float* __restrict__ fl,
@@ -693,29 +747,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int o = 0; o < 27; ++o) {
       const int64_t cj =
           cell + (o / 9 - 1) * gyz + ((o % 9) / 3 - 1) * gz + (o % 3 - 1);
-      for (int s = 0; s < k; ++s) {
-        const int64_t tj = s * g + cj;
-        const float xj = fl[tj];
-        if (!(xj < c.pos_guard)) break;  // ranks fill slots from 0
-        const float dx = iv.x - xj;
-        const float dy = iv.y - fl[kg + tj];
-        const float dz = iv.z - fl[2 * kg + tj];
-        const float r = sqrtf(dx * dx + dy * dy + dz * dz);
-        if (in_support(r, c)) P::fluid(acc, iv, fl, tj, kg, dx, dy, dz, r, c);
-      }
-      if constexpr (P::kBoundary) {
-        for (int s = 0; s < kb; ++s) {
-          const int64_t tj = s * g + cj;
-          const float xj = bd[tj];
-          if (!(xj < c.pos_guard)) break;
-          const float dx = iv.x - xj;
-          const float dy = iv.y - bd[kbg + tj];
-          const float dz = iv.z - bd[2 * kbg + tj];
-          const float r = sqrtf(dx * dx + dy * dy + dz * dz);
-          if (in_support(r, c))
-            P::bdry(acc, iv, bd, tj, kbg, dx, dy, dz, r, c);
-        }
-      }
+      walk_cell<P>(acc, iv, fl, bd, cj, g, kg, k, kbg, kb, c);
     }
   }
 #pragma unroll
@@ -759,12 +791,13 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 // some 300-400 dependent load-and-test steps; a warp waits on its densest
 // lane. What bounds that kernel is the latency of the chain, not bytes or
 // operations (PERF.md section 6). Here the chain is about 27/W cells long.
-// What bounds the fourteen instances then is not measured; the likely bound
-// is their uncoalesced neighbour loads: 4 (density, pbd_lambda,
-// density_alpha_colorgrad, density_alpha), 5 (stiffness_accel), 6
-// (pressure_force), 7 (divergence, density_colorgrad_visc, xsph_colorgrad,
-// density_visc, viscosity, surface, xsph) or 9 (surface_pressure) rows per
-// candidate, gathered from scattered cells.
+// What bounds the fourteen instances then is not their neighbour loads
+// (4 to 9 rows per candidate, gathered from scattered cells): a kernel
+// that served pbd_lambda and stiffness_accel from shared memory staged
+// per tile of cells took about as long to serve the particles alone
+// (PERF.md, findings). The walk itself is the suspect: the pair
+// arithmetic, each lane walking whole cells while its warp waits on the
+// fullest.
 //
 // The three fluid-only instances (kBoundary false: viscosity, surface and
 // xsph, 3 sums each) take bd = nullptr and kb = 0 and walk the 27 fluid
@@ -884,29 +917,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int o = lane; o < 27; o += W) {
       const int64_t cj =
           cell + (o / 9 - 1) * gyz + ((o % 9) / 3 - 1) * gz + (o % 3 - 1);
-      for (int s = 0; s < k; ++s) {
-        const int64_t tj = s * g + cj;
-        const float xj = fl[tj];
-        if (!(xj < c.pos_guard)) break;  // ranks fill slots from 0
-        const float dx = iv.x - xj;
-        const float dy = iv.y - fl[kg + tj];
-        const float dz = iv.z - fl[2 * kg + tj];
-        const float r = sqrtf(dx * dx + dy * dy + dz * dz);
-        if (in_support(r, c)) P::fluid(acc, iv, fl, tj, kg, dx, dy, dz, r, c);
-      }
-      if constexpr (P::kBoundary) {
-        for (int s = 0; s < kb; ++s) {
-          const int64_t tj = s * g + cj;
-          const float xj = bd[tj];
-          if (!(xj < c.pos_guard)) break;
-          const float dx = iv.x - xj;
-          const float dy = iv.y - bd[kbg + tj];
-          const float dz = iv.z - bd[2 * kbg + tj];
-          const float r = sqrtf(dx * dx + dy * dy + dz * dz);
-          if (in_support(r, c))
-            P::bdry(acc, iv, bd, tj, kbg, dx, dy, dz, r, c);
-        }
-      }
+      walk_cell<P>(acc, iv, fl, bd, cj, g, kg, k, kbg, kb, c);
     }
   }
 
@@ -1072,11 +1083,7 @@ __global__ void __launch_bounds__(kFlatThreads)
         const int nj = occ[hj];
         for (int sj = 0; sj < nj; ++sj) {
           const int64_t tj = static_cast<int64_t>(sj) * nh + hj;
-          const float dx = iv.x - sm[tj];
-          const float dy = iv.y - sm[kh + tj];
-          const float dz = iv.z - sm[2 * kh + tj];
-          const float r = sqrtf(dx * dx + dy * dy + dz * dz);
-          if (in_support(r, c)) P::fluid(acc, iv, sm, tj, kh, dx, dy, dz, r, c);
+          pair_terms<P, true>(acc, iv, sm, tj, kh, sm[tj], c);
         }
       }
     }
@@ -1208,49 +1215,39 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto run = [&](auto pass) {
+    return launch_lanes<decltype(pass)>(
+        lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+  };
   switch (pass_id) {
     case 0:
-      return launch_lanes<DensityPass>(lanes, reduction, fl, bd, islots, out,
-                                       n, k, kb, gx, gy, gz, c, s);
+      return run(DensityPass{});
     case 1:
-      return launch_lanes<DensityColorgradViscPass>(
-          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+      return run(DensityColorgradViscPass{});
     case 2:
-      return launch_lanes<SurfacePressurePass>(
-          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+      return run(SurfacePressurePass{});
     case 3:
-      return launch_lanes<DensityAlphaColorgradPass>(
-          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+      return run(DensityAlphaColorgradPass{});
     case 4:
-      return launch_lanes<DivergencePass>(lanes, reduction, fl, bd, islots,
-                                          out, n, k, kb, gx, gy, gz, c, s);
+      return run(DivergencePass{});
     case 5:
-      return launch_lanes<StiffnessAccelPass>(
-          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+      return run(StiffnessAccelPass{});
     case 6:
-      return launch_lanes<ViscosityPass>(lanes, reduction, fl, bd, islots,
-                                         out, n, k, kb, gx, gy, gz, c, s);
+      return run(ViscosityPass{});
     case 7:
-      return launch_lanes<SurfacePass>(lanes, reduction, fl, bd, islots, out,
-                                       n, k, kb, gx, gy, gz, c, s);
+      return run(SurfacePass{});
     case 8:
-      return launch_lanes<DensityAlphaPass>(lanes, reduction, fl, bd, islots,
-                                            out, n, k, kb, gx, gy, gz, c, s);
+      return run(DensityAlphaPass{});
     case 9:
-      return launch_lanes<DensityViscPass>(lanes, reduction, fl, bd, islots,
-                                           out, n, k, kb, gx, gy, gz, c, s);
+      return run(DensityViscPass{});
     case 10:
-      return launch_lanes<PressureForcePass>(
-          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+      return run(PressureForcePass{});
     case 11:
-      return launch_lanes<PbdLambdaPass>(lanes, reduction, fl, bd, islots,
-                                         out, n, k, kb, gx, gy, gz, c, s);
+      return run(PbdLambdaPass{});
     case 12:
-      return launch_lanes<XsphColorgradPass>(
-          lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
+      return run(XsphColorgradPass{});
     case 13:
-      return launch_lanes<XsphPass>(lanes, reduction, fl, bd, islots, out, n,
-                                    k, kb, gx, gy, gz, c, s);
+      return run(XsphPass{});
     default:
       return cudaErrorInvalidValue;
   }

@@ -230,7 +230,7 @@ def _consts(cfg: SimConfig):
     vals = [h, kn.EPS, cfg.epsilon, PI, 0.25 / (PI * h * h * h), h ** 5,
             PI * h ** 6, PI * h ** 9, 0.0156 * h ** 6, cfg.rho0,
             cfg.rho_boundary, 0.25 / rho0sq * cfg.surface_tension,
-            cfg.air_pressure / rho0sq, POS_PAD / 2.0]
+            cfg.air_pressure / rho0sq, POS_PAD / 2.0, (h * (1 + 1e-4)) ** 2]
     return (ctypes.c_float * len(vals))(*vals)
 
 

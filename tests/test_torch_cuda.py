@@ -240,6 +240,46 @@ def test_particle_passes_on_the_card_need_the_slot_list(operands, name):
                               reduction="tree")
 
 
+def _no_r2_cut(monkeypatch):
+    """From here on the wrappers hand the kernels r2_cut = +inf, so every
+    candidate pair reaches the square root and in_support, as it did
+    before the kernels turned pairs past r2_cut away early."""
+    consts = cc._consts
+
+    def uncut(cfg):
+        vals = consts(cfg)
+        vals[len(vals) - 1] = float("inf")
+        return vals
+    monkeypatch.setattr(cc, "_consts", uncut)
+
+
+@pytest.mark.parametrize("name", list(cc.PASS_IDS))
+def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
+    """The squared-distance early-out rejects only pairs that in_support
+    rejects too, and runs the same float operations on the others: the
+    column kernel, and the particle-list kernel at every (width,
+    reduction) of the pass, give bitwise the same output with r2_cut as
+    with +inf."""
+    _, fl, bd, dims, dims_b, islots = operands[name]
+
+    def run_all():
+        outs = [cc.column_pass_cuda(name, fl, bd, dims, dims_b, CFG)]
+        if name in pp.PARTICLE_PASSES:
+            outs += [cc.particle_pass_cuda(name, fl, bd, islots, dims,
+                                           dims_b, CFG, lanes=lanes,
+                                           reduction=red)
+                     for lanes, red in cc.variants(name)]
+        torch.cuda.synchronize()
+        return outs
+    cut = run_all()
+    _no_r2_cut(monkeypatch)
+    uncut = run_all()
+    assert len(cut) == 1 + (len(cc.variants(name))
+                            if name in pp.PARTICLE_PASSES else 0)
+    for a, b in zip(cut, uncut):
+        assert torch.equal(a, b)
+
+
 def _scene_built_once():
     """The Simulation's constructor built its scene once: the particle-list
     density launched once, the column kernel's density never (nor any
@@ -511,6 +551,24 @@ def test_flat_kernel_on_every_brick_is_bitwise_equal(flat_state, body):
     assert [tuple(r["brick"]) for r in ladder] == list(cc.BRICKS)
     assert all(r["ms"] > 0 and r["busy_bricks"] <= r["bricks"]
                for r in ladder)
+
+
+@pytest.mark.parametrize("body", list(cc.FLAT_IDS))
+def test_flat_r2_cut_changes_no_bit(flat_state, monkeypatch, body):
+    """The brick kernel and the untiled kernel give bitwise the same
+    output with r2_cut as with +inf (test_r2_cut_changes_no_bit)."""
+    fl, dims = fp.build_grid(*flat_state, CFG)
+    x = fp.operand(body, fl)
+
+    def run_both():
+        outs = [cc.flat_pass_cuda(body, x, dims, CFG, tiled=t)
+                for t in (True, False)]
+        torch.cuda.synchronize()
+        return outs
+    cut = run_both()
+    _no_r2_cut(monkeypatch)
+    for a, b in zip(cut, run_both()):
+        assert torch.equal(a, b)
 
 
 def test_flat_wrapper_checks_the_brick(flat_state):

@@ -23,6 +23,7 @@ the card (tests/test_torch_cuda.py).
 """
 
 import functools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -386,3 +387,31 @@ def test_particle_passes_require_the_slot_list(name):
     bd_plain, d_b = (bd, d) if tpp.PASSES[name].has_bd else (None, None)
     assert torch.equal(out, tpp.column_pass_plain(name, fl[:rows], bd_plain,
                                                   d, d_b, TCFG)[rows_out])
+
+
+def test_consts_fill_the_kernel_struct():
+    """``_consts`` hands the kernel one float per field of
+    csrc/column_pass.cu's ``Consts``; the last, r2_cut, is the pair step's
+    squared-distance cut."""
+    body = re.search(r"struct Consts \{(.*?)\};", tcc.SOURCE.read_text(),
+                     re.S).group(1)
+    fields = re.findall(r"^\s*float (\w+);", body, re.M)
+    assert len(tcc._consts(TCFG)) == len(fields)
+    assert fields[-1] == "r2_cut"
+
+
+@pytest.mark.parametrize("radius", [0.04, 0.02, 0.05, 0.0173])
+def test_r2_cut_turns_away_no_pair_in_support(radius):
+    """The kernels' pair step drops a pair with d2 > r2_cut before its
+    square root and ``in_support``. In float32, as the kernel computes,
+    the smallest d2 past the cut already has its root outside
+    ``in_support`` (so every larger d2 does: the root is monotone), and
+    the cut lies within 3e-4 of h^2, so it still drops nearly every pair
+    outside the support."""
+    c = np.asarray(list(tcc._consts(T.dam_break_config(radius=radius))),
+                   np.float32)
+    h, r2_cut, two = c[0], c[-1], np.float32(2.0)
+    r = np.sqrt(np.nextafter(r2_cut, np.float32(np.inf)))
+    assert r.dtype == np.float32
+    assert not (two * r / h <= two or r <= h)
+    assert h * h < r2_cut <= h * h * np.float32(1.0003)
