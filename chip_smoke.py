@@ -16,9 +16,11 @@ each with the launch counts reset just before it and read just after:
 WCSPH, DFSPH and PBD for 300 frames each at the reference benchmark's dt,
 PBD in its default fast mode as ``Simulation(device="cuda")`` builds it,
 and the three solvers with surface effects off for a short run, then
-the flat-grid prototype's entry point with its brick-tiled kernel, and
-last the README's first command through the port's ``simulate`` CLI.
-Phases:
+the flat-grid prototype's entry point with its brick-tiled kernel, the
+README's first command through the port's ``simulate`` CLI, and last the
+README's multi-GPU recipe, the 1,000,000-particle DFSPH scene on an
+x-slab mesh of ranks (each a process of ``exp/mesh_run.py``), held
+bitwise to the single-device run. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of the kernels, seconds taken, and ptxas's
@@ -104,6 +106,28 @@ Phases:
               pixels over 1e-3, the others within 1e-5), the render's ms
               per call at 700 px, the CLI's ms/frame and the GIF encoder
               that ran
+  9. mesh     the README's multi-GPU recipe: ``scaled_dam_scene(1_000_000)``
+              with DFSPH (fast mode) for 3 frames through
+              ``Simulation(mesh=...)``, each rank a process of
+              ``exp/mesh_run.py`` under the environment contract, (a) on
+              2 ranks over gloo sharing cuda:0 (the real ghost-plane
+              exchange), (b) on 1 rank over NCCL (its set-up and every
+              collective but the exchange, which one rank never makes),
+              (c) on one rank per GPU over NCCL where more than one GPU is
+              visible (else it says why it did not run); and the dam for
+              WCSPH and PBD parity, 100 frames each, under (a) (the
+              collapsing column makes PBD's projection run all 20
+              iterations in the later frames). Every rank
+              of every run is held to a single-device run of the same
+              frames: positions, velocities and density bitwise, every
+              frame's metrics (iterations, host syncs, error sums,
+              capacity) and the retries equal, and every kernel of its
+              path launched (particle_density: the scene build's), none of
+              the column kernel. Per rank: launches, exchanges and their
+              bytes, all-reduces and all-gathers per frame run, what gloo
+              staged through host memory, ms/frame (CUDA events; under (a)
+              two ranks share one card, so it is no scaling figure); and
+              each run's wall seconds
 
 A pass's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s (float32, H100 SXM data sheet), both counted on
@@ -123,9 +147,12 @@ line. JAX is not imported. Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import os
 import re
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -135,6 +162,21 @@ FRAMES = 300
 OFF_FRAMES = 50          # the surface-off runs of phase 5e
 APP_STEPS, APP_EVERY = 100, 4   # phase 8: the CLI's GIF run
 APP_PNG_STEPS = 50              # phase 8: the CLI's PNG run
+# phase 9: the README's multi-GPU recipe at full size, and the dam
+MESH_1M = "dfsph-fast:scaled1000000:3"
+MESH_DAM = ("wcsph:dam:100", "pbd:dam:100")
+MESH_TIMEOUT = 420       # seconds for one run of the per-rank entry point
+# the particle-list kernels each solver's mesh path must launch on every
+# rank (particle_density: the scene build's)
+MESH_KERNELS = {
+    "dfsph": ("particle_density", "particle_density_alpha_colorgrad",
+              "particle_divergence", "particle_stiffness_accel",
+              "particle_viscosity", "particle_surface"),
+    "wcsph": ("particle_density", "particle_density_colorgrad_visc",
+              "particle_surface_pressure"),
+    "pbd": ("particle_density", "particle_pbd_lambda",
+            "particle_stiffness_accel", "particle_xsph_colorgrad",
+            "particle_surface")}
 CHUNK = 25
 STEP_POS_ATOL = 2e-6
 STEP_VEL_ATOL = 2e-3
@@ -965,6 +1007,170 @@ def app_phase(cfp, ds, cc, torch, card):
     return {"runs": runs, "gif_encoder": encoder}
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_ranks(tag, cases, ranks, device, backend, out_dir, data_dir):
+    """``exp/mesh_run.py`` on ``ranks`` processes under the environment
+    contract (ranks 0: one process without a mesh) -> (each rank's
+    results, wall seconds). ``device(rank)`` is the rank's device; each
+    rank's log goes to ``out_dir``, its results (tens of MB at 1M) to
+    ``data_dir``. Every process is stopped before this returns; a rank
+    that fails stops all."""
+    from cpp_fluid_particles_tpu_torch.exp import mesh_run
+    n, port, procs = max(ranks, 1), free_port(), []
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            env = dict(os.environ, PYTHONPATH=str(ROOT),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_SIZE=str(n), RANK=str(r), LOCAL_RANK=str(r))
+            argv = [sys.executable, "-m",
+                    "cpp_fluid_particles_tpu_torch.exp.mesh_run", "--out",
+                    str(data_dir / f"{tag}_{r}.npz"), "--device", device(r)]
+            argv += ["--single"] if ranks == 0 else ["--backend", backend]
+            with open(out_dir / f"{tag}_{r}.log", "w") as f:
+                procs.append(subprocess.Popen(
+                    argv + list(cases), env=env, cwd=str(ROOT), stdout=f,
+                    stderr=subprocess.STDOUT))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > MESH_TIMEOUT:
+                raise AssertionError(f"[mesh] {tag}: no end within "
+                                     f"{MESH_TIMEOUT} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (out_dir / f"{tag}_{r}.log").read_text()[-4000:]
+            raise AssertionError(f"[mesh] {tag} rank {r} exited "
+                                 f"{p.returncode}:\n{tail}")
+    return [mesh_run.load(str(data_dir / f"{tag}_{r}.npz"))
+            for r in range(n)], wall
+
+
+def same_as_single(ref, got, tag):
+    """A rank's result of a case against the single-device one: bitwise
+    state, equal metrics every frame, equal retries and capacity."""
+    import numpy as np
+    m, want = got["meta"], ref["meta"]
+    for key in ("pos", "vel", "density"):
+        a = np.ascontiguousarray(got[key]).view(np.int32)
+        b = np.ascontiguousarray(ref[key]).view(np.int32)
+        if not np.array_equal(a, b):
+            raise AssertionError(
+                f"[mesh] {tag} {m['case']} rank {m['rank']}: {key} differs "
+                f"from the single-device run in {int((a != b).sum())} words")
+    for key in ("metrics", "retries", "capacity", "dropped_frames"):
+        if m[key] != want[key]:
+            raise AssertionError(f"[mesh] {tag} {m['case']} rank "
+                                 f"{m['rank']}: {key} {m[key]} != "
+                                 f"single-device {want[key]}")
+
+
+def mesh_launches(res, tag):
+    """Every kernel of the case's path launched on this rank; no column
+    kernel."""
+    m = res["meta"]
+    solver = m["case"].split(":")[0].split("-")[0]
+    missing = [k for k in MESH_KERNELS[solver] if not m["launches"].get(k)]
+    column = {k: v for k, v in m["launches"].items()
+              if not k.startswith("particle_") and v}
+    if missing or column:
+        raise AssertionError(f"[mesh] {tag} {m['case']} rank {m['rank']}: "
+                             f"not launched {missing}, column kernel "
+                             f"{column}")
+
+
+def mesh_line(tag, res, note=""):
+    """One rank's line: scene, capacity, slab, launches, collectives per
+    frame run, iterations, ms/frame."""
+    from cpp_fluid_particles_tpu_torch.parallel.mesh import plane_split
+    m = res["meta"]
+    runs = 1 + m["frames"] + m["retries"]   # warm-up and re-runs included
+    k, box = m["capacity"][-1]
+    h = m["halo"]
+    launches = {key[len("particle_"):]: v for key, v in
+                sorted(m["launches"].items()) if v}
+    iters = {key: [f.get(key) for f in m["metrics"]]
+             for key in ITER_KEYS if key in m["metrics"][0]}
+    slab = (f"planes {plane_split(box[0], m['ranks'])[m['rank']]} of "
+            f"{box[0]}" if m["backend"] else "the whole box")
+    return (f"{tag} {m['case']} rank {m['rank']}/{m['ranks']} "
+            f"({m['backend'] or 'one device'} on {m['device']}): "
+            f"{m['fluid']:,} fluid + {m['boundary']:,} boundary, K {k}, box "
+            f"{box}, {slab}, retries {m['retries']}; particle-list launches "
+            f"{launches}; per frame run: exchanges "
+            f"{h.get('exchanges', 0) / runs:.2f} "
+            f"({h.get('exchange_bytes', 0) / runs / 1e6:.3f} MB sent), "
+            f"all-reduces {h.get('all_reduce', 0) / runs:.2f} "
+            f"({h.get('all_reduce_bytes', 0) / runs / 1e6:.3f} MB), "
+            f"all-gathers {h.get('all_gather', 0) / runs:.2f} "
+            f"({h.get('all_gather_bytes', 0) / runs / 1e6:.3f} MB); staged "
+            f"through host memory: {m['staged'] or 'nothing'}; iterations "
+            f"{iters}; {sum(m['ms']) / m['frames']:.3f} ms/frame (CUDA "
+            f"events{note}); {m['wall_s']:.1f} s in the process")
+
+
+def mesh_phase(torch, card):
+    """Phase 9: the mesh runs (a), (b) and (c) against the single-device
+    run of the same cases."""
+    out_dir = ROOT / "chiprun_out" / "mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as data:
+        return _mesh_phase(torch, card, out_dir, Path(data))
+
+
+def _mesh_phase(torch, card, out_dir, data_dir):
+    t0 = time.perf_counter()
+    cases = (MESH_1M,) + MESH_DAM
+    (ref,), wall = mesh_ranks("single", cases, 0, lambda r: "cuda:0", None,
+                              out_dir, data_dir)
+    record = {"single": {"wall_s": wall, "meta": [r["meta"] for r in ref]}}
+    for res in ref:
+        mesh_launches(res, "single")
+        log("mesh", mesh_line("single", res))
+    log("mesh", f"single-device runs: {wall:.1f} s wall | {card}")
+    ngpu = torch.cuda.device_count()
+    runs = [("a", cases, 2, lambda r: "cuda:0", "gloo",
+             "; 2 ranks sharing one card: not a scaling figure"),
+            ("b", (MESH_1M,), 1, lambda r: "cuda", "nccl", "")]
+    if ngpu > 1:
+        runs.append(("c", (MESH_1M,), ngpu, lambda r: "cuda", "nccl",
+                     f"; {ngpu} ranks, one per GPU"))
+    for tag, cs, ranks, device, backend, note in runs:
+        got, wall = mesh_ranks(tag, cs, ranks, device, backend, out_dir,
+                               data_dir)
+        for rank_res in got:
+            for res in rank_res:
+                same_as_single(ref[cases.index(res["meta"]["case"])], res,
+                               tag)
+                mesh_launches(res, tag)
+                log("mesh", mesh_line(f"({tag})", res, note) + " | bitwise "
+                    "equal to the single-device run, metrics equal")
+        log("mesh", f"({tag}) {ranks} rank(s) over {backend}: {wall:.1f} s "
+            f"wall | {card}")
+        record[tag] = {"wall_s": wall,
+                       "meta": [[r["meta"] for r in rank_res]
+                                for rank_res in got]}
+    if ngpu <= 1:
+        log("mesh", f"(c) one rank per GPU over NCCL did not run: "
+            f"{ngpu} GPU visible, and NCCL refuses two ranks on one GPU")
+    record["c_ran"] = ngpu > 1
+    record["wall_s"] = time.perf_counter() - t0
+    log("mesh", f"phase wall {record['wall_s']:.1f} s | {card}")
+    return record
+
+
 def kernel_row(name, paths, owner, errs, times, pp):
     """The kernels-table row of pass ``name``. The PARTICLE_PASSES give the
     particle-list kernel that their paths run: its launches, errors and ms
@@ -1166,6 +1372,9 @@ def main() -> int:
 
     # 8. app: the simulate CLI on the card
     record["app"] = app_phase(cfp, ds, cc, torch, card)
+
+    # 9. mesh: the README's multi-GPU recipe through Simulation(mesh=...)
+    record["mesh"] = mesh_phase(torch, card)
 
     record["paths"], record["times"], record["errors"] = paths, times, errs
     owner = {"density": "wcsph", "density_colorgrad_visc": "wcsph",

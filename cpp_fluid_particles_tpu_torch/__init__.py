@@ -7,10 +7,12 @@ wrote in Pallas (the neighbor pass and the flat-grid prototype's pass of
 exp/flat_pallas_proto.py) are hand-written CUDA kernels for Hopper
 (csrc/column_pass.cu), built with nvcc on first use. This package imports
 neither jax nor the JAX package. It runs the three solvers (WCSPH, DFSPH
-and PBD, the default) on the sliding-box engine (see ROADMAP.md for what
-comes next).
+and PBD, the default) on the sliding-box engine, on one device or, with
+``Simulation(mesh=parallel.make_mesh())``, on an x-slab mesh of one
+process per rank (see ROADMAP.md for what comes next).
 """
 
+from . import parallel
 from .config import BENCH_DT, SimConfig, dam_break_config
 from .simulation import SOLVERS, Simulation, resolve_solver
 from .state import (

@@ -6,7 +6,7 @@ that package's ``__init__``, which imports jax. Every field and default must
 stay equal to the JAX package's (tests/test_torch_state_config.py), so a
 checkpoint's config round-trips between the two packages. Fields that steer
 machinery the port does not have yet (``box_fill``, ``occupancy_split``,
-``skip_empty_boundary``, ``halo_comm``, ...) are kept for that reason; their
+``skip_empty_boundary``, ...) are kept for that reason; their
 comments below describe the JAX package.
 
 (reference: src/main.cpp:54-67 file-scope consts, src/DFSPHSolver.h:27-30 and
@@ -202,6 +202,10 @@ class SimConfig:
     # "gspmd" always uses GSPMD inference (per-offset permutes and
     # grid-sized all-gathers — the round-3 path, kept as the differential
     # oracle); "shard_map" asserts the halo engine is used.
+    # In the port, "auto" and "shard_map" both select its x-slab engine
+    # (parallel/halo.py: one ghost-plane exchange per pass, N-sized traffic
+    # at the particle<->grid boundary), and "gspmd" raises
+    # NotImplementedError: PyTorch has no GSPMD.
     halo_comm: str = "auto"
 
     # --- execution engine ---

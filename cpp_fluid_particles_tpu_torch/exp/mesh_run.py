@@ -1,0 +1,179 @@
+"""One rank of an x-slab mesh run, or the single-device run it is held to.
+
+    python -m cpp_fluid_particles_tpu_torch.exp.mesh_run --out OUT.npz \\
+        [--device cpu|cuda|cuda:N] [--backend gloo|nccl] [--single] \\
+        CASE [CASE ...]
+
+A CASE is ``solver:scene:frames``: solver ``wcsph``, ``dfsph`` or ``pbd``,
+with ``-fast`` for the config's fast mode (parity otherwise); scene
+``block`` (the 6x6x6 block of the JAX package's mesh tests in a 13-cell
+domain), ``splash`` (that block stretched upwards, its top layer at 28 m/s, so the
+box refits within a few frames), ``floor`` (a jittered 7x7x7 block
+resting on the floor with random velocities: real work for the solvers'
+loops), ``dam`` (the 20,736-particle dam) or
+``scaled<N>`` (``scaled_dam_scene(N)``, the README's multi-GPU recipe at
+N = 1000000). Each case runs ``Simulation(solver, cfg, fluid_pos,
+device, mesh)`` frame by frame at the config's dt.
+
+Without ``--single`` the process is one rank under the environment
+contract of ``parallel.distributed`` (``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``; ``torchrun`` sets them), and a
+process group is made even for one rank; ``--single`` runs without a mesh.
+Each rank writes its own ``OUT.npz``: per case the final ``pos``, ``vel``
+and ``density``, and a JSON record (``meta``) of every frame's metrics,
+the retries, K and box, ms per frame (CUDA events on a card), the
+particle-list kernel's launch counts, and the exchanges, their bytes and
+the other collectives of ``parallel.halo``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import dam_break_config
+from ..ops import column_pass_cuda as cc
+from ..parallel import distributed, halo
+from ..parallel.mesh import make_mesh
+from ..simulation import Simulation
+from ..state import block_positions, dam_break_positions, scaled_dam_scene
+
+SOLVERS = ("wcsph", "dfsph", "pbd")
+SPLASH_SPEED = 28.0      # m/s upwards at the block's top
+
+
+def scene(name: str, mode: str, seed: int = 0):
+    """-> (cfg, fluid positions, initial velocities or None)."""
+    if name in ("block", "splash", "floor"):
+        cfg = dam_break_config(mode=mode, space_size=(0.52, 0.52, 0.52),
+                               max_active_cells=1024, max_per_cell=16)
+        rng = np.random.default_rng(seed)
+        if name == "floor":
+            pos = block_positions((0.16, 0.006, 0.16), (7, 7, 7),
+                                  cfg.spacing)
+            pos = pos + rng.uniform(-0.002, 0.002, pos.shape)
+            return (cfg, pos.astype(np.float32),
+                    rng.normal(0.0, 0.3, pos.shape).astype(np.float32))
+        pos = block_positions((0.16, 0.10, 0.16), (6, 6, 6), cfg.spacing)
+        if name == "block":
+            return cfg, pos, None
+        y = pos[:, 1]
+        vel = rng.normal(0.0, 0.2, pos.shape)
+        vel[:, 1] += SPLASH_SPEED * (y - y.min()) / (y.max() - y.min())
+        return cfg, pos, vel.astype(np.float32)
+    if name == "dam":
+        cfg = dam_break_config(mode=mode)
+        return cfg, dam_break_positions(cfg), None
+    if name.startswith("scaled"):
+        cfg, pos = scaled_dam_scene(int(name[len("scaled"):]), mode=mode)
+        return cfg, pos, None
+    raise ValueError(f"unknown scene {name!r}")
+
+
+def parse_case(case: str):
+    """'solver[-fast]:scene:frames' -> (solver, mode, scene, frames)."""
+    solver, name, frames = case.split(":")
+    mode = "parity"
+    if solver.endswith("-fast"):
+        solver, mode = solver[:-len("-fast")], "fast"
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r} in case {case!r}")
+    return solver, mode, name, int(frames)
+
+
+def run_case(case: str, device, mesh=None, seed: int = 0) -> dict:
+    """Run one case -> {"pos", "vel", "density": numpy arrays, "meta": a
+    JSON-able record}."""
+    solver, mode, name, frames = parse_case(case)
+    cfg, pos, vel = scene(name, mode, seed)
+    cc.reset_launch_counts()
+    halo.reset_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(solver=solver, cfg=cfg, fluid_pos=pos, device=device,
+                     mesh=mesh)
+    if vel is not None:
+        v = torch.as_tensor(vel, device=sim.device)
+        sim.state = sim.state._replace(vel=v)
+        if solver == "pbd":
+            # PBD's velocity is the last frame's position delta
+            sim.carry = sim.carry._replace(pos_last=sim.state.pos - cfg.dt * v)
+    metrics, ms, caps = [], [], []
+    for _ in range(frames):
+        ms.append(sim.step())
+        metrics.append({k: v.tolist() for k, v in sim.metrics.items()})
+        caps.append([sim.max_per_cell, list(sim.box)])
+    if sim.device.type == "cuda":
+        torch.cuda.synchronize(sim.device)
+    meta = {
+        "case": case, "rank": mesh.rank if mesh else 0,
+        "ranks": mesh.size if mesh else 1,
+        "backend": mesh.backend if mesh else None, "device": str(sim.device),
+        "fluid": sim.fluid_size, "boundary": sim.boundary_size,
+        "frames": frames, "retries": sim.retries,
+        "dropped_frames": sim.dropped_frames, "capacity": caps,
+        "metrics": metrics, "ms": ms, "wall_s": time.perf_counter() - t0,
+        "launches": dict(cc.LAUNCHES),
+        "halo": dict(halo.COUNTS), "staged": sorted(halo.STAGED)}
+    st = sim.state
+    return {"pos": st.pos.cpu().numpy(), "vel": st.vel.cpu().numpy(),
+            "density": st.density.cpu().numpy(), "meta": meta}
+
+
+def save(path: str, results) -> None:
+    arrays = {}
+    for i, r in enumerate(results):
+        for key in ("pos", "vel", "density"):
+            arrays[f"c{i}_{key}"] = r[key]
+    arrays["meta"] = np.asarray(json.dumps([r["meta"] for r in results]))
+    np.savez(path, **arrays)
+
+
+def load(path: str):
+    """-> the list of results that ``save`` wrote."""
+    with np.load(path) as z:
+        metas = json.loads(str(z["meta"]))
+        return [dict(meta=m, **{key: z[f"c{i}_{key}"]
+                                for key in ("pos", "vel", "density")})
+                for i, m in enumerate(metas)]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("cases", nargs="+")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default=None,
+                    help="gloo or nccl (default: nccl on a card, else gloo)")
+    ap.add_argument("--single", action="store_true",
+                    help="run on one device without a mesh")
+    args = ap.parse_args(argv)
+    mesh = None
+    if not args.single:
+        distributed.ensure_initialized(
+            backend=args.backend, world_size=int(os.environ["WORLD_SIZE"]),
+            rank=int(os.environ["RANK"]))
+        mesh = make_mesh(device=args.device)
+    try:
+        results = [run_case(c, mesh.device if mesh else args.device, mesh)
+                   for c in args.cases]
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+    save(args.out, results)
+    for r in results:
+        m = r["meta"]
+        print(f"[mesh_run] {m['case']} rank {m['rank']}/{m['ranks']} "
+              f"{m['backend'] or 'single'} on {m['device']}: "
+              f"{m['frames']} frames, retries {m['retries']}, "
+              f"{sum(m['ms']) / max(m['frames'], 1):.3f} ms/frame, "
+              f"halo {m['halo']}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

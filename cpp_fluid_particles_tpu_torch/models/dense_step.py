@@ -21,10 +21,18 @@ the JAX package (``lax.while_loop``). Here the host drives them: each loop
 condition reads the iteration's error sum (DFSPH, as the reference does
 with its ``thrust::reduce``, src/DFSPHSolver.cu:206,360) or its ``alive``
 flag (PBD) back to the host, one sync per iteration.
+
+Under a mesh (``parallel.spatial_sharding``) each step runs on this rank's
+x-slab of the box (parallel/halo.py): the same replicated state and box
+index on every rank, the fill, passes and read on the rank's window, one
+ghost-plane exchange before every pass (ops/passes.py), and every value the
+host decides on (DFSPH's error sums, PBD's exit flags, the boundary touch
+count) reduced so that it is bitwise the single-device value.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -36,6 +44,8 @@ from ..ops import passes as pp
 from ..ops.dense import (DenseDims, build_dense_index, dims_for, fill_dense,
                          read_dense)
 from ..ops.grid import POS_PAD
+from ..parallel import halo
+from ..parallel.mesh import current_mesh
 from ..state import FluidState
 from . import dfsph as dfsph_mod
 from . import pbd as pbd_mod
@@ -46,26 +56,75 @@ POS_GUARD = POS_PAD / 2.0
 
 
 class Layout(NamedTuple):
-    """The sliding-box grid layout of one step."""
+    """The sliding-box grid layout of one step: the whole box, or under a
+    mesh this rank's x-slab of it (parallel/halo.py)."""
 
-    idx: bx.BoxIndex
+    idx: bx.BoxIndex         # the whole box's index (the same on every rank)
+    islots: torch.Tensor     # (N,) slot list of this rank's grid
     fill: Callable           # (fields, fills) -> stacked grid tensor
     read: Callable           # grid tensor -> (F, N)
-    dims: DenseDims          # box dims for the fluid passes
-    dims_b: DenseDims        # box dims for the boundary window
-    bd: torch.Tensor         # boundary window (4, Kb, GB)
+    dims: DenseDims          # grid dims for the fluid passes
+    dims_b: DenseDims        # grid dims for the boundary window
+    bd: torch.Tensor         # boundary window (4, Kb, G)
+    slab: Optional[halo.Slab]  # this rank's slab, None on one device
 
 
 def _layout(pos, cfg, dims, dims_b, scene_d, box) -> Layout:
     bdims = DenseDims(box[0], box[1], box[2], dims.k)
     bdims_b = DenseDims(box[0], box[1], box[2], dims_b.k)
     idx = bx.build_box_index(pos, cfg, dims, bdims)
-    bdx = bx.slice_boundary_box(scene_d.bd, dims, bdims, idx.origin)
+    slab = halo.current_slab()
+    if slab is None:
+        bdx = bx.slice_boundary_box(scene_d.bd, dims, bdims, idx.origin)
+        return Layout(
+            idx=idx, islots=idx.slots,
+            fill=lambda fields, fills: bx.fill_box(idx, fields, fills,
+                                                   bdims),
+            read=lambda arr: bx.read_box(idx, arr),
+            dims=bdims, dims_b=bdims_b, bd=bdx, slab=None)
+    # every rank built the same index from the same state; it fills,
+    # passes and reads its own particles on its window
+    islots, ldims, ldims_b, bdx = bx.slab_window(idx, scene_d.bd, dims,
+                                                 bdims, bdims_b, slab)
     return Layout(
-        idx=idx,
-        fill=lambda fields, fills: bx.fill_box(idx, fields, fills, bdims),
-        read=lambda arr: bx.read_box(idx, arr),
-        dims=bdims, dims_b=bdims_b, bd=bdx)
+        idx=idx, islots=islots,
+        fill=lambda fields, fills: bx.fill_box(idx._replace(slots=islots),
+                                               fields, fills, ldims),
+        read=lambda arr: torch.where(
+            idx.valid[None, :], halo.read_sharded(arr, islots, slab.mesh),
+            0.0),
+        dims=ldims, dims_b=ldims_b, bd=bdx, slab=slab)
+
+
+def _on_slab(step):
+    """Under an ambient mesh (``parallel.spatial_sharding``), run ``step``
+    on this rank's x-slab of the box of size ``box``: its layout and
+    every pass it runs see the slab."""
+    @functools.wraps(step)
+    def run(state, carry, scene_d, cfg, dt, dims, dims_b, box,
+            executor=None):
+        mesh = current_mesh()
+        if mesh is None:
+            return step(state, carry, scene_d, cfg, dt, dims, dims_b, box,
+                        executor)
+        with halo.slab_context(halo.make_slab(mesh, box[0])):
+            return step(state, carry, scene_d, cfg, dt, dims, dims_b, box,
+                        executor)
+    return run
+
+
+def _whole(lo: Layout, x: torch.Tensor) -> torch.Tensor:
+    """A grid tensor of the layout -> the whole box's, on every rank."""
+    return x if lo.slab is None else halo.whole(x, lo.slab)
+
+
+def _any(lo: Layout, mask: torch.Tensor) -> torch.Tensor:
+    return (torch.any(mask) if lo.slab is None
+            else halo.reduce_any(mask, lo.slab))
+
+
+def _max(lo: Layout, x: torch.Tensor) -> torch.Tensor:
+    return torch.max(x) if lo.slab is None else halo.reduce_max(x, lo.slab)
 
 
 def _base_metrics(idx: bx.BoxIndex, touch: torch.Tensor) -> Dict:
@@ -243,8 +302,11 @@ def _advect_read(lo: Layout, state: FluidState, cfg, dt, pos_d, vel_d,
     return pos, vel, out[6:]
 
 
-def _touch(bdx) -> torch.Tensor:
-    return (bdx[0] < POS_GUARD).sum().to(torch.int32)
+def _touch(lo: Layout) -> torch.Tensor:
+    """Real boundary slots in the box's window."""
+    real = lo.bd[0] < POS_GUARD
+    n = real.sum() if lo.slab is None else halo.reduce_sum(real, lo.slab)
+    return n.to(torch.int32)
 
 
 def _count(x: int, like: torch.Tensor) -> torch.Tensor:
@@ -292,6 +354,7 @@ def _merge_back(idx, gathered, fb_pos, fb_vel):
 # WCSPH (src/BasicSPHSolver.cu:237-260)
 # ----------------------------------------------------------------------
 
+@_on_slab
 def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
                cfg: SimConfig, dt: float, dims: DenseDims,
                dims_b: DenseDims, box, executor: Optional[pp.Executor] = None):
@@ -310,32 +373,32 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
     if _surface_on(cfg):
         o = pp.density_colorgrad_visc_pass(pmv, bdx, dims, dims_b, cfg,
-                                           executor, islots=lo.idx.slots)
+                                           executor, islots=lo.islots)
         rho = o[0]
         cg = o[1:4] / torch.clamp(o[4], min=cfg.epsilon)[None]
         vel_d = vel_d + o[5:8] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
         sp = pp.surface_pressure_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None], cg], 0),
-            bdx, dims, dims_b, cfg, executor, islots=lo.idx.slots)
+            bdx, dims, dims_b, cfg, executor, islots=lo.islots)
         vel_d = vel_d + sp[0:3] * dt
         vel_d = vel_d + _accel_clamp(sp[3:6], cfg) * dt
     else:
         o = pp.density_visc_pass(pmv, bdx, dims, dims_b, cfg, executor,
-                                 islots=lo.idx.slots)
+                                 islots=lo.islots)
         rho = o[0]
         vel_d = vel_d + o[1:4] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
         # no position moved since the fill: the list names every real slot
         a = pp.pressure_force_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None]], 0),
-            bdx, dims, dims_b, cfg, executor, islots=lo.idx.slots)
+            bdx, dims, dims_b, cfg, executor, islots=lo.islots)
         vel_d = vel_d + _accel_clamp(a, cfg) * dt
 
     pos, vel, out = _advect_read(lo, state, cfg, dt, pos_d, vel_d, [rho, p])
     new_state = state._replace(pos=pos, vel=vel, density=out[0],
                                pressure=out[1])
-    return new_state, carry, _base_metrics(lo.idx, _touch(bdx))
+    return new_state, carry, _base_metrics(lo.idx, _touch(lo))
 
 
 # ----------------------------------------------------------------------
@@ -356,13 +419,15 @@ class _Jacobi(NamedTuple):
 
 
 def _jacobi(vel, stiff0, correct, error, tau: float, min_iters: int,
-            cheb2: float, cfg) -> _Jacobi:
+            cheb2: float, cfg, whole=lambda err: err) -> _Jacobi:
     """The loop of both DFSPH solves (dense_step.py:426-526 of the JAX
     package): iterate while ``iters < min_iters or total > tau``, at most
     cfg.dfsph_max_iter times. ``total`` is the error sum of the last
     iterate, taken once ``iters >= min_iters``. With cheb2 > 0 the
     velocity iterate is Chebyshev-extrapolated. ``tau`` is a float32
-    value: the host compares the float32 sum it reads back exactly."""
+    value: the host compares the float32 sum it reads back exactly.
+    ``whole`` maps the error grid to the whole box's (under a mesh), so the
+    sum is bitwise the single-device one."""
     v = v_prev = vel
     s = w = stiff0
     omega = np.float32(1.0)
@@ -383,10 +448,11 @@ def _jacobi(vel, stiff0, correct, error, tau: float, min_iters: int,
         w = w + s
         it += 1
         if it >= min_iters:
-            total = torch.sum(torch.abs(err))
+            total = torch.sum(torch.abs(whole(err)))
     return _Jacobi(it, v, w, total, syncs)
 
 
+@_on_slab
 def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
                scene_d: DenseScene, cfg: SimConfig, dt: float,
                dims: DenseDims, dims_b: DenseDims, box,
@@ -407,26 +473,27 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     if surface_on:
         # fused traversal: rho/alpha + color-field sums share [pos, mass]
         da = pp.density_alpha_colorgrad_pass(pm, bdx, dims, dims_b, cfg,
-                                             executor, islots=lo.idx.slots)
+                                             executor, islots=lo.islots)
         cg = da[5:8] / torch.clamp(da[8], min=cfg.epsilon)[None]
     else:
         # the fill's own grid: the list names every real slot once
         da = pp.density_alpha_pass(pm, bdx, dims, dims_b, cfg, executor,
-                                   islots=lo.idx.slots)
+                                   islots=lo.islots)
     rho = da[0]
     alpha = _const(-1.0, rho) / torch.clamp(
         da[1] * da[1] + da[2] * da[2] + da[3] * da[3] + da[4],
         min=cfg.epsilon)
     dt_d = _const(dt, rho)
     n = state.n
+    whole = functools.partial(_whole, lo)
 
     def div_pass(v_d):
         return pp.divergence_pass((pm, v_d), bdx, dims, dims_b, cfg,
-                                  executor, islots=lo.idx.slots)
+                                  executor, islots=lo.islots)
 
     def sa_pass(s_d):
         return pp.stiffness_accel_pass((pm, s_d[None]), bdx, dims, dims_b,
-                                       cfg, executor, islots=lo.idx.slots)
+                                       cfg, executor, islots=lo.islots)
 
     # --- divergence solve (src/DFSPHSolver.cu:331-363) ---
     def div_error(v_d):
@@ -445,18 +512,19 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     cheb2 = float(cfg.dfsph_chebyshev_rho) ** 2
     div = _jacobi(vel_d, stiff0, sa_pass, div_error,
                   _f32(cfg.dfsph_divergence_threshold * n * cfg.rho0), 1,
-                  0.0 if cfg.dfsph_cheb_density_only else cheb2, cfg)
+                  0.0 if cfg.dfsph_cheb_density_only else cheb2, cfg,
+                  whole)
     vel_d = div.vel
 
     # --- non-pressure forces ---
     vel_d = _grav(vel_d, cfg, dt)
     vel_d = vel_d + pp.viscosity_pass(
         (pm, vel_d), dims, cfg, executor,
-        islots=lo.idx.slots) * _visc_dt(cfg, dt)
+        islots=lo.islots) * _visc_dt(cfg, dt)
     if surface_on:
         # cg came fused with the density/alpha traversal above
         sa = pp.surface_pass(torch.cat([pos_d, mass_d, cg], 0), dims, cfg,
-                             executor, islots=lo.idx.slots)
+                             executor, islots=lo.islots)
         vel_d = vel_d + sa * dt
 
     # --- density solve with warm start (src/DFSPHSolver.cu:160-210) ---
@@ -470,7 +538,7 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     _, stiff0 = den_error(vel_d)
     den = _jacobi(vel_d, stiff0, lambda s_d: sa_pass(s_d) / dt_d, den_error,
                   _f32(cfg.dfsph_density_threshold * n * cfg.rho0), 2,
-                  cheb2, cfg)
+                  cheb2, cfg, whole)
 
     pos, vel, out = _advect_read(lo, state, cfg, dt, pos_d, den.vel,
                                  [rho, den.warm, div.warm])
@@ -478,7 +546,7 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     new_carry = dfsph_mod.DFSPHCarry(warm_stiff=out[1], div_warm=out[2])
 
     metrics = {
-        **_base_metrics(lo.idx, _touch(bdx)),
+        **_base_metrics(lo.idx, _touch(lo)),
         "divergence_iters": _count(div.iters, rho),
         "density_iters": _count(den.iters, rho),
         "divergence_error": div.total,
@@ -492,6 +560,7 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
 # PBD (src/PBDSolver.cu:34-73)
 # ----------------------------------------------------------------------
 
+@_on_slab
 def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
              scene_d: DenseScene, cfg: SimConfig, dt: float,
              dims: DenseDims, dims_b: DenseDims, box,
@@ -521,7 +590,7 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
     def project_once(p_d):
         lam5 = pp.pbd_lambda_pass(torch.cat([p_d, mass_d], 0), bdx, dims,
                                   dims_b, cfg, executor,
-                                  islots=lo.idx.slots)
+                                  islots=lo.islots)
         rho = lam5[0]
         lam = torch.where(
             rho > cfg.rho0,
@@ -529,15 +598,15 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
             / (lam5[1] * lam5[1] + lam5[2] * lam5[2] + lam5[3] * lam5[3]
                + lam5[4] + cfg.epsilon),
             0.0) * cfg.pbd_relaxation
-        alive = torch.any(lam != 0.0)
+        alive = _any(lo, lam != 0.0)
         if cfg.pbd_density_tolerance > 0.0:
             # the optional convergence exit (the reference always runs the
             # full pbd_max_iter iterations)
-            alive = alive & (torch.max(rho) / rho0 - 1.0
+            alive = alive & (_max(lo, rho) / rho0 - 1.0
                              > _f32(cfg.pbd_density_tolerance))
         dp = pp.stiffness_accel_pass((p_d, mass_d, lam[None]), bdx, dims,
                                      dims_b, cfg, executor,
-                                     islots=lo.idx.slots) / rho0
+                                     islots=lo.islots) / rho0
         return _clamp_pos_only(p_d + dp, cfg), rho, alive
 
     # --- projection (src/PBDSolver.cu:225-258), driven by the host: the
@@ -580,15 +649,15 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
     if _surface_on(cfg):
         o = pp.xsph_colorgrad_pass(pmv, bdx, dims, dims_b, cfg, executor,
-                                   islots=lo.idx.slots)
+                                   islots=lo.islots)
         vel_d = vel_d + o[0:3] * xsph_c
         cg = o[3:6] / torch.clamp(o[6], min=cfg.epsilon)[None]
         sa = pp.surface_pass(torch.cat([pos_d, mass_d, cg], 0), dims, cfg,
-                             executor, islots=lo.idx.slots)
+                             executor, islots=lo.islots)
         vel_d = vel_d + sa * dt
     else:
         vel_d = vel_d + pp.xsph_pass(pmv, dims, cfg, executor,
-                                     islots=lo.idx.slots) * xsph_c
+                                     islots=lo.islots) * xsph_c
     vel_d = _grav(vel_d, cfg, dt)
 
     # --- remember + predict (src/PBDSolver.cu:71-79); the warm carry is
@@ -604,7 +673,7 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
                else torch.zeros_like(state.pos))
     new_state = state._replace(pos=pos, vel=vel, density=out[0])
     new_carry = pbd_mod.PBDCarry(pos_last=pos_last, dp_warm=dp_warm)
-    metrics = {**_base_metrics(lo.idx, _touch(bdx)),
+    metrics = {**_base_metrics(lo.idx, _touch(lo)),
                "pbd_iters": _count(it, rho),
                "host_syncs": _count(syncs, rho)}
     return new_state, new_carry, metrics

@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SimConfig
+from ..parallel import halo
 from . import kernels as kn
 from .dense import DenseDims
 
@@ -73,7 +74,16 @@ def _jb(v):
 
 
 def _si(x):
-    return torch.sum(x, -2)
+    """Sum a pair block over j as torch.sum does, from +0.0 and in slot
+    order, but one elementwise add per slot: each output then depends on
+    neither its place in the tensor nor the thread count, so a slab's
+    window computes bitwise what the whole box computes (torch.sum's CPU
+    kernel sums the last elements of a row, and K_j >= 18, in other
+    orders)."""
+    acc = 0.0 + x[..., 0, :]
+    for j in range(1, x.shape[-2]):
+        acc = acc + x[..., j, :]
+    return acc
 
 
 class Pair(NamedTuple):
@@ -555,9 +565,25 @@ def column_pass(name: str, fl, bd, dims, dims_b, cfg,
     executor=None dispatches by the device of ``fl``: the plain executor on
     the CPU, the CUDA kernel on a GPU, and for ``PARTICLE_PASSES`` the
     particle-list kernel over ``islots``, which a GPU then requires.
-    ``islots`` is handed on to an executor as a keyword."""
+    ``islots`` is handed on to an executor as a keyword.
+
+    Under a slab (``parallel.halo.slab_context``, which the solver steps
+    enter under a mesh) ``fl``, ``bd`` and ``islots`` are the rank's
+    window: the ghost x-planes of a copy of ``fl`` are refreshed from the
+    neighbours (``halo.exchange``) before the executor runs, and a rank
+    that owns no plane runs nothing and returns zeros."""
+    slab = halo.current_slab()
     if isinstance(fl, tuple):
         fl = torch.cat(fl, 0)
+    elif slab is not None:
+        fl = fl.contiguous().clone()
+    if slab is not None:
+        if dims.cx != slab.x1 - slab.x0:
+            raise ValueError(f"{name}: dims {tuple(dims)} are not the "
+                             f"window of slab [{slab.x0}, {slab.x1})")
+        if slab.empty:
+            return fl.new_zeros((PASSES[name].n_out, dims.k, dims.g))
+        halo.exchange(fl, slab)
     if executor is None:
         if fl.device.type == "cpu":
             executor = column_pass_plain

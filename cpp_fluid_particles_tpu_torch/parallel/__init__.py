@@ -1,0 +1,12 @@
+from . import distributed, halo
+from .mesh import (
+    AXIS,
+    Mesh,
+    current_halo_mode,
+    current_mesh,
+    make_mesh,
+    make_mesh2d,
+    mesh_devices,
+    mesh_is_2d,
+    spatial_sharding,
+)
