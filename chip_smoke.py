@@ -19,8 +19,8 @@ and the three solvers with surface effects off for a short run, then
 the flat-grid prototype's entry point with its brick-tiled kernel, the
 README's first command through the port's ``simulate`` CLI, and last the
 README's multi-GPU recipe, the 1,000,000-particle DFSPH scene on an
-x-slab mesh of ranks (each a process of ``exp/mesh_run.py``), held
-bitwise to the single-device run. Phases:
+x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
+``exp/mesh_run.py``), held bitwise to the single-device run. Phases:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of the kernels, seconds taken, and ptxas's
@@ -117,17 +117,23 @@ bitwise to the single-device run. Phases:
               visible (else it says why it did not run); and the dam for
               WCSPH and PBD parity, 100 frames each, under (a) (the
               collapsing column makes PBD's projection run all 20
-              iterations in the later frames). Every rank
+              iterations in the later frames); (d) the 1M recipe and the
+              PBD dam on the (gx, gz) 2-D mesh of 2x2 ranks over gloo
+              sharing cuda:0 (``--mesh2d 2x2``: the x phase, then the z
+              phase of the exchange), (e) the 1M recipe on 2x2 ranks over
+              NCCL, one per GPU, where four or more GPUs are visible (else
+              it says why it did not run). Every rank
               of every run is held to a single-device run of the same
               frames: positions, velocities and density bitwise, every
               frame's metrics (iterations, host syncs, error sums,
               capacity) and the retries equal, and every kernel of its
               path launched (particle_density: the scene build's), none of
-              the column kernel. Per rank: launches, exchanges and their
-              bytes, all-reduces and all-gathers per frame run, what gloo
-              staged through host memory, ms/frame (CUDA events; under (a)
-              two ranks share one card, so it is no scaling figure); and
-              each run's wall seconds
+              the column kernel, each as often as on one device; the
+              1-D runs make no z exchange. Per rank: launches, exchanges
+              and their bytes (per axis), all-reduces and all-gathers per
+              frame run, what gloo staged through host memory, ms/frame
+              (CUDA events; under (a) and (d) the ranks share one card, so
+              it is no scaling figure); and each run's wall seconds
 
 A pass's bound is the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s (float32, H100 SXM data sheet), both counted on
@@ -142,6 +148,12 @@ Each phase prints one line per item. Before the last line it prints the
 JSON kernel table, then the card's nvidia-smi line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
 line. JAX is not imported. Details go to ``chiprun_out/chip_smoke.json``.
+
+``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 9 alone, for a
+machine with several GPUs, where runs (c) and (e) run too: it ends with
+the nvidia-smi line and prints neither the kernel table nor the ``ok``
+line. Phase 9 leaves its details in ``mesh/phase.json`` beside its rank
+logs in either case.
 """
 
 from __future__ import annotations
@@ -165,6 +177,7 @@ APP_PNG_STEPS = 50              # phase 8: the CLI's PNG run
 # phase 9: the README's multi-GPU recipe at full size, and the dam
 MESH_1M = "dfsph-fast:scaled1000000:3"
 MESH_DAM = ("wcsph:dam:100", "pbd:dam:100")
+MESH_2D = "2x2"          # the (gx, gz) mesh of run (d)
 MESH_TIMEOUT = 420       # seconds for one run of the per-rank entry point
 # the particle-list kernels each solver's mesh path must launch on every
 # rank (particle_density: the scene build's)
@@ -1013,10 +1026,12 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def mesh_ranks(tag, cases, ranks, device, backend, out_dir, data_dir):
+def mesh_ranks(tag, cases, ranks, device, backend, out_dir, data_dir,
+               extra=()):
     """``exp/mesh_run.py`` on ``ranks`` processes under the environment
     contract (ranks 0: one process without a mesh) -> (each rank's
-    results, wall seconds). ``device(rank)`` is the rank's device; each
+    results, wall seconds). ``device(rank)`` is the rank's device,
+    ``extra`` more arguments of the entry point (``--mesh2d``); each
     rank's log goes to ``out_dir``, its results (tens of MB at 1M) to
     ``data_dir``. Every process is stopped before this returns; a rank
     that fails stops all."""
@@ -1031,7 +1046,8 @@ def mesh_ranks(tag, cases, ranks, device, backend, out_dir, data_dir):
             argv = [sys.executable, "-m",
                     "cpp_fluid_particles_tpu_torch.exp.mesh_run", "--out",
                     str(data_dir / f"{tag}_{r}.npz"), "--device", device(r)]
-            argv += ["--single"] if ranks == 0 else ["--backend", backend]
+            argv += (["--single"] if ranks == 0
+                     else ["--backend", backend, *extra])
             with open(out_dir / f"{tag}_{r}.log", "w") as f:
                 procs.append(subprocess.Popen(
                     argv + list(cases), env=env, cwd=str(ROOT), stdout=f,
@@ -1077,9 +1093,9 @@ def same_as_single(ref, got, tag):
                                  f"single-device {want[key]}")
 
 
-def mesh_launches(res, tag):
-    """Every kernel of the case's path launched on this rank; no column
-    kernel."""
+def mesh_launches(res, tag, ref=None):
+    """Every kernel of the case's path launched on this rank, each as often
+    as in the single-device run ``ref`` where given; no column kernel."""
     m = res["meta"]
     solver = m["case"].split(":")[0].split("-")[0]
     missing = [k for k in MESH_KERNELS[solver] if not m["launches"].get(k)]
@@ -1089,12 +1105,32 @@ def mesh_launches(res, tag):
         raise AssertionError(f"[mesh] {tag} {m['case']} rank {m['rank']}: "
                              f"not launched {missing}, column kernel "
                              f"{column}")
+    if ref is not None:
+        want = {k: v for k, v in ref["meta"]["launches"].items() if v}
+        got = {k: v for k, v in m["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"[mesh] {tag} {m['case']} rank "
+                                 f"{m['rank']}: launches {got} != "
+                                 f"single-device {want}")
+
+
+def block_text(m, box):
+    """The rank's block of a box of size ``box``, as the mesh split it."""
+    from cpp_fluid_particles_tpu_torch.parallel.mesh import plane_split
+    if not m["backend"]:
+        return "the whole box"
+    nx, nz = m["mesh"]
+    ix, iz = divmod(m["rank"], nz)
+    x0, x1 = plane_split(box[0], nx)[ix]
+    if nz == 1:
+        return f"planes {(x0, x1)} of {box[0]}"
+    z0, z1 = plane_split(box[2], nz)[iz]
+    return f"block x {(x0, x1)} z {(z0, z1)} of {box[0]} x {box[2]}"
 
 
 def mesh_line(tag, res, note=""):
-    """One rank's line: scene, capacity, slab, launches, collectives per
-    frame run, iterations, ms/frame."""
-    from cpp_fluid_particles_tpu_torch.parallel.mesh import plane_split
+    """One rank's line: scene, capacity, block, launches, collectives per
+    frame run (exchanges per axis), iterations, ms/frame."""
     m = res["meta"]
     runs = 1 + m["frames"] + m["retries"]   # warm-up and re-runs included
     k, box = m["capacity"][-1]
@@ -1103,15 +1139,19 @@ def mesh_line(tag, res, note=""):
                 sorted(m["launches"].items()) if v}
     iters = {key: [f.get(key) for f in m["metrics"]]
              for key in ITER_KEYS if key in m["metrics"][0]}
-    slab = (f"planes {plane_split(box[0], m['ranks'])[m['rank']]} of "
-            f"{box[0]}" if m["backend"] else "the whole box")
+    axes = ", ".join(
+        f"{a} {h.get(f'exchanges_{a}', 0) / runs:.2f} "
+        f"({h.get(f'exchange_bytes_{a}', 0) / runs / 1e6:.3f} MB)"
+        for a in "xz")
     return (f"{tag} {m['case']} rank {m['rank']}/{m['ranks']} "
-            f"({m['backend'] or 'one device'} on {m['device']}): "
+            f"({m['backend'] or 'one device'} on {m['device']}, mesh "
+            f"{m['mesh']}): "
             f"{m['fluid']:,} fluid + {m['boundary']:,} boundary, K {k}, box "
-            f"{box}, {slab}, retries {m['retries']}; particle-list launches "
-            f"{launches}; per frame run: exchanges "
+            f"{box}, {block_text(m, box)}, retries {m['retries']}; "
+            f"particle-list launches {launches}; per frame run: exchanges "
             f"{h.get('exchanges', 0) / runs:.2f} "
-            f"({h.get('exchange_bytes', 0) / runs / 1e6:.3f} MB sent), "
+            f"({h.get('exchange_bytes', 0) / runs / 1e6:.3f} MB sent; by "
+            f"axis {axes}), "
             f"all-reduces {h.get('all_reduce', 0) / runs:.2f} "
             f"({h.get('all_reduce_bytes', 0) / runs / 1e6:.3f} MB), "
             f"all-gathers {h.get('all_gather', 0) / runs:.2f} "
@@ -1122,12 +1162,14 @@ def mesh_line(tag, res, note=""):
 
 
 def mesh_phase(torch, card):
-    """Phase 9: the mesh runs (a), (b) and (c) against the single-device
-    run of the same cases."""
+    """Phase 9: the mesh runs (a) to (e) against the single-device run of
+    the same cases."""
     out_dir = ROOT / "chiprun_out" / "mesh"
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory() as data:
-        return _mesh_phase(torch, card, out_dir, Path(data))
+        record = _mesh_phase(torch, card, out_dir, Path(data))
+    (out_dir / "phase.json").write_text(json.dumps(record, indent=1))
+    return record
 
 
 def _mesh_phase(torch, card, out_dir, data_dir):
@@ -1141,23 +1183,37 @@ def _mesh_phase(torch, card, out_dir, data_dir):
         log("mesh", mesh_line("single", res))
     log("mesh", f"single-device runs: {wall:.1f} s wall | {card}")
     ngpu = torch.cuda.device_count()
-    runs = [("a", cases, 2, lambda r: "cuda:0", "gloo",
+    nx, nz = (int(a) for a in MESH_2D.split("x"))
+    mesh2d = ("--mesh2d", MESH_2D)
+    runs = [("a", cases, 2, lambda r: "cuda:0", "gloo", (),
              "; 2 ranks sharing one card: not a scaling figure"),
-            ("b", (MESH_1M,), 1, lambda r: "cuda", "nccl", "")]
+            ("b", (MESH_1M,), 1, lambda r: "cuda", "nccl", (), ""),
+            ("d", (MESH_1M, "pbd:dam:100"), nx * nz, lambda r: "cuda:0",
+             "gloo", mesh2d,
+             f"; {nx * nz} ranks sharing one card: not a scaling figure")]
     if ngpu > 1:
-        runs.append(("c", (MESH_1M,), ngpu, lambda r: "cuda", "nccl",
+        runs.append(("c", (MESH_1M,), ngpu, lambda r: "cuda", "nccl", (),
                      f"; {ngpu} ranks, one per GPU"))
-    for tag, cs, ranks, device, backend, note in runs:
+    if ngpu >= nx * nz:
+        runs.append(("e", (MESH_1M,), nx * nz, lambda r: "cuda", "nccl",
+                     mesh2d, f"; {nx * nz} ranks, one per GPU"))
+    for tag, cs, ranks, device, backend, extra, note in runs:
         got, wall = mesh_ranks(tag, cs, ranks, device, backend, out_dir,
-                               data_dir)
+                               data_dir, extra)
         for rank_res in got:
             for res in rank_res:
-                same_as_single(ref[cases.index(res["meta"]["case"])], res,
-                               tag)
-                mesh_launches(res, tag)
+                single = ref[cases.index(res["meta"]["case"])]
+                same_as_single(single, res, tag)
+                mesh_launches(res, tag, single)
+                h = res["meta"]["halo"]
+                if not extra and h.get("exchanges_z"):
+                    raise AssertionError(f"[mesh] ({tag}) a 1-D mesh made "
+                                         f"z exchanges: {h}")
                 log("mesh", mesh_line(f"({tag})", res, note) + " | bitwise "
-                    "equal to the single-device run, metrics equal")
-        log("mesh", f"({tag}) {ranks} rank(s) over {backend}: {wall:.1f} s "
+                    "equal to the single-device run, metrics and launches "
+                    "equal")
+        log("mesh", f"({tag}) {ranks} rank(s) over {backend}"
+            f"{' as a ' + MESH_2D + ' mesh' if extra else ''}: {wall:.1f} s "
             f"wall | {card}")
         record[tag] = {"wall_s": wall,
                        "meta": [[r["meta"] for r in rank_res]
@@ -1165,7 +1221,11 @@ def _mesh_phase(torch, card, out_dir, data_dir):
     if ngpu <= 1:
         log("mesh", f"(c) one rank per GPU over NCCL did not run: "
             f"{ngpu} GPU visible, and NCCL refuses two ranks on one GPU")
+    if ngpu < nx * nz:
+        log("mesh", f"(e) the {MESH_2D} mesh over NCCL, one rank per GPU, "
+            f"did not run: {ngpu} GPU(s) visible, it needs {nx * nz}")
     record["c_ran"] = ngpu > 1
+    record["e_ran"] = ngpu >= nx * nz
     record["wall_s"] = time.perf_counter() - t0
     log("mesh", f"phase wall {record['wall_s']:.1f} s | {card}")
     return record
@@ -1201,8 +1261,11 @@ def kernel_row(name, paths, owner, errs, times, pp):
     return row
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+    if argv not in ([], ["--mesh"]):
+        print("usage: python3 chip_smoke.py [--mesh]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1257,6 +1320,10 @@ def main() -> int:
         "dynamic shared at K 24: " + "; ".join(
             f"{n} {r['registers']}/{r['spill_bytes']}/{r['static_smem']}"
             f"+{r['dynamic_smem_k24']}" for n, r in flat_regs.items()))
+    if argv == ["--mesh"]:
+        mesh_phase(torch, card)
+        print(card, flush=True)
+        return 0
 
     cfg = cfp.dam_break_config(mode="parity")
     errs, times, paths = {}, {}, {}
@@ -1406,7 +1473,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = main(sys.argv[1:])
     except Exception:
         traceback.print_exc()
         code = 1

@@ -9,7 +9,8 @@ exp/flat_pallas_proto.py) are hand-written CUDA kernels for Hopper
 neither jax nor the JAX package. It runs the three solvers (WCSPH, DFSPH
 and PBD, the default) on the sliding-box engine, on one device or, with
 ``Simulation(mesh=parallel.make_mesh())``, on an x-slab mesh of one
-process per rank (see ROADMAP.md for what comes next).
+process per rank, or with ``parallel.make_mesh2d((nx, nz))`` on x-z blocks
+(see ROADMAP.md for what comes next).
 """
 
 from . import parallel

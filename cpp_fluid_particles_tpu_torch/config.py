@@ -202,9 +202,9 @@ class SimConfig:
     # "gspmd" always uses GSPMD inference (per-offset permutes and
     # grid-sized all-gathers — the round-3 path, kept as the differential
     # oracle); "shard_map" asserts the halo engine is used.
-    # In the port, "auto" and "shard_map" both select its x-slab engine
-    # (parallel/halo.py: one ghost-plane exchange per pass, N-sized traffic
-    # at the particle<->grid boundary), and "gspmd" raises
+    # In the port, "auto" and "shard_map" both select its block engine
+    # (parallel/halo.py: one ghost exchange per pass, N-sized traffic at
+    # the particle<->grid boundary), and "gspmd" raises
     # NotImplementedError: PyTorch has no GSPMD.
     halo_comm: str = "auto"
 

@@ -1,8 +1,8 @@
-"""One rank of an x-slab mesh run, or the single-device run it is held to.
+"""One rank of a mesh run, or the single-device run it is held to.
 
     python -m cpp_fluid_particles_tpu_torch.exp.mesh_run --out OUT.npz \\
         [--device cpu|cuda|cuda:N] [--backend gloo|nccl] [--single] \\
-        CASE [CASE ...]
+        [--mesh2d NXxNZ] CASE [CASE ...]
 
 A CASE is ``solver:scene:frames``: solver ``wcsph``, ``dfsph`` or ``pbd``,
 with ``-fast`` for the config's fast mode (parity otherwise); scene
@@ -10,7 +10,9 @@ with ``-fast`` for the config's fast mode (parity otherwise); scene
 domain), ``splash`` (that block stretched upwards, its top layer at 28 m/s, so the
 box refits within a few frames), ``floor`` (a jittered 7x7x7 block
 resting on the floor with random velocities: real work for the solvers'
-loops), ``dam`` (the 20,736-particle dam) or
+loops), ``tank`` (the 6x6x6 block of the JAX package's 2-D mesh test,
+tests/test_parallel.py, in the dam's domain), ``dam`` (the 20,736-particle
+dam) or
 ``scaled<N>`` (``scaled_dam_scene(N)``, the README's multi-GPU recipe at
 N = 1000000). Each case runs ``Simulation(solver, cfg, fluid_pos,
 device, mesh)`` frame by frame at the config's dt.
@@ -18,12 +20,15 @@ device, mesh)`` frame by frame at the config's dt.
 Without ``--single`` the process is one rank under the environment
 contract of ``parallel.distributed`` (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``; ``torchrun`` sets them), and a
-process group is made even for one rank; ``--single`` runs without a mesh.
+process group is made even for one rank; the mesh is the 1-D x-slab mesh,
+or with ``--mesh2d NXxNZ`` the (gx, gz) 2-D mesh of NX x NZ ranks;
+``--single`` runs without a mesh.
 Each rank writes its own ``OUT.npz``: per case the final ``pos``, ``vel``
 and ``density``, and a JSON record (``meta``) of every frame's metrics,
 the retries, K and box, ms per frame (CUDA events on a card), the
-particle-list kernel's launch counts, and the exchanges, their bytes and
-the other collectives of ``parallel.halo``.
+particle-list kernel's launch counts, the mesh's shape, and the
+exchanges, their bytes (per axis too) and the other collectives of
+``parallel.halo``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 from ..config import dam_break_config
 from ..ops import column_pass_cuda as cc
 from ..parallel import distributed, halo
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import make_mesh, make_mesh2d
 from ..simulation import Simulation
 from ..state import block_positions, dam_break_positions, scaled_dam_scene
 
@@ -49,6 +54,13 @@ SPLASH_SPEED = 28.0      # m/s upwards at the block's top
 
 def scene(name: str, mode: str, seed: int = 0):
     """-> (cfg, fluid positions, initial velocities or None)."""
+    if name == "tank":
+        cfg = dam_break_config(mode=mode, max_active_cells=512,
+                               max_per_cell=16)
+        s = cfg.spacing
+        return cfg, np.array([(0.3 + s * i, 0.2 + s * j, 0.3 + s * k)
+                              for i in range(6) for j in range(6)
+                              for k in range(6)], np.float32), None
     if name in ("block", "splash", "floor"):
         cfg = dam_break_config(mode=mode, space_size=(0.52, 0.52, 0.52),
                                max_active_cells=1024, max_per_cell=16)
@@ -112,6 +124,7 @@ def run_case(case: str, device, mesh=None, seed: int = 0) -> dict:
     meta = {
         "case": case, "rank": mesh.rank if mesh else 0,
         "ranks": mesh.size if mesh else 1,
+        "mesh": list(mesh.blocks) if mesh else None,
         "backend": mesh.backend if mesh else None, "device": str(sim.device),
         "fluid": sim.fluid_size, "boundary": sim.boundary_size,
         "frames": frames, "retries": sim.retries,
@@ -151,13 +164,19 @@ def main(argv=None) -> int:
                     help="gloo or nccl (default: nccl on a card, else gloo)")
     ap.add_argument("--single", action="store_true",
                     help="run on one device without a mesh")
+    ap.add_argument("--mesh2d", default=None, metavar="NXxNZ",
+                    help="the (gx, gz) 2-D mesh of NX x NZ ranks (default: "
+                    "the 1-D x-slab mesh)")
     args = ap.parse_args(argv)
     mesh = None
     if not args.single:
         distributed.ensure_initialized(
-            backend=args.backend, world_size=int(os.environ["WORLD_SIZE"]),
+            backend=args.backend or distributed.default_backend(args.device),
+            world_size=int(os.environ["WORLD_SIZE"]),
             rank=int(os.environ["RANK"]))
-        mesh = make_mesh(device=args.device)
+        mesh = (make_mesh2d(tuple(int(a) for a in args.mesh2d.split("x")),
+                            device=args.device) if args.mesh2d
+                else make_mesh(device=args.device))
     try:
         results = [run_case(c, mesh.device if mesh else args.device, mesh)
                    for c in args.cases]
@@ -168,6 +187,7 @@ def main(argv=None) -> int:
     for r in results:
         m = r["meta"]
         print(f"[mesh_run] {m['case']} rank {m['rank']}/{m['ranks']} "
+              f"mesh {m['mesh']} "
               f"{m['backend'] or 'single'} on {m['device']}: "
               f"{m['frames']} frames, retries {m['retries']}, "
               f"{sum(m['ms']) / max(m['frames'], 1):.3f} ms/frame, "

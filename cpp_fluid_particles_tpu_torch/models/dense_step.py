@@ -23,10 +23,10 @@ with its ``thrust::reduce``, src/DFSPHSolver.cu:206,360) or its ``alive``
 flag (PBD) back to the host, one sync per iteration.
 
 Under a mesh (``parallel.spatial_sharding``) each step runs on this rank's
-x-slab of the box (parallel/halo.py): the same replicated state and box
-index on every rank, the fill, passes and read on the rank's window, one
-ghost-plane exchange before every pass (ops/passes.py), and every value the
-host decides on (DFSPH's error sums, PBD's exit flags, the boundary touch
+block of the box (parallel/halo.py; an x-slab on a 1-D mesh): the same
+replicated state and box index on every rank, the fill, passes and read on
+the rank's window, one ghost exchange before every pass (ops/passes.py),
+and every value the host decides on (DFSPH's error sums, PBD's exit flags, the boundary touch
 count) reduced so that it is bitwise the single-device value.
 """
 
@@ -57,7 +57,7 @@ POS_GUARD = POS_PAD / 2.0
 
 class Layout(NamedTuple):
     """The sliding-box grid layout of one step: the whole box, or under a
-    mesh this rank's x-slab of it (parallel/halo.py)."""
+    mesh this rank's block of it (parallel/halo.py)."""
 
     idx: bx.BoxIndex         # the whole box's index (the same on every rank)
     islots: torch.Tensor     # (N,) slot list of this rank's grid
@@ -66,7 +66,7 @@ class Layout(NamedTuple):
     dims: DenseDims          # grid dims for the fluid passes
     dims_b: DenseDims        # grid dims for the boundary window
     bd: torch.Tensor         # boundary window (4, Kb, G)
-    slab: Optional[halo.Slab]  # this rank's slab, None on one device
+    slab: Optional[halo.Slab]  # this rank's block, None on one device
 
 
 def _layout(pos, cfg, dims, dims_b, scene_d, box) -> Layout:
@@ -98,8 +98,9 @@ def _layout(pos, cfg, dims, dims_b, scene_d, box) -> Layout:
 
 def _on_slab(step):
     """Under an ambient mesh (``parallel.spatial_sharding``), run ``step``
-    on this rank's x-slab of the box of size ``box``: its layout and
-    every pass it runs see the slab."""
+    on this rank's block of the box of size ``box``, split on every step
+    from the box's x and z extents: its layout and every pass it runs see
+    the block."""
     @functools.wraps(step)
     def run(state, carry, scene_d, cfg, dt, dims, dims_b, box,
             executor=None):
@@ -107,7 +108,7 @@ def _on_slab(step):
         if mesh is None:
             return step(state, carry, scene_d, cfg, dt, dims, dims_b, box,
                         executor)
-        with halo.slab_context(halo.make_slab(mesh, box[0])):
+        with halo.slab_context(halo.make_slab(mesh, box[0], box[2])):
             return step(state, carry, scene_d, cfg, dt, dims, dims_b, box,
                         executor)
     return run

@@ -17,7 +17,7 @@ the box size) follows the ballistic fallback and is counted in
 ``box_overflow``; Simulation then refits the box to the measured extents
 and re-runs the frame from the pre-frame state (the no-drop contract).
 
-Under a mesh each rank runs the passes on its x-slab of the box
+Under a mesh each rank runs the passes on its block of the box
 (parallel/halo.py): ``slab_window`` gives the rank's window, its slot list
 and its boundary window; the fill and the read then run on the window
 (the JAX package's mesh branches, box.py:143-205, in the form of
@@ -96,17 +96,18 @@ read_box = read_dense
 
 
 def slice_boundary_box(bd: torch.Tensor, full: DenseDims, box: DenseDims,
-                       origin: torch.Tensor, x0: int = 0) -> torch.Tensor:
+                       origin: torch.Tensor, x0: int = 0,
+                       z0: int = 0) -> torch.Tensor:
     """The full-domain flat boundary tensor (Fb, Kb, G) -> the box's
     ghosted window (Fb, Kb, GB). The box ghost ring at cell origin o starts
     at full-ghosted coordinate o (core cell x maps to ghosted x+1), so the
-    window starts at the origin; ``x0`` shifts it by that many x-planes
-    (a slab's window). One index_select over the flat cell axis, with
-    indices built on the device: no host sync."""
+    window starts at the origin; ``x0`` and ``z0`` shift it by that many
+    x- and z-planes (a block's window). One index_select over the flat
+    cell axis, with indices built on the device: no host sync."""
     dev = bd.device
     ax = origin[0] + x0 + torch.arange(box.gx, device=dev)
     ay = origin[1] + torch.arange(box.gy, device=dev)
-    az = origin[2] + torch.arange(box.gz, device=dev)
+    az = origin[2] + z0 + torch.arange(box.gz, device=dev)
     flat = ((ax[:, None, None] * full.gy + ay[None, :, None]) * full.gz
             + az[None, None, :])
     return bd.index_select(2, flat.reshape(-1))
@@ -114,9 +115,10 @@ def slice_boundary_box(bd: torch.Tensor, full: DenseDims, box: DenseDims,
 
 def slab_window(idx: BoxIndex, bd: torch.Tensor, full: DenseDims,
                 box: DenseDims, box_b: DenseDims, slab: "halo.Slab"):
-    """A rank's x-slab of the box whose index is ``idx`` -> (its slot list
+    """A rank's block of the box whose index is ``idx`` -> (its slot list
     (N,), its window dims, its boundary window dims, its boundary window
     (Fb, Kb, G_l) cut from the full-domain ``bd``)."""
     dims_b = slab.dims(box_b)
     return (halo.slab_slots(idx.slots, box, slab), slab.dims(box), dims_b,
-            slice_boundary_box(bd, full, dims_b, idx.origin, slab.x0))
+            slice_boundary_box(bd, full, dims_b, idx.origin, slab.x0,
+                               slab.z0))

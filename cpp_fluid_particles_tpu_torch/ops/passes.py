@@ -76,7 +76,7 @@ def _jb(v):
 def _si(x):
     """Sum a pair block over j as torch.sum does, from +0.0 and in slot
     order, but one elementwise add per slot: each output then depends on
-    neither its place in the tensor nor the thread count, so a slab's
+    neither its place in the tensor nor the thread count, so a block's
     window computes bitwise what the whole box computes (torch.sum's CPU
     kernel sums the last elements of a row, and K_j >= 18, in other
     orders)."""
@@ -567,20 +567,21 @@ def column_pass(name: str, fl, bd, dims, dims_b, cfg,
     particle-list kernel over ``islots``, which a GPU then requires.
     ``islots`` is handed on to an executor as a keyword.
 
-    Under a slab (``parallel.halo.slab_context``, which the solver steps
+    Under a block (``parallel.halo.slab_context``, which the solver steps
     enter under a mesh) ``fl``, ``bd`` and ``islots`` are the rank's
-    window: the ghost x-planes of a copy of ``fl`` are refreshed from the
-    neighbours (``halo.exchange``) before the executor runs, and a rank
-    that owns no plane runs nothing and returns zeros."""
+    window: the ghost cells a neighbour owns of a copy of ``fl`` are
+    refreshed (``halo.exchange``) before the executor runs, and a rank
+    that owns no cell runs nothing and returns zeros."""
     slab = halo.current_slab()
     if isinstance(fl, tuple):
         fl = torch.cat(fl, 0)
     elif slab is not None:
         fl = fl.contiguous().clone()
     if slab is not None:
-        if dims.cx != slab.x1 - slab.x0:
+        if (dims.cx, dims.cz) != (slab.x1 - slab.x0, slab.z1 - slab.z0):
             raise ValueError(f"{name}: dims {tuple(dims)} are not the "
-                             f"window of slab [{slab.x0}, {slab.x1})")
+                             f"window of block x [{slab.x0}, {slab.x1}), "
+                             f"z [{slab.z0}, {slab.z1})")
         if slab.empty:
             return fl.new_zeros((PASSES[name].n_out, dims.k, dims.g))
         halo.exchange(fl, slab)

@@ -1,5 +1,6 @@
 from . import distributed, halo
 from .mesh import (
+    AXES_2D,
     AXIS,
     Mesh,
     current_halo_mode,

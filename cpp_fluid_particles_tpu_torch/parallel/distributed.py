@@ -3,7 +3,7 @@
 Port of ``cpp_fluid_particles_tpu/parallel/distributed.py``. The JAX
 package runs one controller over many devices and bootstraps the JAX
 multi-controller runtime for pod slices; PyTorch has no single-controller
-mesh, so the port runs one process per rank (SPMD), each on its own x-slab
+mesh, so the port runs one process per rank (SPMD), each on its own block
 of the box (parallel/halo.py), with explicit collectives.
 
 This module is the bootstrap. It is a no-op in single-process runs, so it
@@ -15,9 +15,9 @@ is safe to call unconditionally at program start:
 
 Environment contract (the one ``torchrun`` sets): ``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``. Explicit
-arguments win over it. The backend is ``nccl`` when the process has a
-CUDA device and ``gloo`` otherwise, unless the caller names one; under
-NCCL each process takes ``cuda:LOCAL_RANK``.
+arguments win over it. A rank's device is ``cuda:LOCAL_RANK`` unless
+the caller asks for the CPU; the backend follows the device, ``nccl`` on a
+card and ``gloo`` on the CPU, unless the caller names one.
 """
 
 from __future__ import annotations
@@ -34,7 +34,11 @@ def is_multiprocess_env() -> bool:
     return os.environ.get("WORLD_SIZE", "1") not in ("", "1")
 
 
-def default_backend() -> str:
+def default_backend(device=None) -> str:
+    """``nccl`` for a CUDA ``device``, ``gloo`` for the CPU; with no
+    device, ``nccl`` where this process sees a card, else ``gloo``."""
+    if device is not None:
+        return "nccl" if torch.device(device).type == "cuda" else "gloo"
     return "nccl" if torch.cuda.is_available() else "gloo"
 
 
@@ -97,11 +101,7 @@ def local_device_slice(n: int) -> slice:
     return tile(n, process_count(), process_index())
 
 
-def rank_device(backend: Optional[str] = None) -> torch.device:
-    """This process's device: ``cuda:LOCAL_RANK`` under NCCL, else the
-    CPU."""
-    backend = backend or (dist.get_backend() if dist.is_initialized()
-                          else default_backend())
-    if backend == "nccl":
-        return torch.device("cuda", local_rank())
-    return torch.device("cpu")
+def rank_device() -> torch.device:
+    """This process's default device, ``cuda:LOCAL_RANK``, whatever the
+    backend: a rank runs on the CPU only when its caller asks for it."""
+    return torch.device("cuda", local_rank())

@@ -1,40 +1,48 @@
-"""The x-slab engine: each rank's window of the box, the ghost-plane
-exchange before every pass, and N-sized traffic at the particle <-> grid
-boundary.
+"""The block engine: each rank's window of the box, the ghost exchange
+before every pass, and N-sized traffic at the particle <-> grid boundary.
 
-Port of ``cpp_fluid_particles_tpu/parallel/halo.py`` and of the halo
-executor ``column_pass_halo_sym`` (ops/pallas_passes.py:407-521), for one
-process per rank:
+Port of ``cpp_fluid_particles_tpu/parallel/halo.py``, of the halo executor
+``column_pass_halo_sym`` (ops/pallas_passes.py:407-521) and, for the 2-D
+mesh, of the (x, z)-slab executor ``column_pass_xla_sym_5d`` (:524-590),
+for one process per rank:
 
 * The particle state stays replicated, so every rank builds the same box
   index from the same state with no collective, and every capacity
   decision comes out the same on every rank.
-* Rank r owns the box's core x-planes [x0, x1) (``mesh.plane_split``). Its
-  window is an ordinary ghosted box, ``DenseDims(x1 - x0, BY, BZ, K)``:
-  the box's ghosted planes [x0, x1 + 2). Its slot list (``slab_slots``)
-  names only its own particles; the fill scatters them, the passes run on
-  them, and the rank reads them back.
-* ``exchange``: before every pass the two ghost x-planes of the pass's
-  operand stack are refreshed from the neighbours' edge planes (at either
-  end of the box they keep the box's own ghost plane). An operand computed
-  in grid space is stale in the ghost planes otherwise. The pass then
-  reads, for each own slot, bitwise the bytes the single-device pass
-  reads, so its outputs on the own planes are bitwise the same.
+* Rank r owns a block of the box: the core x-planes [x0, x1) and core
+  z-planes [z0, z1) that ``mesh.plane_split`` gives its place on each axis
+  of the mesh (a 1-D mesh is the (n, 1) mesh: every rank owns all of z),
+  and all of y. Its window is an ordinary ghosted box,
+  ``DenseDims(x1 - x0, BY, z1 - z0, K)``: the box's ghosted planes
+  [x0, x1 + 2) and [z0, z1 + 2). Its slot list (``slab_slots``) names only
+  its own particles; the fill scatters them, the passes run on them, and
+  the rank reads them back.
+* ``exchange``: before every pass the ghost cells of the pass's operand
+  stack that a neighbour owns are refreshed, in two phases: the x phase
+  sends each x-neighbour the window's edge x-plane (every z of it), then
+  the z phase sends each z-neighbour the edge z-plane of the x-refreshed
+  window, so the diagonal (±1, ·, ±1) cells arrive through the z-neighbour
+  from the diagonal rank. At the box's ends the window keeps the box's own
+  ghost planes. An operand computed in grid space is stale in the ghost
+  cells otherwise. The pass then reads, for each own slot, bitwise the
+  bytes the single-device pass reads, so its outputs on the own cells are
+  bitwise the same.
 * ``read_sharded``: each rank reads its own particles; an all-reduce SUM
   over the int32 bit patterns, with zero words for the particles a rank
   does not own, gives every rank the (F, N) result. Exactly one rank owns
   each valid slot, so a stored -0.0 survives.
 * The host's decisions read values that are bitwise those of the
-  single-device run: ``whole`` gathers the own planes (and the box's two
-  outer ghost planes) into the whole box's layout, for a float sum whose
-  order must not change; ``reduce_any``, ``reduce_max`` and ``reduce_sum``
-  are exact all-reduces (MAX, or SUM of integers) over the same planes.
+  single-device run: ``whole`` gathers the own cells (and the box's outer
+  ghost planes) into the whole box's layout, for a float sum whose order
+  must not change; ``reduce_any``, ``reduce_max`` and ``reduce_sum`` are
+  exact all-reduces (MAX, or SUM of integers) over the same cells.
 
 Collectives: NCCL for CUDA tensors, gloo for CPU ones. Gloo takes
 ``all_reduce`` on CUDA tensors but not ``all_gather`` or point-to-point;
 for those the gloo branch stages through host memory (``STAGED`` names
-what it staged). ``COUNTS`` counts the exchanges, the bytes each rank sent
-in them, and the other collectives.
+what it staged). ``COUNTS`` counts the exchanges (one per pass that moved
+anything), the bytes each rank sent in them, in all and per axis
+(``exchange_bytes_x``, ``exchange_bytes_z``), and the other collectives.
 """
 
 from __future__ import annotations
@@ -59,55 +67,102 @@ def reset_counts() -> None:
 
 
 class Slab(NamedTuple):
-    """Rank ``mesh.rank``'s x-slab of a box of ``bx`` core x-planes."""
+    """Rank ``mesh.rank``'s block of a box of ``bx`` core x-planes and
+    (where given) ``bz`` core z-planes: an x-slab on a 1-D mesh."""
 
     mesh: Mesh
-    split: Tuple[Tuple[int, int], ...]   # every rank's [x0, x1)
+    split: Tuple[Tuple[int, int], ...]   # [x0, x1) of each x place
     left: Optional[int]    # the rank owning core plane x0 - 1, if any
     right: Optional[int]   # the rank owning core plane x1, if any
+    zsplit: Optional[Tuple[Tuple[int, int], ...]] = None  # [z0, z1) of
+    # each z place; None: only the x split is known (make_slab without bz)
+    front: Optional[int] = None   # the rank owning core z-plane z0 - 1
+    back: Optional[int] = None    # the rank owning core z-plane z1
 
     @property
     def x0(self) -> int:
-        return self.split[self.mesh.rank][0]
+        return self.split[self.mesh.coords()[0]][0]
 
     @property
     def x1(self) -> int:
-        return self.split[self.mesh.rank][1]
+        return self.split[self.mesh.coords()[0]][1]
+
+    @property
+    def z0(self) -> int:
+        return self.zsplit[self.mesh.coords()[1]][0]
+
+    @property
+    def z1(self) -> int:
+        return self.zsplit[self.mesh.coords()[1]][1]
 
     @property
     def empty(self) -> bool:
-        return self.x1 == self.x0
+        return self.x1 == self.x0 or (self.zsplit is not None
+                                      and self.z1 == self.z0)
 
     @property
     def gx(self) -> int:
         """Ghosted x-planes of the window."""
         return self.x1 - self.x0 + 2
 
-    def keep(self, rank: Optional[int] = None) -> Tuple[int, int]:
-        """The window planes [lo, hi) that ``rank`` contributes to a
-        whole-box tensor: its own planes, and the box's outer ghost plane
-        at either end (rank 0 and the last rank)."""
-        r = self.mesh.rank if rank is None else rank
-        x0, x1 = self.split[r]
-        return (0 if r == 0 else 1,
-                x1 - x0 + (2 if r == self.mesh.size - 1 else 1))
+    @property
+    def gz(self) -> int:
+        """Ghosted z-planes of the window."""
+        return self.z1 - self.z0 + 2
+
+    def keep(self, place: Optional[int] = None,
+             axis: str = "x") -> Tuple[int, int]:
+        """The window planes [lo, hi) along ``axis`` ("x" or "z") that the
+        blocks at ``place`` on that axis (default this rank's; on a 1-D
+        mesh the place is the rank) contribute to a whole-box tensor: their
+        own planes, and the box's outer ghost plane at either end (the
+        first and the last place)."""
+        a = "xz".index(axis)
+        i = self.mesh.coords()[a] if place is None else place
+        split = (self.split, self.zsplit)[a]
+        lo, hi = split[i]
+        return (0 if i == 0 else 1,
+                hi - lo + (2 if i == len(split) - 1 else 1))
 
     def dims(self, box: DenseDims) -> DenseDims:
         """The window's dims in a box of dims ``box``."""
-        return DenseDims(self.x1 - self.x0, box.cy, box.cz, box.k)
+        return DenseDims(self.x1 - self.x0, box.cy, self.z1 - self.z0,
+                         box.k)
 
 
-def make_slab(mesh: Mesh, bx: int) -> Slab:
-    split = tuple(plane_split(bx, mesh.size))
-    x0, x1 = split[mesh.rank]
+def make_slab(mesh: Mesh, bx: int, bz: Optional[int] = None) -> Slab:
+    """Rank ``mesh.rank``'s block of a box of ``bx`` core x-planes and
+    ``bz`` core z-planes (``plane_split`` on each axis of the mesh; a 1-D
+    mesh does not split z). Without ``bz`` only the x split is known,
+    which is all a 1-D mesh's split needs; the window's dims need it. A
+    block that owns no cell has no neighbour."""
+    nx, nz = mesh.blocks
+    ix, iz = mesh.coords()
+    split = tuple(plane_split(bx, nx))
+    if bz is None and nz != 1:
+        raise ValueError("a 2-D mesh's block needs the box's core z-planes "
+                         "(bz)")
+    zsplit = None if bz is None else tuple(plane_split(bz, nz))
+    own = split[ix][1] > split[ix][0] and (
+        zsplit is None or zsplit[iz][1] > zsplit[iz][0])
 
-    def owner(plane):
-        return next(r for r, (a, b) in enumerate(split) if a <= plane < b)
+    def peers(split, i, n, rank_of):
+        """The ranks owning the planes just below and just above place
+        ``i``'s own along one axis."""
+        lo, hi = split[i]
 
-    own = x1 > x0
-    return Slab(mesh, split,
-                owner(x0 - 1) if own and x0 > 0 else None,
-                owner(x1) if own and x1 < bx else None)
+        def owner(plane):
+            return rank_of(next(j for j, (a, b) in enumerate(split)
+                                if a <= plane < b))
+
+        return (owner(lo - 1) if own and lo > 0 else None,
+                owner(hi) if own and hi < n else None)
+
+    left, right = peers(split, ix, bx, lambda j: j * nz + iz)
+    if zsplit is None:
+        return Slab(mesh, split, left, right)
+    front, back = peers(zsplit, iz, bz, lambda j: ix * nz + j)
+    return Slab(mesh, split, left, right, zsplit, front, back)
 
 
 _SLAB: ContextVar[Optional[Slab]] = ContextVar("sph_slab", default=None)
@@ -116,7 +171,7 @@ _SLAB: ContextVar[Optional[Slab]] = ContextVar("sph_slab", default=None)
 @contextlib.contextmanager
 def slab_context(slab: Slab):
     """While active, ops/passes.column_pass takes its operands as this
-    slab's window and refreshes their ghost planes before every pass."""
+    block's window and refreshes their ghost cells before every pass."""
     token = _SLAB.set(slab)
     try:
         yield slab
@@ -130,28 +185,34 @@ def current_slab() -> Optional[Slab]:
 
 def slab_slots(slots: torch.Tensor, box: DenseDims,
                slab: Slab) -> torch.Tensor:
-    """Slots into the whole ghosted box (K, G) -> slots into the slab's
-    window (K, G_l) for the particles on the slab's own planes; every other
-    particle takes the window's trash slot K*G_l."""
-    gyz = box.gy * box.gz
-    gl = slab.gx * gyz
+    """Slots into the whole ghosted box (K, G) -> slots into the block's
+    window (K, G_l) for the particles in the cells the block contributes
+    to the whole box (``kept``: its own cells; a particle sits in a core
+    cell, so exactly one block holds it); every other particle takes the
+    window's trash slot K*G_l."""
+    gl = slab.gx * box.gy * slab.gz
     kk = slots // box.g
     cell = slots - kk * box.g
-    x = cell // gyz
-    own = (slots < box.k * box.g) & (x > slab.x0) & (x <= slab.x1)
-    return torch.where(own, kk * gl + cell - slab.x0 * gyz, box.k * gl)
+    xy, z = cell // box.gz, cell % box.gz
+    x, y = xy // box.gy, xy % box.gy
+    (xlo, xhi), (zlo, zhi) = slab.keep(), slab.keep(axis="z")
+    x, z = x - slab.x0, z - slab.z0
+    own = ((slots < box.k * box.g) & (x >= xlo) & (x < xhi) & (z >= zlo)
+           & (z < zhi))
+    return torch.where(own, kk * gl + (x * box.gy + y) * slab.gz + z,
+                       box.k * gl)
 
 
-def _planes(x: torch.Tensor, slab: Slab) -> torch.Tensor:
-    """(..., G_l) -> the (..., gx, GY*GZ) plane view."""
-    return x.reshape(*x.shape[:-1], slab.gx, -1)
+def _cells(x: torch.Tensor, slab: Slab) -> torch.Tensor:
+    """(..., G_l) -> the (..., gx, GY, gz) cell view."""
+    return x.reshape(*x.shape[:-1], slab.gx, -1, slab.gz)
 
 
 def kept(x: torch.Tensor, slab: Slab) -> torch.Tensor:
-    """The planes of ``x`` (..., G_l) this rank contributes to the whole
-    box: (..., planes, GY*GZ)."""
-    lo, hi = slab.keep()
-    return _planes(x, slab)[..., lo:hi, :]
+    """The cells of ``x`` (..., G_l) this rank contributes to the whole
+    box: (..., x-planes, GY, z-planes)."""
+    (xlo, xhi), (zlo, zhi) = slab.keep(), slab.keep(axis="z")
+    return _cells(x, slab)[..., xlo:xhi, :, zlo:zhi]
 
 
 # ----------------------------------------------------------------------
@@ -216,23 +277,41 @@ def _send_recv(mesh: Mesh, sends, recv_from, like: torch.Tensor):
 # the engine
 # ----------------------------------------------------------------------
 
-def exchange(fl: torch.Tensor, slab: Slab) -> torch.Tensor:
-    """Refresh the two ghost x-planes of the window operand ``fl``
-    (F, K, G_l), in place: plane 0 from the left neighbour's last own
-    plane, plane gx-1 from the right neighbour's first. A plane with no
-    neighbour (the box's own ghost plane) is left as it is."""
-    peers = [p for p in (slab.left, slab.right) if p is not None]
+def _phase(v: torch.Tensor, slab: Slab, lo: Optional[int],
+           hi: Optional[int], axis: str) -> int:
+    """One phase of ``exchange`` along ``axis`` of the cell view ``v``
+    (..., gx, GY, gz), in place: ghost plane 0 from the ``lo`` peer's
+    last own plane, the last ghost plane from the ``hi`` peer's first.
+    Returns the bytes sent."""
+    peers = [p for p in (lo, hi) if p is not None]
     if not peers:
-        return fl
-    v = _planes(fl, slab)
-    ends = {slab.left: (1, 0), slab.right: (slab.gx - 2, slab.gx - 1)}
-    sends = [(v[..., ends[p][0], :].contiguous(), p) for p in peers]
+        return 0
+    dim = -3 if axis == "x" else -1
+    n = v.shape[dim]
+    ends = {lo: (1, 0), hi: (n - 2, n - 1)}
+    sends = [(v.select(dim, ends[p][0]).contiguous(), p) for p in peers]
     got = _send_recv(slab.mesh, sends, peers, sends[0][0])
     for p, plane in zip(peers, got):
-        v[..., ends[p][1], :] = plane
-    COUNTS["exchanges"] += 1
-    COUNTS["exchange_bytes"] += sum(t.numel() * t.element_size()
-                                    for t, _ in sends)
+        v.select(dim, ends[p][1]).copy_(plane)
+    sent = sum(t.numel() * t.element_size() for t, _ in sends)
+    COUNTS[f"exchanges_{axis}"] += 1
+    COUNTS[f"exchange_bytes_{axis}"] += sent
+    return sent
+
+
+def exchange(fl: torch.Tensor, slab: Slab) -> torch.Tensor:
+    """Refresh the ghost cells a neighbour owns of the window operand
+    ``fl`` (F, K, G_l), in place: the x phase (ghost x-planes from the
+    x-neighbours' edge x-planes), then the z phase over the x-refreshed
+    window (ghost z-planes, their x-ghost cells included, from the
+    z-neighbours' edge z-planes). A plane with no neighbour (the box's own
+    ghost plane) is left as it is."""
+    v = _cells(fl, slab)
+    sent = (_phase(v, slab, slab.left, slab.right, "x")
+            + _phase(v, slab, slab.front, slab.back, "z"))
+    if sent:
+        COUNTS["exchanges"] += 1
+        COUNTS["exchange_bytes"] += sent
     return fl
 
 
@@ -253,15 +332,20 @@ def read_sharded(dense: torch.Tensor, slots: torch.Tensor,
 
 def whole(x: torch.Tensor, slab: Slab) -> torch.Tensor:
     """A window tensor (..., G_l) -> the whole box's (..., G): every rank's
-    own planes and the box's two outer ghost planes, in the layout of the
+    own cells and the box's outer ghost planes, in the layout of the
     single-device tensor, on every rank."""
+    mesh = slab.mesh
+    nx, nz = mesh.blocks
     mine = kept(x, slab)
-    sizes = [hi - lo for lo, hi in map(slab.keep, range(slab.mesh.size))]
-    pad = mine.new_zeros(mine.shape[:-2] + (max(sizes), mine.shape[-1]))
-    pad[..., :mine.shape[-2], :] = mine
-    parts = all_gather(pad, slab.mesh)
-    return torch.cat([p[..., :n, :] for p, n in zip(parts, sizes)],
-                     -2).reshape(x.shape[:-1] + (-1,))
+    sx = [hi - lo for lo, hi in (slab.keep(i) for i in range(nx))]
+    sz = [hi - lo for lo, hi in (slab.keep(j, "z") for j in range(nz))]
+    pad = mine.new_zeros(mine.shape[:-3] + (max(sx), mine.shape[-2],
+                                            max(sz)))
+    pad[..., :mine.shape[-3], :, :mine.shape[-1]] = mine
+    parts = all_gather(pad, mesh)
+    rows = [torch.cat([parts[i * nz + j][..., :sx[i], :, :sz[j]]
+                       for j in range(nz)], -1) for i in range(nx)]
+    return torch.cat(rows, -3).reshape(x.shape[:-1] + (-1,))
 
 
 def reduce_any(mask: torch.Tensor, slab: Slab) -> torch.Tensor:

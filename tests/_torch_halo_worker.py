@@ -1,20 +1,23 @@
-"""One rank of the port's ghost-plane exchange check, on the CPU over gloo.
+"""One rank of the port's ghost exchange check, on the CPU over gloo.
 
-Launched once per rank by ``tests/test_torch_parallel.py`` under the
+Launched once per rank by ``tests/test_torch_parallel.py`` (the 1-D mesh)
+and ``tests/test_torch_parallel2d.py`` (the 2-D mesh) under the
 environment contract (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK,
-LOCAL_RANK) with the output path as its argument. Every rank records, on
+LOCAL_RANK) with the output path as its argument, and for the 2-D mesh its
+shape NXxNZ as the second. Every rank records, on
 one device, the operands that the steps give each of the fourteen
 particle-list passes on a jittered block resting on the floor with random
 velocities (after one frame, so the operands that come from grid space are
 real: DFSPH's Jacobi iterates, PBD's projected positions and lambda), and
 each pass's single-device output. Then, under a mesh of every rank, each
-rank cuts its slab's window out of those operands, overwrites the ghost
-planes that a neighbour owns with NaN (stale values), runs the pass
-through ``passes.column_pass`` under the slab, and compares its own planes
-with the single-device output bitwise. It also holds ``read_sharded``
-(-0.0 included), ``whole`` and the exact reductions against their
-single-device counterparts, also on a box of one x-plane, where a rank
-owns none. Writes a JSON record to the output path.
+rank cuts its block's window out of those operands, overwrites the ghost
+cells that a neighbour owns with NaN (stale values: faces, and on the 2-D
+mesh edges and corners), runs the pass through ``passes.column_pass``
+under the block, and compares its own cells with the single-device output
+bitwise. It also holds ``read_sharded`` (-0.0 included), ``whole`` and the
+exact reductions against their single-device counterparts, also on boxes
+of one x-plane or one z-plane, where a rank owns none. Writes a JSON
+record to the output path.
 """
 
 import json
@@ -96,10 +99,18 @@ def record():
 
 
 def window(x, slab, dims):
-    """The slab's window planes of a whole-grid tensor (F, K, G)."""
-    v = x.reshape(x.shape[0], x.shape[1], dims.gx, -1)
-    return v[:, :, slab.x0:slab.x1 + 2].reshape(x.shape[0], x.shape[1],
-                                               -1).contiguous()
+    """The block's window cells of a whole-grid tensor (F, K, G)."""
+    v = x.reshape(x.shape[0], x.shape[1], dims.gx, dims.gy, dims.gz)
+    return v[:, :, slab.x0:slab.x1 + 2, :, slab.z0:slab.z1 + 2].reshape(
+        x.shape[0], x.shape[1], -1).contiguous()
+
+
+def own(x, slab, dims, x0=0, z0=0):
+    """The own cells [x0 + 1, x0 + 1 + planes) x [z0 + 1, ...) of a grid
+    tensor (F, K, G) of ``dims``."""
+    v = x.reshape(x.shape[0], x.shape[1], dims.gx, dims.gy, dims.gz)
+    return v[:, :, x0 + 1:x0 + 1 + slab.x1 - slab.x0, :,
+             z0 + 1:z0 + 1 + slab.z1 - slab.z0]
 
 
 def bits(x):
@@ -110,36 +121,42 @@ def check_pass(name, call, mesh):
     fl, bd, dims, dims_b, islots, cfg = call
     pname = "stiffness_accel" if name == "pbd_stiffness_accel" else name
     want = pp.column_pass(pname, fl, bd, dims, dims_b, cfg, islots=islots)
-    slab = halo.make_slab(mesh, dims.cx)
+    slab = halo.make_slab(mesh, dims.cx, dims.cz)
     fl_l = window(fl, slab, dims)
-    v = fl_l.view(fl.shape[0], fl.shape[1], slab.gx, -1)
+    ldims = slab.dims(dims)
+    v = fl_l.view(fl.shape[0], fl.shape[1], ldims.gx, ldims.gy, ldims.gz)
     if slab.left is not None:
         v[:, :, 0] = float("nan")
     if slab.right is not None:
         v[:, :, -1] = float("nan")
+    if slab.front is not None:
+        v[..., 0] = float("nan")
+    if slab.back is not None:
+        v[..., -1] = float("nan")
     bd_l = window(bd, slab, dims) if bd is not None else None
-    ldims = slab.dims(dims)
     ldims_b = slab.dims(dims_b) if dims_b is not None else None
     islots_l = halo.slab_slots(islots, dims, slab)
     before = halo.COUNTS["exchanges"]
     with halo.slab_context(slab):
         got = pp.column_pass(pname, fl_l, bd_l, ldims, ldims_b, cfg,
                              islots=islots_l)
-    own = got.reshape(got.shape[0], got.shape[1], slab.gx, -1)[:, :, 1:-1]
-    ref = want.reshape(want.shape[0], want.shape[1], dims.gx, -1)[
-        :, :, slab.x0 + 1:slab.x1 + 1]
-    return {"bitwise": bool(torch.equal(bits(own), bits(ref))),
-            "max_abs": float((own - ref).abs().nan_to_num(np.inf).max()),
+    mine = own(got, slab, ldims)
+    ref = own(want, slab, dims, slab.x0, slab.z0)
+    return {"bitwise": bool(torch.equal(bits(mine), bits(ref))),
+            "max_abs": float((mine - ref).abs().nan_to_num(np.inf).max()),
             "exchanges": halo.COUNTS["exchanges"] - before,
-            "planes": [slab.x0, slab.x1], "nonzero": int((ref != 0).sum())}
+            "planes": [slab.x0, slab.x1], "zplanes": [slab.z0, slab.z1],
+            "peers": [slab.left, slab.right, slab.front, slab.back],
+            "nonzero": int((ref != 0).sum())}
 
 
-def check_boundary(mesh, cx):
+def check_boundary(mesh, cx, cz=5):
     """read_sharded keeps -0.0; whole and the reductions equal their
-    single-device counterparts, on a box of ``cx`` core x-planes (with
-    fewer planes than ranks, a rank owns none)."""
+    single-device counterparts, on a box of ``cx`` core x-planes and
+    ``cz`` core z-planes (with fewer planes than ranks on an axis, a rank
+    owns none)."""
     rng = np.random.default_rng(3)
-    dims = dense.DenseDims(cx, 4, 5, 3)
+    dims = dense.DenseDims(cx, 4, cz, 3)
     x = torch.as_tensor(rng.normal(size=(2, dims.k, dims.g)).astype(
         np.float32))
     x[x.abs() < 0.3] = -0.0
@@ -150,7 +167,7 @@ def check_boundary(mesh, cx):
     slots[::7] = dims.k * dims.g
     idx = dense.DenseIndex(slots=slots, valid=slots < dims.k * dims.g,
                            overflow=None, max_occupancy=None)
-    slab = halo.make_slab(mesh, dims.cx)
+    slab = halo.make_slab(mesh, dims.cx, dims.cz)
     lslots = halo.slab_slots(slots, dims, slab)
     got = torch.where(idx.valid[None, :],
                       halo.read_sharded(window(x, slab, dims), lslots, mesh),
@@ -164,7 +181,8 @@ def check_boundary(mesh, cx):
         "any": bool(halo.reduce_any(xl > 2.5, slab)) == bool(
             torch.any(x > 2.5)),
         "max": bool(halo.reduce_max(xl, slab) == torch.max(x)),
-        "sum": int(halo.reduce_sum(xl > 0, slab)) == int((x > 0).sum())}
+        "sum": int(halo.reduce_sum(xl > 0, slab)) == int((x > 0).sum()),
+        "empty": slab.empty}
 
 
 def main():
@@ -172,16 +190,25 @@ def main():
     assert parallel.distributed.is_multiprocess_env()
     assert parallel.distributed.ensure_initialized() is True
     assert parallel.distributed.ensure_initialized() is True   # idempotent
-    mesh = parallel.make_mesh(device="cpu")
+    if len(sys.argv) > 2:
+        shape = tuple(int(a) for a in sys.argv[2].split("x"))
+        mesh = parallel.make_mesh2d(shape, device="cpu")
+        boxes = {f"{cx}x{cz}": (cx, cz)
+                 for cx, cz in ((6, 5), (6, 1), (1, 5), (1, 1))}
+    else:
+        mesh = parallel.make_mesh(device="cpu")
+        boxes = {str(cx): (cx, 5) for cx in (6, 1)}
     assert mesh.size == int(os.environ["WORLD_SIZE"])
     assert mesh.rank == parallel.distributed.process_index()
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+           "axes": list(mesh.axes), "coords": list(mesh.coords()),
            "slice": [parallel.distributed.local_device_slice(101).start,
                      parallel.distributed.local_device_slice(101).stop]}
     calls = record()
     out["passes"] = {name: check_pass(name, call, mesh)
                      for name, call in sorted(calls.items())}
-    out["boundary"] = {cx: check_boundary(mesh, cx) for cx in (6, 1)}
+    out["boundary"] = {key: check_boundary(mesh, *box)
+                       for key, box in boxes.items()}
     torch.distributed.destroy_process_group()
     with open(sys.argv[1], "w") as f:
         json.dump(out, f)

@@ -189,10 +189,6 @@ def test_no_fallback_and_not_ported():
     with pytest.raises(NotImplementedError, match="GSPMD"):
         T.Simulation(solver="wcsph", cfg=cfg.replace(halo_comm="gspmd"),
                      fluid_pos=pos, device="cpu", mesh=cpu)
-    with pytest.raises(NotImplementedError):
-        parallel.make_mesh2d()
-    with pytest.raises(NotImplementedError):
-        parallel.mesh_is_2d(cpu)
     with pytest.raises(ValueError, match="rank"):
         parallel.make_mesh(2)
     with pytest.raises(ValueError, match="halo_comm"):
