@@ -61,6 +61,7 @@ class Layout(NamedTuple):
 
     idx: bx.BoxIndex         # the whole box's index (the same on every rank)
     islots: torch.Tensor     # (N,) slot list of this rank's grid
+    work: torch.Tensor       # islots in cell-major order: the passes' list
     fill: Callable           # (fields, fills) -> stacked grid tensor
     read: Callable           # grid tensor -> (F, N)
     dims: DenseDims          # grid dims for the fluid passes
@@ -77,17 +78,17 @@ def _layout(pos, cfg, dims, dims_b, scene_d, box) -> Layout:
     if slab is None:
         bdx = bx.slice_boundary_box(scene_d.bd, dims, bdims, idx.origin)
         return Layout(
-            idx=idx, islots=idx.slots,
+            idx=idx, islots=idx.slots, work=idx.work,
             fill=lambda fields, fills: bx.fill_box(idx, fields, fills,
                                                    bdims),
             read=lambda arr: bx.read_box(idx, arr),
             dims=bdims, dims_b=bdims_b, bd=bdx, slab=None)
     # every rank built the same index from the same state; it fills,
     # passes and reads its own particles on its window
-    islots, ldims, ldims_b, bdx = bx.slab_window(idx, scene_d.bd, dims,
-                                                 bdims, bdims_b, slab)
+    islots, work, ldims, ldims_b, bdx = bx.slab_window(
+        idx, scene_d.bd, dims, bdims, bdims_b, slab)
     return Layout(
-        idx=idx, islots=islots,
+        idx=idx, islots=islots, work=work,
         fill=lambda fields, fills: bx.fill_box(idx._replace(slots=islots),
                                                fields, fills, ldims),
         read=lambda arr: torch.where(
@@ -374,26 +375,26 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
     if _surface_on(cfg):
         o = pp.density_colorgrad_visc_pass(pmv, bdx, dims, dims_b, cfg,
-                                           executor, islots=lo.islots)
+                                           executor, islots=lo.work)
         rho = o[0]
         cg = o[1:4] / torch.clamp(o[4], min=cfg.epsilon)[None]
         vel_d = vel_d + o[5:8] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
         sp = pp.surface_pressure_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None], cg], 0),
-            bdx, dims, dims_b, cfg, executor, islots=lo.islots)
+            bdx, dims, dims_b, cfg, executor, islots=lo.work)
         vel_d = vel_d + sp[0:3] * dt
         vel_d = vel_d + _accel_clamp(sp[3:6], cfg) * dt
     else:
         o = pp.density_visc_pass(pmv, bdx, dims, dims_b, cfg, executor,
-                                 islots=lo.islots)
+                                 islots=lo.work)
         rho = o[0]
         vel_d = vel_d + o[1:4] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
         # no position moved since the fill: the list names every real slot
         a = pp.pressure_force_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None]], 0),
-            bdx, dims, dims_b, cfg, executor, islots=lo.islots)
+            bdx, dims, dims_b, cfg, executor, islots=lo.work)
         vel_d = vel_d + _accel_clamp(a, cfg) * dt
 
     pos, vel, out = _advect_read(lo, state, cfg, dt, pos_d, vel_d, [rho, p])
@@ -474,12 +475,12 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     if surface_on:
         # fused traversal: rho/alpha + color-field sums share [pos, mass]
         da = pp.density_alpha_colorgrad_pass(pm, bdx, dims, dims_b, cfg,
-                                             executor, islots=lo.islots)
+                                             executor, islots=lo.work)
         cg = da[5:8] / torch.clamp(da[8], min=cfg.epsilon)[None]
     else:
         # the fill's own grid: the list names every real slot once
         da = pp.density_alpha_pass(pm, bdx, dims, dims_b, cfg, executor,
-                                   islots=lo.islots)
+                                   islots=lo.work)
     rho = da[0]
     alpha = _const(-1.0, rho) / torch.clamp(
         da[1] * da[1] + da[2] * da[2] + da[3] * da[3] + da[4],
@@ -490,11 +491,11 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
 
     def div_pass(v_d):
         return pp.divergence_pass((pm, v_d), bdx, dims, dims_b, cfg,
-                                  executor, islots=lo.islots)
+                                  executor, islots=lo.work)
 
     def sa_pass(s_d):
         return pp.stiffness_accel_pass((pm, s_d[None]), bdx, dims, dims_b,
-                                       cfg, executor, islots=lo.islots)
+                                       cfg, executor, islots=lo.work)
 
     # --- divergence solve (src/DFSPHSolver.cu:331-363) ---
     def div_error(v_d):
@@ -521,11 +522,11 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     vel_d = _grav(vel_d, cfg, dt)
     vel_d = vel_d + pp.viscosity_pass(
         (pm, vel_d), dims, cfg, executor,
-        islots=lo.islots) * _visc_dt(cfg, dt)
+        islots=lo.work) * _visc_dt(cfg, dt)
     if surface_on:
         # cg came fused with the density/alpha traversal above
         sa = pp.surface_pass(torch.cat([pos_d, mass_d, cg], 0), dims, cfg,
-                             executor, islots=lo.islots)
+                             executor, islots=lo.work)
         vel_d = vel_d + sa * dt
 
     # --- density solve with warm start (src/DFSPHSolver.cu:160-210) ---
@@ -591,7 +592,7 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
     def project_once(p_d):
         lam5 = pp.pbd_lambda_pass(torch.cat([p_d, mass_d], 0), bdx, dims,
                                   dims_b, cfg, executor,
-                                  islots=lo.islots)
+                                  islots=lo.work)
         rho = lam5[0]
         lam = torch.where(
             rho > cfg.rho0,
@@ -607,7 +608,7 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
                              > _f32(cfg.pbd_density_tolerance))
         dp = pp.stiffness_accel_pass((p_d, mass_d, lam[None]), bdx, dims,
                                      dims_b, cfg, executor,
-                                     islots=lo.islots) / rho0
+                                     islots=lo.work) / rho0
         return _clamp_pos_only(p_d + dp, cfg), rho, alive
 
     # --- projection (src/PBDSolver.cu:225-258), driven by the host: the
@@ -650,15 +651,15 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
     pmv = torch.cat([pos_d, mass_d, vel_d], 0)
     if _surface_on(cfg):
         o = pp.xsph_colorgrad_pass(pmv, bdx, dims, dims_b, cfg, executor,
-                                   islots=lo.islots)
+                                   islots=lo.work)
         vel_d = vel_d + o[0:3] * xsph_c
         cg = o[3:6] / torch.clamp(o[6], min=cfg.epsilon)[None]
         sa = pp.surface_pass(torch.cat([pos_d, mass_d, cg], 0), dims, cfg,
-                             executor, islots=lo.islots)
+                             executor, islots=lo.work)
         vel_d = vel_d + sa * dt
     else:
         vel_d = vel_d + pp.xsph_pass(pmv, dims, cfg, executor,
-                                     islots=lo.islots) * xsph_c
+                                     islots=lo.work) * xsph_c
     vel_d = _grav(vel_d, cfg, dt)
 
     # --- remember + predict (src/PBDSolver.cu:71-79); the warm carry is

@@ -12,14 +12,20 @@ device-side origin:
   * every neighbor pass is an ordinary flat pass with
     ``DenseDims(BX, BY, BZ, K)``.
 
+The index also lists the slots in cell-major order (``BoxIndex.work``,
+from the same stable sort that ranks the particles), the list the
+particle-list passes take: the particles a block of the kernel serves then
+share their neighbour cells, so the kernel finds their rows in L1. The
+passes' outputs do not depend on the list's order.
+
 Fluid outside the box (possible only when the true bounding box exceeds
 the box size) follows the ballistic fallback and is counted in
 ``box_overflow``; Simulation then refits the box to the measured extents
 and re-runs the frame from the pre-frame state (the no-drop contract).
 
 Under a mesh each rank runs the passes on its block of the box
-(parallel/halo.py): ``slab_window`` gives the rank's window, its slot list
-and its boundary window; the fill and the read then run on the window
+(parallel/halo.py): ``slab_window`` gives the rank's window, its slot
+lists and its boundary window; the fill and the read then run on the window
 (the JAX package's mesh branches, box.py:143-205, in the form of
 parallel/halo.py).
 
@@ -35,7 +41,7 @@ import torch
 
 from ..config import SimConfig
 from ..parallel import halo
-from .dense import (DenseDims, cell_ranks, clamp_coords, fill_dense,
+from .dense import (DenseDims, cell_order, clamp_coords, fill_dense,
                     read_dense)
 from .grid import cell_coords
 
@@ -44,6 +50,10 @@ class BoxIndex(NamedTuple):
     """Per-step particle -> box-slot assignment."""
 
     slots: torch.Tensor       # (N,) int64 into the flat ghosted box; trash=total
+    # the same slots in cell-major order (cells ascending, ranks ascending in
+    # each): the particle-list passes' slot list, so that the particles a
+    # block of the kernel takes share their neighbour cells in its L1
+    work: torch.Tensor
     valid: torch.Tensor       # (N,) bool
     origin: torch.Tensor      # (3,) int32 box core origin in cell coords
     ext: torch.Tensor         # (3,) int32 measured fluid cell extents
@@ -60,7 +70,8 @@ def build_box_index(pos: torch.Tensor, cfg: SimConfig, full: DenseDims,
     inb, cc = clamp_coords(cell_coords(pos, cfg), full)
     # within-cell ranks on FULL-domain cell ids
     cell = (cc[:, 0] * full.cy + cc[:, 1]) * full.cz + cc[:, 2]
-    rank = cell_ranks(torch.where(inb, cell, full.cx * full.cy * full.cz))
+    rank, order = cell_order(torch.where(inb, cell,
+                                         full.cx * full.cy * full.cz))
 
     # fluid bounding box -> box origin (device-side; the box SIZE is fixed)
     big = 1 << 20
@@ -84,7 +95,8 @@ def build_box_index(pos: torch.Tensor, cfg: SimConfig, full: DenseDims,
     box_overflow = (inb & ~inbox).sum().to(torch.int32)
     overflow = (inbox & (rank >= box.k)).sum().to(torch.int32)
     max_occ = (torch.where(inb, rank, -1).max() + 1).to(torch.int32)
-    return BoxIndex(slots=slots, valid=valid, origin=origin, ext=ext,
+    return BoxIndex(slots=slots, work=slots[order], valid=valid,
+                    origin=origin, ext=ext,
                     overflow=overflow, box_overflow=box_overflow,
                     max_occupancy=max_occ)
 
@@ -116,9 +128,11 @@ def slice_boundary_box(bd: torch.Tensor, full: DenseDims, box: DenseDims,
 def slab_window(idx: BoxIndex, bd: torch.Tensor, full: DenseDims,
                 box: DenseDims, box_b: DenseDims, slab: "halo.Slab"):
     """A rank's block of the box whose index is ``idx`` -> (its slot list
-    (N,), its window dims, its boundary window dims, its boundary window
-    (Fb, Kb, G_l) cut from the full-domain ``bd``)."""
+    (N,), the same in cell-major order (``BoxIndex.work``), its window
+    dims, its boundary window dims, its boundary window (Fb, Kb, G_l) cut
+    from the full-domain ``bd``)."""
     dims_b = slab.dims(box_b)
-    return (halo.slab_slots(idx.slots, box, slab), slab.dims(box), dims_b,
+    return (halo.slab_slots(idx.slots, box, slab),
+            halo.slab_slots(idx.work, box, slab), slab.dims(box), dims_b,
             slice_boundary_box(bd, full, dims_b, idx.origin, slab.x0,
                                slab.z0))

@@ -86,9 +86,10 @@ def clamp_coords(c: torch.Tensor, full: DenseDims):
     return inb, cc
 
 
-def cell_ranks(key: torch.Tensor) -> torch.Tensor:
-    """Rank of each particle within its key run: stable argsort + run-length
-    scan, the same permutation contract as the reference's counting sort
+def cell_order(key: torch.Tensor):
+    """-> (rank of each particle within its key run, the particles sorted
+    by key, ties in index order): stable argsort + run-length scan, the
+    same permutation contract as the reference's counting sort
     (src/SPHSystem.cu:114-127) and the JAX package's index builders."""
     n = key.shape[0]
     order = torch.argsort(key, stable=True)
@@ -99,7 +100,12 @@ def cell_ranks(key: torch.Tensor) -> torch.Tensor:
     run_start = torch.cummax(torch.where(newrun, iota, 0), 0).values
     rank = torch.empty_like(iota)
     rank[order] = iota - run_start
-    return rank
+    return rank, order
+
+
+def cell_ranks(key: torch.Tensor) -> torch.Tensor:
+    """Rank of each particle within its key run (``cell_order``)."""
+    return cell_order(key)[0]
 
 
 def build_dense_index(pos: torch.Tensor, cfg: SimConfig,

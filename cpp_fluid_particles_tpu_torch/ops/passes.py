@@ -13,9 +13,10 @@ defined by two TERM functions in vector-component form over pair blocks
     boundary operand (``bd=None``, ``dims_b=None``).
 
 Executors (same signature, ``(name, fl, bd, dims, dims_b, cfg,
-islots=None) -> (n_out, K, G)``; ``islots`` is the particle -> slot list
-of fl's grid, the step's ``BoxIndex.slots`` or the scene build's boundary
-``DenseIndex.slots``, which the callers of ``PARTICLE_PASSES`` give):
+islots=None) -> (n_out, K, G)``; ``islots`` lists the particles' slots
+of fl's grid, the step's ``BoxIndex.work`` (in cell-major order) or the
+scene build's boundary ``DenseIndex.slots``, which the callers of
+``PARTICLE_PASSES`` give):
 
   * ``column_pass_plain`` — port of ``column_pass_xla`` (pallas_passes.py:287)
     with ``_std_body`` (:780): the plain lane-major 27-offset loop in torch
@@ -642,7 +643,7 @@ def density_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
 def density_colorgrad_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                                 islots):
     """fl: [pos3, mass, vel3]; bd: [pos3, mass]; islots: the step's
-    ``BoxIndex.slots``. Returns (8, K, G)."""
+    ``BoxIndex.work``. Returns (8, K, G)."""
     return column_pass("density_colorgrad_visc", fl, bd, dims, dims_b, cfg,
                        executor, islots=islots)
 
@@ -650,14 +651,14 @@ def density_colorgrad_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
 def surface_pressure_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                           islots):
     """fl: [pos3, mass, rho, p, cg3]; bd: [pos3, mass]; islots: the step's
-    ``BoxIndex.slots``. Returns (6, K, G)."""
+    ``BoxIndex.work``. Returns (6, K, G)."""
     return column_pass("surface_pressure", fl, bd, dims, dims_b, cfg,
                        executor, islots=islots)
 
 
 def density_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
     """fl: [pos3, mass, vel3]; bd: [pos3, mass]; islots: the step's
-    ``BoxIndex.slots``. Returns (4, K, G): [rho, dvx, dvy, dvz]."""
+    ``BoxIndex.work``. Returns (4, K, G): [rho, dvx, dvy, dvz]."""
     return column_pass("density_visc", fl, bd, dims, dims_b, cfg, executor,
                        islots=islots)
 
@@ -665,13 +666,13 @@ def density_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
 def pressure_force_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                         islots):
     """fl: [pos3, mass, rho, p]; bd: [pos3, mass]; islots: the step's
-    ``BoxIndex.slots``. Returns (3, K, G)."""
+    ``BoxIndex.work``. Returns (3, K, G)."""
     return column_pass("pressure_force", fl, bd, dims, dims_b, cfg,
                        executor, islots=islots)
 
 
 def density_alpha_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
-    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.slots``. Returns
+    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.work``. Returns
     (5, K, G): [rho, gsumx, gsumy, gsumz, slam]."""
     return column_pass("density_alpha", fl, bd, dims, dims_b, cfg, executor,
                        islots=islots)
@@ -679,7 +680,7 @@ def density_alpha_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
 
 def density_alpha_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                                  islots):
-    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.slots``. Returns
+    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.work``. Returns
     (9, K, G): density_alpha's five rows, then [numx, numy, numz, den]."""
     return column_pass("density_alpha_colorgrad", fl, bd, dims, dims_b, cfg,
                        executor, islots=islots)
@@ -687,7 +688,7 @@ def density_alpha_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
 
 def divergence_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
     """fl: the field groups ([pos3, mass], vel3); bd: [pos3, mass];
-    islots: the step's ``BoxIndex.slots``. Returns the (K, G) divergence
+    islots: the step's ``BoxIndex.work``. Returns the (K, G) divergence
     grid."""
     return column_pass("divergence", fl, bd, dims, dims_b, cfg, executor,
                        islots=islots)[0]
@@ -696,14 +697,14 @@ def divergence_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
 def stiffness_accel_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                          islots):
     """fl: the field groups ([pos3, mass], stiff[None]); bd: [pos3, mass];
-    islots: the step's ``BoxIndex.slots``. Returns (3, K, G)."""
+    islots: the step's ``BoxIndex.work``. Returns (3, K, G)."""
     return column_pass("stiffness_accel", fl, bd, dims, dims_b, cfg,
                        executor, islots=islots)
 
 
 def viscosity_pass(fl, dims, cfg, executor=None, *, islots):
     """fl: the field groups ([pos3, mass], vel3); fluid only; islots: the
-    step's ``BoxIndex.slots``. Returns (3, K, G); the caller scales by
+    step's ``BoxIndex.work``. Returns (3, K, G); the caller scales by
     visc*dt."""
     return column_pass("viscosity", fl, None, dims, None, cfg, executor,
                        islots=islots)
@@ -711,13 +712,13 @@ def viscosity_pass(fl, dims, cfg, executor=None, *, islots):
 
 def surface_pass(fl, dims, cfg, executor=None, *, islots):
     """fl: [pos3, mass, cg3]; fluid only; islots: the step's
-    ``BoxIndex.slots``. Returns (3, K, G)."""
+    ``BoxIndex.work``. Returns (3, K, G)."""
     return column_pass("surface", fl, None, dims, None, cfg, executor,
                        islots=islots)
 
 
 def pbd_lambda_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
-    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.slots``.
+    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.work``.
     Returns (5, K, G): [rho, gsumx, gsumy, gsumz, slam]."""
     return column_pass("pbd_lambda", fl, bd, dims, dims_b, cfg, executor,
                        islots=islots)
@@ -726,7 +727,7 @@ def pbd_lambda_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
 def xsph_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                         islots):
     """fl: [pos3, mass, vel3]; bd: [pos3, mass]; islots: the step's
-    ``BoxIndex.slots``. Returns (7, K, G): [dvx, dvy, dvz, numx, numy,
+    ``BoxIndex.work``. Returns (7, K, G): [dvx, dvy, dvz, numx, numy,
     numz, den]; the caller scales dv by c/rho0."""
     return column_pass("xsph_colorgrad", fl, bd, dims, dims_b, cfg,
                        executor, islots=islots)
@@ -734,7 +735,7 @@ def xsph_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
 
 def xsph_pass(fl, dims, cfg, executor=None, *, islots):
     """fl: [pos3, mass, vel3]; fluid only; islots: the step's
-    ``BoxIndex.slots``. Returns (3, K, G); the caller scales by c/rho0."""
+    ``BoxIndex.work``. Returns (3, K, G); the caller scales by c/rho0."""
     return column_pass("xsph", fl, None, dims, None, cfg, executor,
                        islots=islots)
 

@@ -1,6 +1,6 @@
 """The yardsticks that hold a kernel against its plain version on the card
 and the renderer against another render: the per-row tolerance, the
-render bar and the CUDA-event timer.
+render bar and the CUDA-event timers.
 
 ``PASS_BAR`` is the JAX package's Pallas bar
 (tests/test_pallas_engine.py:125-126): per output row, rtol 2e-5 plus atol
@@ -42,6 +42,29 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def time_graph_ms(fn, reps: int) -> float:
+    """ms per call of fn from CUDA events around one replay of a CUDA graph
+    that captured reps calls: their device time back to back, without the
+    host's enqueueing between them, which time_ms includes when a call's
+    device work is shorter than its host work. fn runs once first, outside
+    the graph."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps

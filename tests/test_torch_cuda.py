@@ -3,10 +3,12 @@ for pbd_lambda, stiffness_accel, divergence, surface_pressure,
 density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
 density_visc, pressure_force, density_alpha, the fluid-only viscosity,
 surface and xsph, and the scene build's density (at each group width and
-reduction the pass takes; the wrapper refuses the others), and its
-brick-tiled fluid-only variant on the card. Every Simulation on the card
-launches the particle-list density once, for its scene, and the column
-kernel never.
+reduction the pass takes; the wrapper refuses the others), the candidate
+kernel of divergence and density_colorgrad_visc (on the steps' slot
+lists, on cells full to K and on empty ones, on a 2x2 block's window, and
+in a solver step), and its brick-tiled fluid-only variant on the card.
+Every Simulation on the card launches the particle-list density once, for
+its scene, and the column kernel never.
 
 Marked ``cuda``; each test skips where ``torch.cuda.is_available()`` is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -25,9 +27,14 @@ import torch
 import cpp_fluid_particles_tpu_torch as T
 from cpp_fluid_particles_tpu_torch.exp import flat_pallas_proto as fp
 from cpp_fluid_particles_tpu_torch.models import dense_step as ds
+from cpp_fluid_particles_tpu_torch.ops import box as bxm
 from cpp_fluid_particles_tpu_torch.ops import column_pass_cuda as cc
 from cpp_fluid_particles_tpu_torch.ops import passes as pp
+from cpp_fluid_particles_tpu_torch.ops.dense import DenseDims
+from cpp_fluid_particles_tpu_torch.ops.grid import POS_PAD
 from cpp_fluid_particles_tpu_torch.ops.passes import flat_pallas_pass
+from cpp_fluid_particles_tpu_torch.parallel import halo
+from cpp_fluid_particles_tpu_torch.parallel import mesh as tmesh
 
 pytestmark = pytest.mark.cuda
 
@@ -257,9 +264,9 @@ def _no_r2_cut(monkeypatch):
 def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
     """The squared-distance early-out rejects only pairs that in_support
     rejects too, and runs the same float operations on the others: the
-    column kernel, and the particle-list kernel at every (width,
-    reduction) of the pass, give bitwise the same output with r2_cut as
-    with +inf."""
+    column kernel, and the particle-list kernel in each of its designs at
+    every (width, reduction) of the pass, give bitwise the same output with
+    r2_cut as with +inf."""
     _, fl, bd, dims, dims_b, islots = operands[name]
 
     def run_all():
@@ -267,14 +274,15 @@ def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
         if name in pp.PARTICLE_PASSES:
             outs += [cc.particle_pass_cuda(name, fl, bd, islots, dims,
                                            dims_b, CFG, lanes=lanes,
-                                           reduction=red)
+                                           reduction=red, design=design)
+                     for design in cc.designs(name)
                      for lanes, red in cc.variants(name)]
         torch.cuda.synchronize()
         return outs
     cut = run_all()
     _no_r2_cut(monkeypatch)
     uncut = run_all()
-    assert len(cut) == 1 + (len(cc.variants(name))
+    assert len(cut) == 1 + (len(cc.variants(name)) * len(cc.designs(name))
                             if name in pp.PARTICLE_PASSES else 0)
     for a, b in zip(cut, uncut):
         assert torch.equal(a, b)
@@ -580,3 +588,269 @@ def test_flat_wrapper_checks_the_brick(flat_state):
     x = torch.zeros((7, 60, dims.g), device=x.device)
     with pytest.raises(ValueError, match="does not fit"):
         cc.flat_pass_cuda("dcv", x, big, CFG, brick=(2, 4, 4))
+
+
+# ----------------------------------------------------------------------
+# the candidate kernel (design "candidates") of CANDIDATE_PASSES
+# ----------------------------------------------------------------------
+
+def _candidates_vs(name, fl, bd, islots, dims, dims_b, lanes, reduction,
+                   want):
+    """The candidate kernel on these operands: two launches bitwise equal,
+    each counted once in LAUNCHES and DESIGN_LAUNCHES, within BAR of
+    ``want`` (per output row, at the listed slots) and 0 at every other
+    slot; the butterfly at the same width bitwise equal -> the output."""
+    n0 = cc.LAUNCHES[f"particle_{name}"]
+    d0 = dict(cc.DESIGN_LAUNCHES)
+
+    def run(red=reduction):
+        return cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                     lanes=lanes, reduction=red,
+                                     design="candidates")
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES[f"particle_{name}"] == n0 + 2
+    assert cc.DESIGN_LAUNCHES[f"candidates_{name}"] == \
+        d0[f"candidates_{name}"] + 2
+    assert cc.DESIGN_LAUNCHES[f"cells_{name}"] == d0[f"cells_{name}"]
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all()) and bool(got.any())
+    listed = islots[islots < dims.k * dims.g]
+    flat, ref = got.reshape(got.shape[0], -1), want.reshape(got.shape[0], -1)
+    for r in range(got.shape[0]):
+        scale = float(ref[r, listed].abs().max())
+        torch.testing.assert_close(flat[r, listed], ref[r, listed], rtol=BAR,
+                                   atol=BAR * scale)
+    rest = torch.ones(flat.shape[1], dtype=torch.bool, device=flat.device)
+    rest[listed] = False
+    assert not bool(flat[:, rest].any())
+    assert torch.equal(got, run("butterfly"))
+    return got
+
+
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
+@pytest.mark.parametrize("lanes", cc.LANES)
+@pytest.mark.parametrize("name", cc.CANDIDATE_PASSES)
+def test_candidate_kernel_matches_plain_and_cells(operands, name, lanes,
+                                                  reduction):
+    """The candidate kernel on the slot list its step gives it: within BAR
+    of the plain executor and of the particle-list kernel at the same
+    variant (the sums run in another order), two launches bitwise."""
+    _, fl, bd, dims, dims_b, islots = operands[name]
+    want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
+    got = _candidates_vs(name, fl, bd, islots, dims, dims_b, lanes,
+                         reduction, want)
+    cells = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                  lanes=lanes, reduction=reduction,
+                                  design="cells")
+    scale = float(cells.abs().max())
+    torch.testing.assert_close(got, cells, rtol=BAR, atol=BAR * scale)
+
+
+def _full_and_empty_cells(dev, name):
+    """Operands of pass ``name`` on a 6x5x4-cell box (K 6, Kb 3) in which
+    every ghosted cell, the ring included, holds K (or Kb) particles, none
+    or a random count below, a third of the cells each, jittered inside
+    their cells; masses and velocities random. -> fl, bd, the slot list
+    (every real slot of an interior cell, shuffled, and trash entries),
+    dims, dims_b."""
+    rng = np.random.default_rng(11)
+    dims = DenseDims(6, 5, 4, 6)
+    dims_b = DenseDims(6, 5, 4, 3)
+    cl = CFG.cell_length
+    ghosted = (dims.gx, dims.gy, dims.gz)
+    corner = np.stack(np.meshgrid(*(np.arange(n) for n in ghosted),
+                                  indexing="ij"), -1).reshape(-1, 3) - 1.0
+
+    def grid(rows, k):
+        kind = rng.integers(0, 3, dims.g)
+        occ = np.where(kind == 0, k, np.where(kind == 1, 0,
+                                              rng.integers(1, k, dims.g)))
+        x = np.zeros((rows, k, dims.g), np.float32)
+        x[:3] = POS_PAD
+        real = np.arange(k)[:, None] < occ[None, :]
+        pos = (corner[None] + rng.uniform(0.02, 0.98, (k, dims.g, 3))) * cl
+        for a in range(3):
+            x[a] = np.where(real, pos[..., a], x[a])
+        x[3] = np.where(real, rng.uniform(5e-5, 1.5e-4, (k, dims.g)), 0.0)
+        for a in range(4, rows):
+            x[a] = np.where(real, rng.uniform(-1.0, 1.0, (k, dims.g)), 0.0)
+        return x, occ, real
+
+    fl, occ, real = grid(pp.PASSES[name].fi, dims.k)
+    bd, occ_b, _ = grid(4, dims_b.k)
+    cell = np.arange(dims.g)
+    x, y, z = (cell // (dims.gy * dims.gz), cell // dims.gz % dims.gy,
+               cell % dims.gz)
+    inner = ((x > 0) & (x < dims.gx - 1) & (y > 0) & (y < dims.gy - 1)
+             & (z > 0) & (z < dims.gz - 1))
+    assert (occ[inner] == dims.k).any() and (occ[inner] == 0).any()
+    assert (occ_b == dims_b.k).any() and (occ_b == 0).any()
+    slots = np.flatnonzero((real & inner[None, :]).reshape(-1))
+    slots = np.concatenate([slots, np.full(5, dims.k * dims.g)])
+    rng.shuffle(slots)
+    return (torch.as_tensor(fl, device=dev), torch.as_tensor(bd, device=dev),
+            torch.as_tensor(slots, dtype=torch.int64, device=dev), dims,
+            dims_b)
+
+
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
+@pytest.mark.parametrize("lanes", cc.LANES)
+@pytest.mark.parametrize("name", cc.CANDIDATE_PASSES)
+def test_candidate_kernel_on_full_and_empty_cells(dev, name, lanes,
+                                                  reduction):
+    """Cells full to K (and to Kb on the boundary) have no padding slot to
+    stop a probe, empty ones count 0, and the ghost ring holds particles as
+    a block's window does: the candidate kernel within BAR of the plain
+    executor at every listed slot, 0 elsewhere, and of the particle-list
+    kernel."""
+    fl, bd, islots, dims, dims_b = _full_and_empty_cells(dev, name)
+    want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
+    got = _candidates_vs(name, fl, bd, islots, dims, dims_b, lanes,
+                         reduction, want)
+    cells = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                  lanes=lanes, reduction=reduction,
+                                  design="cells")
+    scale = float(cells.abs().max())
+    torch.testing.assert_close(got, cells, rtol=BAR, atol=BAR * scale)
+
+
+@pytest.fixture(scope="module")
+def window_operands(dev):
+    """For each of CANDIDATE_PASSES: the whole box's operands from one step
+    of its solver after 3 frames of the block, and the BoxIndex, full
+    boundary grid and dims that ops/box.slab_window cuts a block's window
+    from."""
+    got = {}
+    for name, solver in (("divergence", "dfsph"),
+                         ("density_colorgrad_visc", "wcsph")):
+        sim = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
+                           device=dev)
+        sim.run(3)
+        calls = {}
+
+        def record(n, fl, bd, dims, dims_b, cfg, islots=None):
+            calls.setdefault(n, (fl, bd, dims, dims_b, islots))
+            return pp.column_pass_plain(n, fl, bd, dims, dims_b, cfg)
+        full, full_b = sim._dims()
+        ds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, CFG, CFG.dt,
+                               full, full_b, sim.box, executor=record)
+        box = DenseDims(*sim.box, full.k)
+        idx = bxm.build_box_index(sim.state.pos, CFG, full, box)
+        got[name] = calls[name] + (idx, sim.scene.bd, full, box,
+                                   DenseDims(*sim.box, full_b.k))
+    return got
+
+
+def _window(x, slab, dims):
+    """The block's window (with its ghost planes) of a whole-box grid."""
+    cells = x.reshape(*x.shape[:2], dims.gx, dims.gy, dims.gz)
+    return cells[:, :, slab.x0:slab.x1 + 2, :,
+                 slab.z0:slab.z1 + 2].contiguous().reshape(*x.shape[:2], -1)
+
+
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
+@pytest.mark.parametrize("lanes", cc.LANES)
+@pytest.mark.parametrize("name", cc.CANDIDATE_PASSES)
+def test_candidate_kernel_on_a_2x2_window(window_operands, name, lanes,
+                                          reduction):
+    """On each block of a 2x2 mesh, the window ops/box.slab_window cuts
+    (its cell-major slot list and boundary window) with the fluid grid's
+    window, ghost planes refreshed: the candidate kernel within BAR of the
+    plain executor on the window, and at the block's own particles bitwise
+    equal to the kernel on the whole box, as the mesh needs."""
+    fl, bd, dims, dims_b, islots, idx, full_bd, full, box, box_b = \
+        window_operands[name]
+    assert torch.equal(idx.work, islots)
+    whole = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                  lanes=lanes, reduction=reduction,
+                                  design="candidates")
+    whole = whole.reshape(whole.shape[0], -1)
+    kg = dims.k * dims.g
+    seen = 0
+    for r in range(4):
+        mesh = tmesh.Mesh(None, r, 4, fl.device, None, tmesh.AXES_2D, (2, 2))
+        slab = halo.make_slab(mesh, box.cx, box.cz)
+        if slab.empty:
+            continue
+        lslots, lwork, ldims, ldims_b, lbd = bxm.slab_window(
+            idx, full_bd, full, box, box_b, slab)
+        assert torch.equal(torch.sort(lwork).values,
+                           torch.sort(lslots).values)
+        lslots = lwork
+        lfl = _window(fl, slab, dims)
+        assert torch.equal(lbd, _window(bd, slab, dims_b))
+        want = pp.column_pass_plain(name, lfl, lbd, ldims, ldims_b, CFG)
+        got = _candidates_vs(name, lfl, lbd, lslots, ldims, ldims_b, lanes,
+                             reduction, want)
+        own = lslots < ldims.k * ldims.g
+        assert torch.equal(got.reshape(got.shape[0], -1)[:, lslots[own]],
+                           whole[:, islots[own]])
+        assert bool((islots[own] < kg).all())
+        seen += int(own.sum())
+    assert seen == int((islots < kg).sum())
+
+
+@pytest.mark.parametrize("design", cc.DESIGNS)
+@pytest.mark.parametrize("solver", ["dfsph", "wcsph"])
+def test_steps_agree_with_plain_in_either_design(dev, monkeypatch, solver,
+                                                 design):
+    """With ``design`` the default of CANDIDATE_PASSES, the card's frames
+    launch only it for them (DESIGN_LAUNCHES), and one step from the state
+    they reached agrees with the CPU's at the one-step bars, with equal
+    DFSPH iteration counts."""
+    for name in cc.CANDIDATE_PASSES:
+        monkeypatch.setitem(cc.PASS_DESIGN, name, design)
+    cc.reset_launch_counts()
+    gpu = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
+                       device=dev)
+    gpu.run(3)
+    name = {"dfsph": "divergence", "wcsph": "density_colorgrad_visc"}[solver]
+    assert cc.DESIGN_LAUNCHES[f"{design}_{name}"] == \
+        cc.LAUNCHES[f"particle_{name}"] > 0
+    assert sum(cc.DESIGN_LAUNCHES[f"{d}_{name}"] for d in cc.DESIGNS) == \
+        cc.LAUNCHES[f"particle_{name}"]
+    if solver == "dfsph":
+        _dfsph_step_agrees(gpu, CFG)
+        return
+    dims, dims_b = gpu._dims()
+
+    def cpu(x):
+        return type(x)(*(t.cpu() for t in x))
+    g1, _, _ = ds.wcsph_step(gpu.state, (), gpu.scene, CFG, CFG.dt, dims,
+                             dims_b, gpu.box)
+    c1, _, _ = ds.wcsph_step(cpu(gpu.state), (), cpu(gpu.scene), CFG, CFG.dt,
+                             dims, dims_b, gpu.box)
+    np.testing.assert_allclose(g1.pos.cpu().numpy(), c1.pos.numpy(),
+                               atol=2e-6)
+    np.testing.assert_allclose(g1.vel.cpu().numpy(), c1.vel.numpy(),
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
+@pytest.mark.parametrize("lanes", cc.LANES)
+@pytest.mark.parametrize("name", cc.CANDIDATE_PASSES)
+def test_candidate_kernel_writes_only_listed_slots(operands, name, lanes,
+                                                   reduction):
+    """As test_particle_kernel_writes_only_listed_slots, for the candidate
+    kernel: dropped particles read 0, the others as with the whole list;
+    an empty list gives zeros."""
+    _, fl, bd, dims, dims_b, islots = operands[name]
+
+    def run(slots):
+        return cc.particle_pass_cuda(name, fl, bd, slots, dims, dims_b, CFG,
+                                     lanes=lanes, reduction=reduction,
+                                     design="candidates")
+    full = run(islots).reshape(pp.PASSES[name].n_out, -1)
+    kg = dims.k * dims.g
+    drop = torch.arange(0, islots.shape[0], 3, device=islots.device)
+    cut = islots.clone()
+    cut[drop] = kg
+    part = run(cut).reshape(full.shape[0], -1)
+    gone = islots[drop]
+    gone = gone[gone < kg]
+    assert gone.numel() > 0
+    assert not bool(part[:, gone].any())
+    kept = cut[cut < kg]
+    assert torch.equal(part[:, kept], full[:, kept])
+    assert not bool(run(islots[:0]).any())

@@ -40,6 +40,8 @@ from cpp_fluid_particles_tpu_torch.models import dense_step as tds
 from cpp_fluid_particles_tpu_torch.ops import column_pass_cuda as tcc
 from cpp_fluid_particles_tpu_torch.ops import dense as tdense
 from cpp_fluid_particles_tpu_torch.ops import passes as tpp
+from cpp_fluid_particles_tpu_torch.parallel import halo
+from cpp_fluid_particles_tpu_torch.parallel import mesh as tmesh
 from cpp_fluid_particles_tpu_torch.state import make_fluid_state
 
 from test_torch_ops import _dam, _splash
@@ -109,11 +111,45 @@ def test_slot_list_names_every_real_slot_once(case):
         assert bool((~valid).any())
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_work_list_is_the_slot_list_in_cell_major_order(case):
+    """The passes' slot list ``BoxIndex.work`` holds the index's slots
+    (each particle's, trash included) sorted by cell and, within a cell, by
+    rank; a 2x2 mesh's blocks map it to their windows elementwise
+    (``slab_window``), so each window's list is in its own cell-major order
+    and names the same particles as the block's slot list."""
+    lo, _, _ = _layout(case)
+    idx, box = lo.idx, lo.dims
+    kg = box.k * box.g
+    slots, work = idx.slots, idx.work
+    assert work.dtype == torch.int64 and work.is_contiguous()
+    assert torch.equal(torch.sort(work).values, torch.sort(slots).values)
+    real = work[work < kg]
+    key = (real % box.g) * box.k + real // box.g
+    assert bool((key[1:] > key[:-1]).all())
+    cfg = SMALL if CASES[case][3] else TCFG
+    full, full_b = tdense.dims_for(cfg, box.k), tdense.dims_for(cfg, 7)
+    for r in range(4):
+        mesh = tmesh.Mesh(None, r, 4, torch.device("cpu"), None,
+                          tmesh.AXES_2D, (2, 2))
+        slab = halo.make_slab(mesh, box.cx, box.cz)
+        lslots, lwork, ldims, _, _ = tds.bx.slab_window(
+            idx, torch.zeros((4, 7, full_b.g)), full, box,
+            box._replace(k=7), slab)
+        assert torch.equal(lwork, halo.slab_slots(work, box, slab))
+        assert torch.equal(torch.sort(lwork).values,
+                           torch.sort(lslots).values)
+        lreal = lwork[lwork < ldims.k * ldims.g]
+        lkey = (lreal % ldims.g) * ldims.k + lreal // ldims.g
+        assert bool((lkey[1:] > lkey[:-1]).all())
+
+
 @functools.cache
 def _recorded_calls(solver, mode="parity", surface=True):
     """-> ([(pass name, fl, islots or None)] of one step of ``solver`` in
     ``mode``, with surface effects on or off, on the small domain's block
-    after two frames, the step's slot list)."""
+    after two frames, the step's slot list in cell-major order,
+    ``BoxIndex.work``)."""
     cfg = SMALL if mode == "parity" else T.dam_break_config(
         mode=mode, space_size=SMALL.space_size)
     if not surface:
@@ -132,7 +168,7 @@ def _recorded_calls(solver, mode="parity", surface=True):
                             dims, dims_b, sim.box, executor=record)
     want = tds.bx.build_box_index(
         sim.state.pos, cfg, dims,
-        tdense.DenseDims(*sim.box, dims.k)).slots
+        tdense.DenseDims(*sim.box, dims.k)).work
     return seen, want
 
 
@@ -415,3 +451,84 @@ def test_r2_cut_turns_away_no_pair_in_support(radius):
     assert r.dtype == np.float32
     assert not (two * r / h <= two or r <= h)
     assert h * h < r2_cut <= h * h * np.float32(1.0003)
+
+
+def test_particle_wrapper_refuses_a_design_it_lacks():
+    """The candidate design exists for CANDIDATE_PASSES only; an unknown
+    design, a design the pass lacks, and for the candidate kernel operands
+    whose flat indices pass the int32 range are refused on the CPU before
+    the device check, and nothing launches. The design defaults name only
+    those two passes."""
+    fl, bd, d = _operands()
+    fl = fl[:tpp.PASSES["divergence"].fi]
+    islots = torch.full((4,), d.k * d.g, dtype=torch.int64)
+    before, dbefore = dict(tcc.LAUNCHES), dict(tcc.DESIGN_LAUNCHES)
+    with pytest.raises(ValueError, match="design 'tiles' is not one of"):
+        tcc.particle_pass_cuda("divergence", fl, bd, islots, d, d, TCFG,
+                               design="tiles")
+    with pytest.raises(ValueError, match="stiffness_accel has no candidates "
+                       "design"):
+        tcc.particle_pass_cuda("stiffness_accel", fl[:5], bd, islots, d, d,
+                               TCFG, design="candidates")
+    # 8 output rows x 16 slots x 672^3 ghosted cells: 4.9e9 > 2^31 - 1
+    big = tdense.DenseDims(670, 670, 670, 16)
+    with pytest.raises(ValueError, match="indexes in int32"):
+        tcc.particle_pass_cuda("density_colorgrad_visc", fl, bd, islots, big,
+                               big._replace(k=7), TCFG, design="candidates")
+    # the boundary alone past the range: 4 rows x Kb 500 x 1.2e6 cells
+    wide = tdense.DenseDims(104, 104, 104, 1)
+    assert tcc.int32_reach("divergence", wide, wide) <= tcc.INT32_MAX
+    assert tcc.int32_reach("divergence", wide,
+                           wide._replace(k=500)) > tcc.INT32_MAX
+    with pytest.raises(ValueError, match="indexes in int32"):
+        tcc.particle_pass_cuda("divergence", fl, bd, islots, wide,
+                               wide._replace(k=500), TCFG,
+                               design="candidates")
+    # the cells design indexes in int64: the same operands get past the
+    # design checks to the device check
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tcc.particle_pass_cuda("density_colorgrad_visc", fl, bd, islots, big,
+                               big._replace(k=7), TCFG, design="cells")
+    assert tcc.LAUNCHES == before and tcc.DESIGN_LAUNCHES == dbefore
+    assert tcc.CANDIDATE_PASSES == ("divergence", "density_colorgrad_visc")
+    assert set(tcc.PASS_DESIGN) <= set(tcc.CANDIDATE_PASSES)
+    assert tcc.DESIGNS == ("cells", "candidates")
+    for name in tpp.PARTICLE_PASSES:
+        want = tcc.DESIGNS if name in tcc.CANDIDATE_PASSES else ("cells",)
+        assert tcc.designs(name) == want
+        assert tcc.default_design(name) in want
+    assert set(tcc.DESIGN_LAUNCHES) == {
+        f"{design}_{name}" for name in tpp.PARTICLE_PASSES
+        for design in tcc.designs(name)}
+    # the dam at its largest K and the 1M recipe's one-device grid fit
+    dam = tdense.dims_for(TCFG, 22)
+    assert tcc.int32_reach("density_colorgrad_visc", dam,
+                           dam._replace(k=7)) == 8 * 22 * 27 ** 3
+    assert tcc.int32_reach("divergence", tdense.DenseDims(60, 60, 60, 10),
+                           tdense.DenseDims(60, 60, 60, 7)) \
+        == 7 * 10 * 62 ** 3
+
+
+@pytest.mark.parametrize("cells, k", [((25, 25, 25), 22), ((25, 25, 25), 16),
+                                      ((60, 60, 60), 10), ((13, 25, 13), 22),
+                                      ((1, 1, 1), 1)])
+def test_fast_divisor_divides_every_index(cells, k):
+    """The candidate kernel divides a slot by G, a cell by GY*GZ and its
+    remainder by GZ with ``fast_divisor``'s (mul, shr): exact for every
+    index those divisions see on the dam's box, the 1M recipe's grid, a 2x2
+    block's window and the smallest grid, and for every n < 2^31 it is
+    handed (sampled)."""
+    d = tdense.DenseDims(*cells, k)
+    rng = np.random.default_rng(5)
+    for div, reach in ((d.g, d.k * d.g), (d.gy * d.gz, d.g),
+                       (d.gz, d.gy * d.gz)):
+        mul, shr = tcc.fast_divisor(div)
+        assert 0 < mul < 2 ** 32 and shr >= 0
+        n = np.concatenate([np.arange(reach, dtype=np.uint64),
+                            rng.integers(0, 2 ** 31, 100_000,
+                                         dtype=np.uint64),
+                            np.array([2 ** 31 - 1], np.uint64)])
+        got = (n * np.uint64(mul)) >> np.uint64(32 + shr)
+        np.testing.assert_array_equal(got, n // np.uint64(div))
+    with pytest.raises(ValueError, match="< 2"):
+        tcc.fast_divisor(1)
