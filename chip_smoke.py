@@ -3,15 +3,13 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
 hand-written kernels (cpp_fluid_particles_tpu_torch/csrc/column_pass.cu)
-with nvcc, holds each of the neighbor pass's sixteen instances, the
+with nvcc, holds each of the neighbor pass's sixteen instances, and the
 particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
 surface_pressure, density_colorgrad_visc, xsph_colorgrad,
 density_alpha_colorgrad, density_visc, pressure_force, density_alpha,
 viscosity, surface, xsph and the scene build's density on the main path
-(so no path launches the column kernel), and the candidate kernel of
-divergence and density_colorgrad_visc (``column_pass_cuda.CANDIDATE_PASSES``;
-each pass runs the design ``column_pass_cuda.default_design`` names),
-against the plain torch executor on the card,
+(so no path launches the column kernel), against the plain torch executor
+on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
@@ -28,12 +26,8 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
   2. build    nvcc build of the kernels, seconds taken, and ptxas's
               registers and spills for every instance, the particle-list
               kernel's at each (group width, reduction) of
-              ``variants(name)`` too, and the candidate kernel's; for the
-              six fluid-only instances of phase 7 also their shared
-              memory; the SASS instruction counts of the particle-list and
-              candidate kernels of CANDIDATE_PASSES from cuobjdump (a line
-              says so where the toolkit has none), failing if a candidate
-              kernel holds the 64-bit division routine (I2F.U64)
+              ``variants(name)`` too; for the six fluid-only instances of
+              phase 7 also their shared memory
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
               its path gives it, at frame 0 and after the path's run;
               per-row tolerance ``utils.check.PASS_BAR``: rtol 2e-5,
@@ -52,21 +46,17 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               against the plain executor and column_pass_kernel at the
               same bar, two launches bitwise (and whether the transpose
               reduction is bitwise equal to the butterfly at the same
-              width); divergence and density_colorgrad_visc the same
-              through the candidate kernel (``[kernel] ... candidates``)
+              width)
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps; for WCSPH and DFSPH also with
-              surface effects off, and with CANDIDATE_PASSES in their other
-              design (the drift after 1 step)
+              surface effects off
   5. slice    WCSPH: 300 frames at dt 0.001 through the constructor,
               run() and run_scan(); physics and launch-count checks
               (particle_density_colorgrad_visc == particle_surface_pressure
               == the frames run, particle_density == 1, the scene build's;
               on this and every later path the column kernel's count of
-              every instance is 0, and every particle-list launch ran its
-              pass's default design, ``DESIGN_LAUNCHES``), ms/frame from
-              CUDA events
+              every instance is 0), ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
               particle_stiffness_accel >= 5 x the frames run,
               particle_density_alpha_colorgrad == particle_viscosity ==
@@ -94,15 +84,17 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               PARTICLE_PASSES as a ladder in turns: column kernel, the
               particle-list kernel with the butterfly at 8, 16, 32 lanes
               and the transpose reduction at 8, 16, 32 (where
-              ``variants(name)`` has it), for CANDIDATE_PASSES the
-              candidate kernel likewise, then the same backwards, column
-              kernel (best of two each), every rung timed by CUDA events
-              around 50 calls and by a CUDA graph of 50 calls (the
-              device's time alone); for CANDIDATE_PASSES whether the
-              candidate kernel beat the particle-list kernel in both passes
-              of the ladder; then divergence once more on the 1M recipe's
-              one-device state after its warm-up frame, both designs
-              against plain and in turns
+              ``variants(name)`` has it) on the slot list its path gives
+              it, then the default variant on the same slots in the other
+              order (the paths hand every pass but surface_pressure
+              ``BoxIndex.work``, in cell-major order; surface_pressure
+              ``BoxIndex.slots``, in the particles'), then the same
+              backwards, column kernel (best of two each), every
+              rung timed by CUDA events around 50 calls and by a CUDA graph
+              of 50 calls (the device's time alone); then divergence once
+              more on the 1M recipe's one-device state after its warm-up
+              frame, against plain, in cell-major order and in the
+              particles', in turns
   7. flat     the flat-grid prototype's entry point
               (cpp_fluid_particles_tpu_torch/exp/flat_pallas_proto.py): the
               state after 150 WCSPH frames of the dam on a K = 24
@@ -177,7 +169,6 @@ logs in either case.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import json
 import os
@@ -348,13 +339,11 @@ def launch_twice(tag, fn, torch):
 
 def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
     """Each pass's column kernel against the plain executor; each of
-    pp.PARTICLE_PASSES also through each of its designs (``cc.designs``:
-    the particle-list kernel, and for cc.CANDIDATE_PASSES the candidate
-    kernel) at each (group width, reduction) of ``cc.variants(name)``,
-    against the plain executor and the column kernel (errors kept as
-    ``particle_<name>`` and ``candidates_<name>``), and the transpose
-    reduction against the butterfly at the same width and design (bitwise
-    or not, logged)."""
+    pp.PARTICLE_PASSES also through the particle-list kernel at each
+    (group width, reduction) of ``cc.variants(name)``, against the plain
+    executor and the column kernel (errors kept as ``particle_<name>``),
+    and the transpose reduction against the butterfly at the same width
+    (bitwise or not, logged)."""
     from cpp_fluid_particles_tpu_torch.utils.check import row_errors
     for name, fl, bd, dims, dims_b, islots in calls:
         want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
@@ -371,27 +360,23 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
         if islots is None:
             raise AssertionError(f"{tag} {name}: the step gave no slot list")
         outs = {}
-        for design in cc.designs(name):
-            for lanes, red in cc.variants(name):
-                kind = "particle" if design == "cells" else design
-                what = f"{tag} {kind} {name} W={lanes} {red}"
-                part = outs[design, lanes, red] = launch_twice(
-                    what, lambda: cc.particle_pass_cuda(
-                        name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
-                        reduction=red, design=design), torch)
-                max_abs, worst_rel = row_errors(what, part, want)
-                _, vs_column = row_errors(f"{what} vs column kernel", part,
-                                          got)
-                note_err(errs, f"{kind}_{name}", max_abs, worst_rel)
-                # the butterfly exists at every width and comes first
-                same = torch.equal(part,
-                                   outs[design, lanes, cc.REDUCTIONS[0]])
-                log("kernel", f"{what} N={islots.shape[0]} K={dims.k} "
-                    f"Kb={kb}: vs plain max_abs_err={max_abs:.3e} "
-                    f"max_err/row_max={worst_rel:.3e}, vs column kernel "
-                    f"max_err/row_max={vs_column:.3e}, bitwise_repeat=yes, "
-                    f"bitwise equal to {cc.REDUCTIONS[0]}: "
-                    f"{'yes' if same else 'no'}")
+        for lanes, red in cc.variants(name):
+            what = f"{tag} particle {name} W={lanes} {red}"
+            part = outs[lanes, red] = launch_twice(
+                what, lambda: cc.particle_pass_cuda(
+                    name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
+                    reduction=red), torch)
+            max_abs, worst_rel = row_errors(what, part, want)
+            _, vs_column = row_errors(f"{what} vs column kernel", part, got)
+            note_err(errs, f"particle_{name}", max_abs, worst_rel)
+            # the butterfly exists at every width and comes first
+            same = torch.equal(part, outs[lanes, cc.REDUCTIONS[0]])
+            log("kernel", f"{what} N={islots.shape[0]} K={dims.k} "
+                f"Kb={kb}: vs plain max_abs_err={max_abs:.3e} "
+                f"max_err/row_max={worst_rel:.3e}, vs column kernel "
+                f"max_err/row_max={vs_column:.3e}, bitwise_repeat=yes, "
+                f"bitwise equal to {cc.REDUCTIONS[0]}: "
+                f"{'yes' if same else 'no'}")
 
 
 def scene_mass_vs_plain(sim, ds, pp, torch, errs):
@@ -427,15 +412,13 @@ def iters(m) -> str:
     return "".join(f" {k}={int(m[k])}" for k in ITER_KEYS if k in m)
 
 
-def step_vs_plain(sim, ds, pp, torch, dt, cfg=None, n_drift=5, note=""):
+def step_vs_plain(sim, ds, pp, torch, dt, cfg=None, n_drift=5):
     """Steps from sim's state with the kernels against the plain executor,
-    with sim.cfg or ``cfg`` (its surface-off copy); ``note`` names what the
-    caller changed (a design)."""
+    with sim.cfg or ``cfg`` (its surface-off copy)."""
     dims, dims_b = sim._dims()
     step = ds.DENSE_STEPS[sim.solver_name]
     cfg = sim.cfg if cfg is None else cfg
-    what = (sim.solver_name + ("" if cfg == sim.cfg else " surface off")
-            + note)
+    what = sim.solver_name + ("" if cfg == sim.cfg else " surface off")
 
     def run(executor, n):
         st, ca, m = sim.state, sim.carry, {}
@@ -459,18 +442,6 @@ def step_vs_plain(sim, ds, pp, torch, dt, cfg=None, n_drift=5, note=""):
         f" kernel{iters(ma)} plain{iters(mb)}; after {n_drift} steps: "
         f"dpos={float((a.pos - b.pos).abs().max()):.3e} "
         f"dvel={float((a.vel - b.vel).abs().max()):.3e}")
-
-
-@contextlib.contextmanager
-def design_default(cc, design):
-    """While active, cc.CANDIDATE_PASSES run ``design`` by default."""
-    saved = dict(cc.PASS_DESIGN)
-    cc.PASS_DESIGN.update({name: design for name in cc.CANDIDATE_PASSES})
-    try:
-        yield
-    finally:
-        cc.PASS_DESIGN.clear()
-        cc.PASS_DESIGN.update(saved)
 
 
 class Tally:
@@ -562,8 +533,6 @@ def drive(cfp, ds, cc, torch, cfg, solver, dt, frames, tally=False):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t_run
     launches = dict(cc.LAUNCHES)
-    design_launches = dict(cc.DESIGN_LAUNCHES)
-    expect_designs(launches, design_launches, cc)
 
     check_final(sim, frames, torch)
     y1 = float(sim.state.pos[:, 1].mean())
@@ -575,8 +544,7 @@ def drive(cfp, ds, cc, torch, cfg, solver, dt, frames, tally=False):
         "fluid": sim.fluid_size, "boundary": sim.boundary_size,
         "K": sim.max_per_cell, "box": list(sim.box), "retries": sim.retries,
         "dropped_frames": sim.dropped_frames, "rerun_frames": rerun_frames,
-        "launches": launches, "design_launches": design_launches,
-        "ms_per_frame": (step_ms + scan_ms) / frames,
+        "launches": launches, "ms_per_frame": (step_ms + scan_ms) / frames,
         "ms_per_frame_step": step_ms / chunk,
         "ms_per_frame_run_scan": scan_ms / max(frames - chunk, 1),
         "wall_s": wall_s, "mean_y": [y0, y1], "run_scan_chunks": chunks,
@@ -641,21 +609,6 @@ def expect_launches(stats, want):
                              + ", ".join(bad))
 
 
-def expect_designs(launches, design_launches, cc):
-    """Every particle-list launch of a path ran its pass's default design
-    (cc.default_design): that design's count is the pass's count, every
-    other design's 0."""
-    bad = []
-    for key, n in design_launches.items():
-        design, name = key.split("_", 1)
-        want = (launches[f"particle_{name}"]
-                if design == cc.default_design(name) else 0)
-        if n != want:
-            bad.append(f"{key}={n} (want {want})")
-    if bad:
-        raise AssertionError("design launch counts: " + ", ".join(bad))
-
-
 def divergence_is_stiffness_accel(stats):
     """DFSPH runs stiffness_accel once for every divergence pass, both
     through the particle-list kernel."""
@@ -702,40 +655,6 @@ def ptxas_report(log_text):
                           int(sm.group(1)) if sm else 0)
             entry = None
     return out
-
-
-def sass_counts(lib, cc):
-    """-> {"<particle|candidates>_<pass>_W<lanes>_<reduction>": counts} of
-    the particle-list and candidate kernels of cc.CANDIDATE_PASSES from
-    ``cuobjdump -sass`` of the built library: instructions, I2F.U64 (the
-    conversion in the 64-bit integer division routine), I2F.U32.RP (in a
-    32-bit division by a variable) and calls; None where the toolkit has no
-    cuobjdump."""
-    import shutil
-    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(exe):
-        return None
-    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    out = {}
-    for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        head = body.split("\n", 1)[0]
-        for name in cc.CANDIDATE_PASSES:
-            f = functor(name)
-            for kernel, kind in (("particle_pass_kernel", "particle"),
-                                 ("candidate_pass_kernel", "candidates")):
-                m = re.search(r"ELi(\d+)ELb(\d)E", head)
-                if f"{len(kernel)}{kernel}" not in head or \
-                        f"{len(f)}{f}" not in head or m is None:
-                    continue
-                ins = re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);", body)
-                red = cc.REDUCTIONS[int(m.group(2))]
-                out[f"{kind}_{name}_W{m.group(1)}_{red}"] = {
-                    "instructions": len(ins),
-                    "i2f_u64": sum("I2F.U64" in i for i in ins),
-                    "i2f_u32": sum("I2F.U32.RP" in i for i in ins),
-                    "calls": sum("CALL" in i for i in ins)}
-    return dict(sorted(out.items()))
 
 
 def functor(name):
@@ -823,19 +742,21 @@ def pass_bound(pp, torch, name, fl, bd, dims, dims_b, cfg, n_out):
     return rec
 
 
-def rung(design, lanes, red):
-    """A ladder key: "<reduction> W<lanes>" for the particle-list kernel,
-    "candidates <reduction> W<lanes>" for the candidate kernel."""
-    return (f"{red} W{lanes}" if design == "cells"
-            else f"{design} {red} W{lanes}")
+def rung(lanes, red, order=None):
+    """A ladder key: "<reduction> W<lanes>" on the list the path gives the
+    pass, "<reduction> W<lanes> <order>" on the same slots in the other
+    order ("work": cell-major, ``BoxIndex.work``; "slots": the particles'
+    order, ``BoxIndex.slots``)."""
+    return f"{red} W{lanes}" + ("" if order is None else f" {order}")
 
 
-def time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc):
-    """Each design of the pass (``cc.designs``) at each (group width,
-    reduction) of ``cc.variants(name)`` beside the column kernel, in turns
-    within this call: column; the particle-list kernel with the butterfly
-    at W 8, 16, 32 and the transpose at W 8, 16, 32 (those the pass takes),
-    the candidate kernel likewise where the pass has it, and the same
+def time_ladder(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
+    """The particle-list kernel at each (group width, reduction) of
+    ``cc.variants(name)`` beside the column kernel, in turns within this
+    call: column; the butterfly at W 8, 16, 32 and the transpose at W 8,
+    16, 32 (those the pass takes) on ``islots``, the list its path gives
+    it; the default variant on ``alt`` = (the other order's name, its
+    list), the same slots in the other order, where given; the same
     backwards; column. Each rung is timed twice in a row, by CUDA events
     around 50 calls (``time_ms``: what a caller that enqueues call after
     call sees, the host's work included where the device finishes first)
@@ -848,42 +769,31 @@ def time_ladder(name, fl, bd, islots, dims, dims_b, cfg, cc):
     def column():
         cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
 
-    def particle(design, lanes, red):
-        return lambda: cc.particle_pass_cuda(name, fl, bd, islots, dims,
+    def particle(lanes, red, lst):
+        return lambda: cc.particle_pass_cuda(name, fl, bd, lst, dims,
                                              dims_b, cfg, lanes=lanes,
-                                             reduction=red, design=design)
-    order = [(design, red, lanes) for design in cc.designs(name)
+                                             reduction=red)
+    rungs = [(rung(lanes, red), particle(lanes, red, islots))
              for red in cc.REDUCTIONS for lanes in sorted(cc.LANES)
              if (lanes, red) in cc.variants(name)]
+    if alt is not None:
+        lanes, red = cc.default_lanes(name), cc.default_reduction(name)
+        rungs.append((rung(lanes, red, alt[0]), particle(lanes, red,
+                                                         alt[1])))
     runs = {"column": [time_ms(column, 50)]}
     graph = {"column": [time_graph_ms(column, 50)]}
-    for design, red, lanes in order + order[::-1]:
-        fn = particle(design, lanes, red)
-        runs.setdefault(rung(design, lanes, red), []).append(time_ms(fn, 50))
-        graph.setdefault(rung(design, lanes, red), []).append(
-            time_graph_ms(fn, 50))
+    for key, fn in rungs + rungs[::-1]:
+        runs.setdefault(key, []).append(time_ms(fn, 50))
+        graph.setdefault(key, []).append(time_graph_ms(fn, 50))
     runs["column"].append(time_ms(column, 50))
     graph["column"].append(time_graph_ms(column, 50))
     return runs, graph
 
 
-def design_verdict(name, runs, graph, cc):
-    """For a pass of cc.CANDIDATE_PASSES: whether the candidate kernel at
-    its fastest variant beat the particle-list kernel at the pass's default
-    variant in both passes of the ladder (there and back), by graph ms and
-    by event ms -> a record."""
-    base = rung("cells", cc.default_lanes(name), cc.default_reduction(name))
-    cands = [k for k in graph if k.startswith("candidates ")]
-    best = min(cands, key=lambda k: min(graph[k]))
-    rec = {"cells": base, "candidates": best}
-    for kind, t in (("graph", graph), ("events", runs)):
-        rec[f"{kind}_both_passes"] = all(
-            t[best][i] < t[base][i] for i in range(2))
-        rec[f"{kind}_ms"] = {base: t[base], best: t[best]}
-    return rec
-
-
-def time_passes(calls, cfg, pp, cc, torch, card, times):
+def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None):
+    """Phase 6 on the captured calls; ``orders(islots)`` -> (the order
+    islots is in, the other order's name, the same slots in that order),
+    or None where it does not know them."""
     from cpp_fluid_particles_tpu_torch.utils.check import time_ms
     for name, fl, bd, dims, dims_b, islots in calls:
         if name in times:
@@ -917,24 +827,24 @@ def time_passes(calls, cfg, pp, cc, torch, card, times):
             f"{t['pairs_in_support']} in support) | {card}")
         if name not in pp.PARTICLE_PASSES:
             continue
-        runs, graph = time_ladder(name, fl, bd, islots, dims, dims_b, cfg,
-                                  cc)
+        got = orders(islots) if orders is not None else None
+        order, alt = (got[0], got[1:]) if got is not None else (None, None)
+        runs, graph = time_ladder(name, fl, bd, islots, alt, dims, dims_b,
+                                  cfg, cc)
         best = {w: min(r) for w, r in runs.items()}
         gbest = {w: min(r) for w, r in graph.items()}
         lanes, red = cc.default_lanes(name), cc.default_reduction(name)
-        design = cc.default_design(name)
-        cells = rung("cells", lanes, red)
         t.update(column_kernel_ms=best["column"],
                  column_kernel_graph_ms=gbest["column"], lanes=lanes,
-                 reduction=red, design=design,
-                 particle_ms=best[rung(design, lanes, red)],
-                 graph_ms=gbest[rung(design, lanes, red)],
-                 cells_ms=best[cells], cells_graph_ms=gbest[cells],
+                 reduction=red, particle_ms=best[rung(lanes, red)],
+                 graph_ms=gbest[rung(lanes, red)], order=order,
                  ladder=runs, ladder_graph=graph)
-        then = (", then the candidate kernel" if len(cc.designs(name)) > 1
-                else "")
+        if alt is not None:
+            t["other_order_graph_ms"] = gbest[rung(lanes, red, alt[0])]
+        on = f" on the path's list ({order})" if order else ""
+        then = f", the default on {alt[0]}" if alt is not None else ""
         log("timing", f"{name} ladder N={islots.shape[0]} K={dims.k} Kb={kb}"
-            f" (column kernel; particle-list kernel at each variant, "
+            f" (column kernel; particle-list kernel at each variant{on}, "
             f"butterfly first{then}, and back; column kernel; best of two, "
             f"events / graph): "
             + "; ".join(f"{w} {best[w]:.4f} / {gbest[w]:.4f} ms"
@@ -943,32 +853,51 @@ def time_passes(calls, cfg, pp, cc, torch, card, times):
                 f"{w}: " + "/".join(f"{x:.4f}" for x in r) + " | "
                 + "/".join(f"{x:.4f}" for x in graph[w])
                 for w, r in runs.items())
-            + f"); default {design} {red} W={lanes}; plain "
+            + f"); default {red} W={lanes}; plain "
             f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by "
             f"{t['bound_by']} ({t['pairs']} pairs, {t['pairs_in_support']} "
             f"in support) | {card}")
-        if name in cc.CANDIDATE_PASSES:
-            v = t["verdict"] = design_verdict(name, runs, graph, cc)
-            log("timing", f"{name} design: {v['candidates']} against the "
-                f"particle-list kernel's {v['cells']}, graph ms "
-                + ", ".join(f"{k} " + "/".join(f"{x:.4f}" for x in r)
-                            for k, r in v["graph_ms"].items())
-                + ", event ms " + ", ".join(
-                    f"{k} " + "/".join(f"{x:.4f}" for x in r)
-                    for k, r in v["events_ms"].items())
-                + f": faster in both passes by graph "
-                f"{'yes' if v['graph_both_passes'] else 'no'}, by events "
-                f"{'yes' if v['events_both_passes'] else 'no'}; default "
-                f"design {design} | {card}")
 
 
-def million_divergence(cfp, pp, cc, torch, card):
+class _Stop(Exception):
+    pass
+
+
+def operands(sim, ds, pp, bx, torch, name, dt) -> dict:
+    """The operands of pass ``name``'s first call in one step from
+    ``sim``'s state (every pass before it runs on the card as the steps run
+    it), with the step's slot list in cell-major order (``work``) and the
+    same slots in the particles' order (``slots``)."""
+    full, full_b = sim._dims()
+    got = {}
+
+    def first(n, fl, bd, dims, dims_b, cfg, islots=None):
+        if n == name:
+            got.update(fl=fl, bd=bd, dims=dims, dims_b=dims_b, work=islots)
+            raise _Stop
+        return pp.column_pass(n, fl, bd, dims, dims_b, cfg, islots=islots)
+    try:
+        ds.DENSE_STEPS[sim.solver_name](sim.state, sim.carry, sim.scene,
+                                        sim.cfg, dt, full, full_b, sim.box,
+                                        executor=first)
+    except _Stop:
+        pass
+    idx = bx.build_box_index(sim.state.pos, sim.cfg, full, got["dims"])
+    if not torch.equal(idx.work, got["work"]):
+        raise AssertionError(f"{name}: the step's slot list is not the "
+                             "index's cell-major list")
+    got["slots"] = idx.slots
+    return got
+
+
+def million_divergence(cfp, ds, pp, cc, torch, card):
     """Phase 6 at scale: the first divergence pass of a DFSPH step from the
     1M recipe's state after its warm-up frame (``scaled_dam_scene``, fast
-    mode, one device), through both designs at the pass's default variant,
-    each against the plain executor and timed in turns (particle-list,
-    candidate, candidate, particle-list; events and graph) -> a record."""
-    from cpp_fluid_particles_tpu_torch.exp.pass_split import operands
+    mode, one device) at the pass's default variant, against the plain
+    executor and timed in turns on the work list and on the slots in the
+    particles' order (work, slots, slots, work; events and graph) -> a
+    record."""
+    from cpp_fluid_particles_tpu_torch.ops import box as bx
     from cpp_fluid_particles_tpu_torch.utils.check import (
         row_errors, time_graph_ms, time_ms)
     t0 = time.perf_counter()
@@ -976,37 +905,36 @@ def million_divergence(cfp, pp, cc, torch, card):
     sim = cfp.Simulation(solver="dfsph", cfg=cfg, fluid_pos=pos,
                          device="cuda")
     name = "divergence"
-    op = operands(sim, name, cfp.BENCH_DT["dfsph"])
-    fl, bd, dims, dims_b, islots = (op[k] for k in ("fl", "bd", "dims",
-                                                     "dims_b", "work"))
+    op = operands(sim, ds, pp, bx, torch, name, cfp.BENCH_DT["dfsph"])
+    fl, bd, dims, dims_b = (op[k] for k in ("fl", "bd", "dims", "dims_b"))
     want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
     lanes, red = cc.default_lanes(name), cc.default_reduction(name)
-    rec = {"n": islots.shape[0], "K": dims.k, "Kb": dims_b.k,
+    rec = {"n": op["work"].shape[0], "K": dims.k, "Kb": dims_b.k,
            "grid": [dims.gx, dims.gy, dims.gz], "lanes": lanes,
            "reduction": red}
     fns = {}
-    for design in cc.designs(name):
-        fns[design] = (lambda d=design: cc.particle_pass_cuda(
-            name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
-            reduction=red, design=d))
-        got = launch_twice(f"1M {design} {name}", fns[design], torch)
-        rec[f"{design}_max_abs_err"], rec[f"{design}_max_rel_err"] = \
-            row_errors(f"1M {design} {name}", got, want)
-    order = list(cc.designs(name))
-    for design in order + order[::-1]:
-        rec.setdefault(f"{design}_ms", []).append(time_ms(fns[design], 20))
-        rec.setdefault(f"{design}_graph_ms", []).append(
-            time_graph_ms(fns[design], 20))
+    order = ("work", "slots")
+    for lst in order:
+        fns[lst] = (lambda lst=lst: cc.particle_pass_cuda(
+            name, fl, bd, op[lst], dims, dims_b, cfg, lanes=lanes,
+            reduction=red))
+        got = launch_twice(f"1M {name} on {lst}", fns[lst], torch)
+        rec[f"{lst}_max_abs_err"], rec[f"{lst}_max_rel_err"] = \
+            row_errors(f"1M {name} on {lst}", got, want)
+    for lst in order + order[::-1]:
+        rec.setdefault(f"{lst}_ms", []).append(time_ms(fns[lst], 20))
+        rec.setdefault(f"{lst}_graph_ms", []).append(
+            time_graph_ms(fns[lst], 20))
     rec.update(pass_bound(pp, torch, name, fl, bd, dims, dims_b, cfg, 1))
     rec["wall_s"] = time.perf_counter() - t0
     log("timing", f"{name} at the 1M recipe's state after its warm-up frame "
         f"(N={rec['n']}, K={dims.k}, Kb={dims_b.k}, grid {dims.gx}x{dims.gy}"
-        f"x{dims.gz}, {red} W={lanes}; particle-list, candidate, candidate, "
-        f"particle-list; events | graph ms): " + "; ".join(
-            f"{d} " + "/".join(f"{x:.4f}" for x in rec[f"{d}_ms"]) + " | "
-            + "/".join(f"{x:.4f}" for x in rec[f"{d}_graph_ms"])
-            + f", vs plain max_err/row_max {rec[f'{d}_max_rel_err']:.3e}"
-            for d in order)
+        f"x{dims.gz}, {red} W={lanes}; the work list, the slots in the "
+        f"particles' order, and back; events | graph ms): " + "; ".join(
+            f"{lst} " + "/".join(f"{x:.4f}" for x in rec[f"{lst}_ms"])
+            + " | " + "/".join(f"{x:.4f}" for x in rec[f"{lst}_graph_ms"])
+            + f", vs plain max_err/row_max {rec[f'{lst}_max_rel_err']:.3e}"
+            for lst in order)
         + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
         f"({rec['pairs']} pairs, {rec['pairs_in_support']} in support); "
         f"{rec['wall_s']:.1f} s | {card}")
@@ -1298,8 +1226,7 @@ def same_as_single(ref, got, tag):
 
 def mesh_launches(res, tag, ref=None):
     """Every kernel of the case's path launched on this rank, each as often
-    (and in each design as often) as in the single-device run ``ref`` where
-    given; no column kernel."""
+    as in the single-device run ``ref`` where given; no column kernel."""
     m = res["meta"]
     solver = m["case"].split(":")[0].split("-")[0]
     missing = [k for k in MESH_KERNELS[solver] if not m["launches"].get(k)]
@@ -1310,13 +1237,12 @@ def mesh_launches(res, tag, ref=None):
                              f"not launched {missing}, column kernel "
                              f"{column}")
     if ref is not None:
-        for key in ("launches", "design_launches"):
-            want = {k: v for k, v in ref["meta"][key].items() if v}
-            got = {k: v for k, v in m[key].items() if v}
-            if got != want:
-                raise AssertionError(f"[mesh] {tag} {m['case']} rank "
-                                     f"{m['rank']}: {key} {got} != "
-                                     f"single-device {want}")
+        want = {k: v for k, v in ref["meta"]["launches"].items() if v}
+        got = {k: v for k, v in m["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"[mesh] {tag} {m['case']} rank "
+                                 f"{m['rank']}: launches {got} != "
+                                 f"single-device {want}")
 
 
 def block_text(m, box):
@@ -1436,40 +1362,39 @@ def _mesh_phase(torch, card, out_dir, data_dir):
     return record
 
 
-def kernel_row(name, paths, owner, errs, times, pp, cc):
-    """The kernels-table row of pass ``name``. The PARTICLE_PASSES give the
-    kernel of the design that their paths run (``cc.default_design``: the
-    particle-list kernel, or the candidate kernel): its launches (that
-    design's count on the owning path), errors, and event and graph ms at
-    the pass's default width and reduction (``cc.default_lanes``,
-    ``cc.default_reduction``), with the column kernel's ms, the particle-
-    list kernel's ms at that variant, the design, the width and the
-    reduction beside them."""
+def kernel_row(name, paths, owner, errs, times, pp):
+    """The kernels-table row of pass ``name``. The PARTICLE_PASSES give
+    the particle-list kernel, which their paths run: its launches, errors,
+    and event and graph ms at the pass's default width and reduction
+    (``cc.default_lanes``, ``cc.default_reduction``) on the list its path
+    gives it, with the column kernel's ms, the width, the reduction, the
+    list's order and, where the ladder had them, the graph ms on the same
+    slots in the other order beside them."""
     t = times[name]
     row = {"name": name, "route": "cuda", "source": KERNEL_SRC,
            "replaces": TPU_KERNEL, "launches": 0,
            "max_abs_err": errs[name]["max_abs_err"], "ms": t["ms"],
            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
            "bound_by": t["bound_by"], "library_ms": None}
+    key = name
     if name in pp.PARTICLE_PASSES:
-        kind = "particle" if t["design"] == "cells" else t["design"]
-        row.update(max_abs_err=errs[f"{kind}_{name}"]["max_abs_err"],
+        key = f"particle_{name}"
+        row.update(max_abs_err=errs[key]["max_abs_err"],
                    ms=t["particle_ms"], graph_ms=t["graph_ms"],
-                   column_kernel_ms=t["column_kernel_ms"],
-                   cells_ms=t["cells_ms"], cells_graph_ms=t["cells_graph_ms"],
-                   design=t["design"], lanes=t["lanes"],
+                   column_kernel_ms=t["column_kernel_ms"], lanes=t["lanes"],
                    reduction=t["reduction"])
+        if t["order"] is not None:
+            row["order"] = t["order"]
+        if "other_order_graph_ms" in t:
+            row["other_order_graph_ms"] = t["other_order_graph_ms"]
     if name in STATE:
         row["state"] = STATE[name]
     if name == "density":
         row["b_mass_max_rel_err"] = errs["b_mass"]["max_rel_err"]
     if name in OFF_PATH:
         row["note"] = OFF_PATH[name]
-    elif name in pp.PARTICLE_PASSES:
-        row["launches"] = paths[owner.get(name, "dfsph")]["design_launches"][
-            f"{t['design']}_{name}"]
     else:
-        row["launches"] = paths[owner.get(name, "dfsph")]["launches"][name]
+        row["launches"] = paths[owner.get(name, "dfsph")]["launches"][key]
     return row
 
 
@@ -1513,13 +1438,6 @@ def main(argv) -> int:
                                    False, lanes, red == "transpose")
             regs[f"particle_{name}_W{lanes}_{red}"] = {
                 "registers": r, "spill_bytes": sp}
-    for name in cc.CANDIDATE_PASSES:
-        for lanes, red in sorted(cc.variants(name),
-                                 key=lambda v: (v[1], v[0])):
-            r, sp, _ = ptxas_entry(ptxas, "candidate_pass_kernel", name,
-                                   False, lanes, red == "transpose")
-            regs[f"candidates_{name}_W{lanes}_{red}"] = {
-                "registers": r, "spill_bytes": sp}
     flat_regs = {}
     for body, name in pp.FLAT_BODIES.items():
         rows = pp.PASSES[name].fi
@@ -1539,22 +1457,6 @@ def main(argv) -> int:
         "dynamic shared at K 24: " + "; ".join(
             f"{n} {r['registers']}/{r['spill_bytes']}/{r['static_smem']}"
             f"+{r['dynamic_smem_k24']}" for n, r in flat_regs.items()))
-    record["sass"] = sass = sass_counts(lib, cc)
-    if sass is None:
-        log("build", "cuobjdump is not in the toolkit: no SASS counts")
-    else:
-        log("build", "SASS of the particle-list and candidate kernels of "
-            f"{', '.join(cc.CANDIDATE_PASSES)}, instructions / I2F.U64 (in "
-            "the 64-bit division routine) / I2F.U32.RP (a 32-bit division) "
-            "/ calls: " + "; ".join(
-                f"{k} {v['instructions']}/{v['i2f_u64']}/{v['i2f_u32']}/"
-                f"{v['calls']}" for k, v in sass.items()))
-        div64 = {k: v["i2f_u64"] for k, v in sass.items()
-                 if k.startswith("candidates_") and v["i2f_u64"]}
-        if div64 or len(sass) != 2 * sum(len(cc.variants(n))
-                                         for n in cc.CANDIDATE_PASSES):
-            raise AssertionError(f"SASS: 64-bit division in {div64}, or "
-                                 f"{len(sass)} kernels found")
     if argv == ["--mesh"]:
         mesh_phase(torch, card)
         print(card, flush=True)
@@ -1593,7 +1495,7 @@ def main(argv) -> int:
     # 6 at scale: divergence at the 1M recipe's state
     record["divergence_1m"] = guard("divergence at 1M (phase 6)",
                                     functools.partial(
-                                        million_divergence, cfp, pp, cc,
+                                        million_divergence, cfp, ds, pp, cc,
                                         torch, card))
 
     # 5d. the default: Simulation(device="cuda"), PBD in fast mode
@@ -1638,7 +1540,7 @@ def main(argv) -> int:
              "pressure_force": "wcsph_surface_off",
              "density_alpha": "dfsph_surface_off", "pbd_lambda": "pbd",
              "xsph_colorgrad": "pbd", "xsph": "pbd_surface_off"}
-    table = {"kernels": [kernel_row(name, paths, owner, errs, times, pp, cc)
+    table = {"kernels": [kernel_row(name, paths, owner, errs, times, pp)
                          for name in cc.PASS_IDS]
         + [{"name": f"flat_{body}", "route": "cuda", "source": KERNEL_SRC,
             "replaces": FLAT_TPU_KERNEL, "launches": rec["launches"],
@@ -1660,8 +1562,7 @@ def main(argv) -> int:
 def frame0_phase(cfp, ds, pp, cc, torch, cfg, solver, dt, errs):
     """Phases 3 and 4 at frame 0 (the state after the constructor's
     warm-up): every pass against plain, then one step against plain (for
-    WCSPH and DFSPH also with surface effects off, and with the
-    CANDIDATE_PASSES in their other design)."""
+    WCSPH and DFSPH also with surface effects off)."""
     probe = cfp.Simulation(solver=solver, cfg=cfg, device="cuda")
     compare_passes(f"{solver} frame0", capture(probe, ds, pp, dt), cfg, pp,
                    cc, torch, errs)
@@ -1670,13 +1571,6 @@ def frame0_phase(cfp, ds, pp, cc, torch, cfg, solver, dt, errs):
     step_vs_plain(probe, ds, pp, torch, dt)
     if solver != "pbd":
         step_vs_plain(probe, ds, pp, torch, dt, cfg=surface_off(cfg))
-        for design in cc.DESIGNS:
-            if all(cc.default_design(name) == design
-                   for name in cc.CANDIDATE_PASSES):
-                continue
-            with design_default(cc, design):
-                step_vs_plain(probe, ds, pp, torch, dt, n_drift=1,
-                              note=f" ({design} design)")
 
 
 def path_phase(cfp, ds, cc, torch, cfg, solver, phase, dt, card):
@@ -1732,11 +1626,25 @@ def path_phase(cfp, ds, cc, torch, cfg, solver, phase, dt, card):
 
 def final_phase(sim, ds, pp, cc, torch, cfg, solver, dt, card, errs,
                 times):
-    """Phases 3 (after the run) and 6 at the path's final shapes."""
+    """Phases 3 (after the run) and 6 at the path's final shapes; the
+    ladder also runs each pass whose slot list is the box index's of this
+    state on the index's slots in the other order."""
+    from cpp_fluid_particles_tpu_torch.ops import box as bx
+    from cpp_fluid_particles_tpu_torch.ops.dense import DenseDims
     calls = capture(sim, ds, pp, dt)
     compare_passes(f"{solver} frame{FRAMES}", calls, cfg, pp, cc, torch,
                    errs)
-    time_passes(calls, cfg, pp, cc, torch, card, times)
+    dims, _ = sim._dims()
+    idx = bx.build_box_index(sim.state.pos, sim.cfg, dims,
+                             DenseDims(*sim.box, dims.k))
+
+    def orders(islots):
+        if torch.equal(islots, idx.work):
+            return "work", "slots", idx.slots
+        if torch.equal(islots, idx.slots):
+            return "slots", "work", idx.work
+        return None
+    time_passes(calls, cfg, pp, cc, torch, card, times, orders)
 
 
 def default_phase(cfp, ds, cc, torch, card):

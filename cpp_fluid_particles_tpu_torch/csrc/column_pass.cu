@@ -62,10 +62,7 @@
 // sums, a transpose reduction. No path launches column_pass_kernel any
 // more: it runs only as the yardstick of those fourteen (the note above the
 // particle template says why it is slower) and for color_gradient and
-// density_colorgrad, which nothing runs. candidate_pass_kernel (below), a
-// second design for divergence and density_colorgrad_visc that balances a
-// particle's candidate pairs over its lanes, is on no path either: it did
-// not beat particle_pass_kernel (the note above it says why).
+// density_colorgrad, which nothing runs.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -141,16 +138,15 @@ __device__ __forceinline__ bool in_support(float r, const Consts& c) {
 // kBoundary: whether the pass sums over the boundary operand (bdry). ---
 
 // p / max(eps, rho^2) from rows [.., rho (4), p (5)]
-template <class Ix>
-__device__ __forceinline__ float p_over_rho2(const float* f, Ix t, Ix kg,
-                                             const Consts& c) {
+__device__ __forceinline__ float p_over_rho2(const float* f, int64_t t,
+                                             int64_t kg, const Consts& c) {
   const float rho = f[4 * kg + t];
   return f[5 * kg + t] / fmaxf(c.eps, rho * rho);
 }
 
 // |cg|^2 from the three rows starting at row
-template <class Ix>
-__device__ __forceinline__ float cg2(const float* f, Ix t, Ix kg, int row) {
+__device__ __forceinline__ float cg2(const float* f, int64_t t, int64_t kg,
+                                     int row) {
   const float gx = f[row * kg + t], gy = f[(row + 1) * kg + t],
               gz = f[(row + 2) * kg + t];
   return gx * gx + gy * gy + gz * gz;
@@ -163,12 +159,12 @@ struct Pos {
 struct PosVel {
   float x, y, z, vx, vy, vz;
 };
-template <class Ix>
-__device__ __forceinline__ Pos load_pos(const float* fl, Ix t, Ix kg) {
+__device__ __forceinline__ Pos load_pos(const float* fl, int64_t t,
+                                        int64_t kg) {
   return {fl[t], fl[kg + t], fl[2 * kg + t]};
 }
-template <class Ix>
-__device__ __forceinline__ PosVel load_pos_vel(const float* fl, Ix t, Ix kg) {
+__device__ __forceinline__ PosVel load_pos_vel(const float* fl, int64_t t,
+                                               int64_t kg) {
   return {fl[t],          fl[kg + t],     fl[2 * kg + t],
           fl[4 * kg + t], fl[5 * kg + t], fl[6 * kg + t]};
 }
@@ -178,20 +174,18 @@ struct DensityPass {
   static constexpr int kOut = 1;
   static constexpr bool kBoundary = true;
   using I = Pos;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I&, const float* fl, Ix tj,
-                               Ix kg, float, float, float, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float, float, float,
+                               float r, const Consts& c) {
     acc[0] += fl[3 * kg + tj] * w_cubic(r, c);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I& i, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     fluid(acc, i, bd, tj, kbg, dx, dy, dz, r, c);
   }
 };
@@ -202,14 +196,13 @@ struct DensityColorgradViscPass {
   static constexpr int kOut = 8;
   static constexpr bool kBoundary = true;
   using I = PosVel;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos_vel(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
     const float w = w_cubic(r, c);
     const float cw = grad_w_cubic_coef(r, c);
@@ -225,10 +218,9 @@ struct DensityColorgradViscPass {
     acc[6] += mj * (lap * (fl[5 * kg + tj] - i.vy));
     acc[7] += mj * (lap * (fl[6 * kg + tj] - i.vz));
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I&, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     const float mb = bd[3 * kbg + tj];
     const float w = w_cubic(r, c);
     const float volj = mb / c.rho_b;
@@ -249,17 +241,16 @@ struct SurfacePressurePass {
   struct I {
     float x, y, z, c2, gate, p_rho2;
   };
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts& c) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts& c) {
     const float c2 = cg2(fl, t, kg, 6);
     const float n = sqrtf(c2);
     return {fl[t], fl[kg + t], fl[2 * kg + t], c2, n / fmaxf(c.eps, n),
             p_over_rho2(fl, t, kg, c)};
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
     const float cw = grad_w_cubic_coef(r, c);
     const float st = c.st_coef * (i.c2 + cg2(fl, tj, kg, 6)) *
@@ -273,10 +264,9 @@ struct SurfacePressurePass {
     acc[4] -= mp * dy;
     acc[5] -= mp * dz;
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I& i, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     const float coefb = -bd[3 * kbg + tj] * i.p_rho2 * grad_w_cubic_coef(r, c);
     acc[3] += coefb * dx;
     acc[4] += coefb * dy;
@@ -324,21 +314,19 @@ struct DensityAlphaPass {
   static constexpr int kOut = 5;
   static constexpr bool kBoundary = true;
   using I = Pos;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I&, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     alpha_fluid(acc, fl[3 * kg + tj], w_cubic(r, c), grad_w_cubic_coef(r, c),
                 dx, dy, dz);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I&, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     alpha_bdry(acc, bd[3 * kbg + tj], w_cubic(r, c), grad_w_cubic_coef(r, c),
                dx, dy, dz);
   }
@@ -351,24 +339,22 @@ struct DensityAlphaColorgradPass {
   static constexpr int kOut = 9;
   static constexpr bool kBoundary = true;
   using I = Pos;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I&, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
     const float w = w_cubic(r, c);
     const float cw = grad_w_cubic_coef(r, c);
     alpha_fluid(acc, mj, w, cw, dx, dy, dz);
     colorgrad(acc + 5, mj, c.rho0, w, cw, dx, dy, dz);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I&, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     const float mb = bd[3 * kbg + tj];
     const float w = w_cubic(r, c);
     const float cw = grad_w_cubic_coef(r, c);
@@ -384,24 +370,22 @@ struct DivergencePass {
   static constexpr int kOut = 1;
   static constexpr bool kBoundary = true;
   using I = PosVel;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos_vel(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float t = grad_w_cubic_coef(r, c) *
                     ((i.vx - fl[4 * kg + tj]) * dx +
                      (i.vy - fl[5 * kg + tj]) * dy +
                      (i.vz - fl[6 * kg + tj]) * dz);
     acc[0] += fl[3 * kg + tj] * t;
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I& i, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     const float cwb = bd[3 * kbg + tj] * grad_w_cubic_coef(r, c);
     acc[0] += cwb * (i.vx * dx + i.vy * dy + i.vz * dz);
   }
@@ -416,24 +400,22 @@ struct StiffnessAccelPass {
   struct I {
     float x, y, z, s;
   };
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return {fl[t], fl[kg + t], fl[2 * kg + t], fl[4 * kg + t]};
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
     const float s = (i.s + fl[4 * kg + tj]) * grad_w_cubic_coef(r, c);
     acc[0] += mj * (s * dx);
     acc[1] += mj * (s * dy);
     acc[2] += mj * (s * dz);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I& i, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     const float coefb = bd[3 * kbg + tj] * i.s * grad_w_cubic_coef(r, c);
     acc[0] += coefb * dx;
     acc[1] += coefb * dy;
@@ -442,10 +424,9 @@ struct StiffnessAccelPass {
 };
 
 // Mueller viscosity sum over v_j - v_i into acc[0..2]
-template <class Ix>
 __device__ __forceinline__ void visc(float* acc, const PosVel& i,
-                                     const float* fl, Ix tj, Ix kg, float mj,
-                                     float r, const Consts& c) {
+                                     const float* fl, int64_t tj, int64_t kg,
+                                     float mj, float r, const Consts& c) {
   const float lap = w_visc_laplacian(r, c) / c.rho0;
   acc[0] += mj * (lap * (fl[4 * kg + tj] - i.vx));
   acc[1] += mj * (lap * (fl[5 * kg + tj] - i.vy));
@@ -458,14 +439,13 @@ struct ViscosityPass {
   static constexpr int kOut = 3;
   static constexpr bool kBoundary = false;
   using I = PosVel;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos_vel(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float, float, float, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float, float, float,
+                               float r, const Consts& c) {
     visc(acc, i, fl, tj, kg, fl[3 * kg + tj], r, c);
   }
 };
@@ -479,16 +459,15 @@ struct SurfacePass {
   struct I {
     float x, y, z, c2, gate;
   };
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts& c) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts& c) {
     const float c2 = cg2(fl, t, kg, 4);
     const float n = sqrtf(c2);
     return {fl[t], fl[kg + t], fl[2 * kg + t], c2, n / fmaxf(c.eps, n)};
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float st = c.st_coef * (i.c2 + cg2(fl, tj, kg, 4)) *
                      grad_w_surface_coef(r, c);
     const float ms =
@@ -506,22 +485,20 @@ struct DensityViscPass {
   static constexpr int kOut = 4;
   static constexpr bool kBoundary = true;
   using I = PosVel;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos_vel(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float, float, float, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float, float, float,
+                               float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
     acc[0] += mj * w_cubic(r, c);
     visc(acc + 1, i, fl, tj, kg, mj, r, c);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I&, const float* bd, Ix tj,
-                              Ix kbg, float, float, float, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float, float, float,
+                              float r, const Consts& c) {
     acc[0] += bd[3 * kbg + tj] * w_cubic(r, c);
   }
 };
@@ -535,24 +512,22 @@ struct PressureForcePass {
   struct I {
     float x, y, z, p_rho2;
   };
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts& c) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts& c) {
     return {fl[t], fl[kg + t], fl[2 * kg + t], p_over_rho2(fl, t, kg, c)};
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float s = (i.p_rho2 + p_over_rho2(fl, tj, kg, c)) * grad_w_cubic_coef(r, c);
     const float mj = fl[3 * kg + tj];
     acc[0] -= mj * (s * dx);
     acc[1] -= mj * (s * dy);
     acc[2] -= mj * (s * dz);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I& i, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     const float coefb = -bd[3 * kbg + tj] * i.p_rho2 * grad_w_cubic_coef(r, c);
     acc[0] += coefb * dx;
     acc[1] += coefb * dy;
@@ -568,30 +543,27 @@ struct PbdLambdaPass {
   static constexpr int kOut = 5;
   static constexpr bool kBoundary = true;
   using I = Pos;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I&, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     alpha_fluid(acc, fl[3 * kg + tj], w_cubic(r, c),
                 grad_w_cubic_coef(r, c) / c.rho0, dx, dy, dz);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I& i, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     fluid(acc, i, bd, tj, kbg, dx, dy, dz, r, c);
   }
 };
 
 // XSPH sum m_j (v_j - v_i) W into acc[0..2]
-template <class Ix>
 __device__ __forceinline__ void xsph(float* acc, const PosVel& i,
-                                     const float* fl, Ix tj, Ix kg, float mj,
-                                     float w) {
+                                     const float* fl, int64_t tj, int64_t kg,
+                                     float mj, float w) {
   acc[0] += mj * (w * (fl[4 * kg + tj] - i.vx));
   acc[1] += mj * (w * (fl[5 * kg + tj] - i.vy));
   acc[2] += mj * (w * (fl[6 * kg + tj] - i.vz));
@@ -604,23 +576,21 @@ struct XsphColorgradPass {
   static constexpr int kOut = 7;
   static constexpr bool kBoundary = true;
   using I = PosVel;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos_vel(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
     const float w = w_cubic(r, c);
     xsph(acc, i, fl, tj, kg, mj, w);
     colorgrad(acc + 3, mj, c.rho0, w, grad_w_cubic_coef(r, c), dx, dy, dz);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I&, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     colorgrad(acc + 3, bd[3 * kbg + tj], c.rho_b, w_cubic(r, c),
               grad_w_cubic_coef(r, c), dx, dy, dz);
   }
@@ -633,14 +603,13 @@ struct XsphPass {
   static constexpr int kOut = 3;
   static constexpr bool kBoundary = false;
   using I = PosVel;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos_vel(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I& i, const float* fl, Ix tj,
-                               Ix kg, float, float, float, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float, float, float,
+                               float r, const Consts& c) {
     xsph(acc, i, fl, tj, kg, fl[3 * kg + tj], w_cubic(r, c));
   }
 };
@@ -652,21 +621,19 @@ struct ColorGradientPass {
   static constexpr int kOut = 4;
   static constexpr bool kBoundary = true;
   using I = Pos;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I&, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     colorgrad(acc, fl[3 * kg + tj], c.rho0, w_cubic(r, c),
               grad_w_cubic_coef(r, c), dx, dy, dz);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I&, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     colorgrad(acc, bd[3 * kbg + tj], c.rho_b, w_cubic(r, c),
               grad_w_cubic_coef(r, c), dx, dy, dz);
   }
@@ -678,23 +645,21 @@ struct DensityColorgradPass {
   static constexpr int kOut = 5;
   static constexpr bool kBoundary = true;
   using I = Pos;
-  template <class Ix>
-  __device__ static I load_i(const float* fl, Ix t, Ix kg, const Consts&) {
+  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
+                             const Consts&) {
     return load_pos(fl, t, kg);
   }
-  template <class Ix>
-  __device__ static void fluid(float* acc, const I&, const float* fl, Ix tj,
-                               Ix kg, float dx, float dy, float dz, float r,
-                               const Consts& c) {
+  __device__ static void fluid(float* acc, const I&, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
     const float w = w_cubic(r, c);
     acc[0] += mj * w;
     colorgrad(acc + 1, mj, c.rho0, w, grad_w_cubic_coef(r, c), dx, dy, dz);
   }
-  template <class Ix>
-  __device__ static void bdry(float* acc, const I&, const float* bd, Ix tj,
-                              Ix kbg, float dx, float dy, float dz, float r,
-                              const Consts& c) {
+  __device__ static void bdry(float* acc, const I&, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
     const float mb = bd[3 * kbg + tj];
     const float w = w_cubic(r, c);
     acc[0] += mb * w;
@@ -703,20 +668,20 @@ struct DensityColorgradPass {
 };
 
 // One candidate pair of every kernel below: i particle iv against slot tj
-// of f (row stride kg, rows 0-2 already loaded as xj, yj, zj): the
-// separation, its length, and inside the support the functor's fluid terms
-// (fluid true) or boundary terms. Every kernel runs these float operations
-// in this order. Most candidates (over 80% on the dam) lie outside the
-// support; the squared-distance test turns them away before the square
-// root and in_support's division.
-template <class P, class Ix>
-__device__ __forceinline__ void pair_at(float* acc, const typename P::I& iv,
-                                        const float* f, Ix tj, Ix kg,
-                                        float xj, float yj, float zj,
-                                        bool fluid, const Consts& c) {
+// of f (row stride kg, row 0 already loaded as xj): the separation, its
+// length, and inside the support the functor's fluid or boundary terms.
+// Every kernel runs these float operations in this order. Most candidates
+// (over 80% on the dam) lie outside the support; the squared-distance test
+// turns them away before the square root and in_support's division.
+template <class P, bool kFluid>
+__device__ __forceinline__ void pair_terms(float* acc,
+                                           const typename P::I& iv,
+                                           const float* f, int64_t tj,
+                                           int64_t kg, float xj,
+                                           const Consts& c) {
   const float dx = iv.x - xj;
-  const float dy = iv.y - yj;
-  const float dz = iv.z - zj;
+  const float dy = iv.y - f[kg + tj];
+  const float dz = iv.z - f[2 * kg + tj];
   const float d2 = dx * dx + dy * dy + dz * dz;
   // in_support needs r <= h (1 + 2^-23), so d2 <= h^2 (1 + 3 * 2^-23): a
   // pair past r2_cut is rejected without its square root and division,
@@ -724,23 +689,10 @@ __device__ __forceinline__ void pair_at(float* acc, const typename P::I& iv,
   if (!(d2 <= c.r2_cut)) return;
   const float r = sqrtf(d2);
   if (!in_support(r, c)) return;
-  if constexpr (P::kBoundary) {
-    if (!fluid) {
-      P::bdry(acc, iv, f, tj, kg, dx, dy, dz, r, c);
-      return;
-    }
-  }
-  P::fluid(acc, iv, f, tj, kg, dx, dy, dz, r, c);
-}
-
-// pair_at with row 0 loaded as xj and rows 1-2 loaded here
-template <class P, bool kFluid>
-__device__ __forceinline__ void pair_terms(float* acc,
-                                           const typename P::I& iv,
-                                           const float* f, int64_t tj,
-                                           int64_t kg, float xj,
-                                           const Consts& c) {
-  pair_at<P>(acc, iv, f, tj, kg, xj, f[kg + tj], f[2 * kg + tj], kFluid, c);
+  if constexpr (kFluid)
+    P::fluid(acc, iv, f, tj, kg, dx, dy, dz, r, c);
+  else
+    P::bdry(acc, iv, f, tj, kg, dx, dy, dz, r, c);
 }
 
 // Neighbour cell cj of the grids in device memory (slot stride g): its
@@ -840,16 +792,19 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 // lane. What bounds that kernel is the latency of the chain, not bytes or
 // operations (PERF.md section 6). Here the chain is about 27/W cells long.
 // What bounds the fourteen instances is the pair step and where its loads
-// are served from. Cut-down copies of this kernel (exp/pass_split.py;
-// divergence, device time) spend 12% of a launch on the launch, memset,
-// slot decode and store, 21% on the walk's row-0 tests, 31% on the pair
-// geometry (rows 1-2 loaded after row 0's test, sqrtf, in_support) and 36%
-// on the functor (its rows loaded after the support test): each lane's
-// slots form a chain of dependent loads. The same kernel took 13% less
-// time on divergence with the slot list in cell-major order (ops/box.py
-// BoxIndex.work, which the steps hand it), and 17% less at W 8: the four
-// particles of a warp then mostly share their cell, so one load serves
-// them all, and a block's neighbour rows stay in L1 (PERF.md, section 6).
+// are served from. Cut-down copies of this kernel (divergence, device
+// time; PERF.md section 6 gives the method) spend 12% of a launch on the
+// launch, memset, slot decode and store, 21% on the walk's row-0 tests,
+// 31% on the pair geometry (rows 1-2 loaded after row 0's test, sqrtf,
+// in_support) and 36% on the functor (its rows loaded after the support
+// test): each lane's slots form a chain of dependent loads. The same
+// kernel took 13% less time on divergence with the slot list in
+// cell-major order (ops/box.py BoxIndex.work, which the steps hand it),
+// and 17% less at W 8: the four particles of a warp then mostly share
+// their cell, so one load serves them all, and a block's neighbour rows
+// stay in L1. A second design that split each particle's candidate pairs
+// evenly over its lanes, with 32-bit indexing, did not beat this one
+// (PERF.md, section 6).
 //
 // The three fluid-only instances (kBoundary false: viscosity, surface and
 // xsph, 3 sums each) take bd = nullptr and kb = 0 and walk the 27 fluid
@@ -860,8 +815,9 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 // which costs no shuffle but repeats that work W times.
 //
 // Here a group of W lanes (8, 16 or 32, inside one warp) serves one
-// particle of the list islots (the step's ops/box.py BoxIndex.work, or for
-// the scene's density the boundary's DenseIndex.slots: (N,) int64 into the
+// particle of the list islots (the step's ops/box.py BoxIndex.work, for
+// surface_pressure BoxIndex.slots, or for the scene's density the
+// boundary's DenseIndex.slots: (N,) int64 into the
 // flat (K, G) slot axis; an invalid particle holds the trash value K*G and
 // its group does nothing). Lane l takes the offsets l, l+W,
 // l+2W, ... < 27 in the reference's m-order and walks each neighbour cell
@@ -924,37 +880,6 @@ __device__ __forceinline__ void transpose_step(float (&acc)[S], int lane) {
   }
 }
 
-// The group's sums reduced over its W lanes by the butterfly or the
-// transpose reduction (above), and stored at slot t of out (row stride kg)
-// if the group's particle is active. Every lane of the warp calls it.
-template <class P, int W, bool kTranspose, int S, class Ix>
-__device__ __forceinline__ void reduce_store(float (&acc)[S], int lane,
-                                             bool active, float* out, Ix t,
-                                             Ix kg) {
-  // groups are W-aligned inside the warp, so xor by m < W stays in the group
-  if constexpr (kTranspose) {
-    transpose_step<S / 2, W / 2>(acc, lane);
-#pragma unroll
-    for (int m = W / (2 * S); m > 0; m >>= 1)
-      acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], m);
-    constexpr int kStride = W / S;  // lane n * kStride holds sum n
-    if (active && lane % kStride == 0 && lane / kStride < P::kOut)
-      out[(lane / kStride) * kg + t] = acc[0];
-  } else {
-#pragma unroll
-    for (int m = W / 2; m > 0; m >>= 1) {
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
-    }
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < S; ++j)
-        if (lane == j % W) out[j * kg + t] = acc[j];
-    }
-  }
-}
-
 template <class P, int W, bool kTranspose>
 __global__ void __launch_bounds__(kThreads)
     particle_pass_kernel(const float* __restrict__ fl,
@@ -1003,38 +928,56 @@ __global__ void __launch_bounds__(kThreads)
       walk_cell<P>(acc, iv, fl, bd, cj, g, kg, k, kbg, kb, c);
     }
   }
-  reduce_store<P, W, kTranspose>(acc, lane, active, out, t, kg);
+
+  // groups are W-aligned inside the warp, so xor by m < W stays in the group
+  if constexpr (kTranspose) {
+    transpose_step<S / 2, W / 2>(acc, lane);
+#pragma unroll
+    for (int m = W / (2 * S); m > 0; m >>= 1)
+      acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], m);
+    constexpr int kStride = W / S;  // lane n * kStride holds sum n
+    if (active && lane % kStride == 0 && lane / kStride < P::kOut)
+      out[(lane / kStride) * kg + t] = acc[0];
+  } else {
+#pragma unroll
+    for (int m = W / 2; m > 0; m >>= 1) {
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
+    }
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (lane == j % W) out[j * kg + t] = acc[j];
+    }
+  }
 }
 
-// The particle-list kernel's launch, one group of W lanes per particle
 template <class P, int W, bool kTranspose>
-struct Cells {
-  static cudaError_t run(const float* fl, const float* bd,
-                         const int64_t* islots, float* out, int n, int k,
-                         int kb, int gx, int gy, int gz, const Consts& c,
-                         cudaStream_t stream) {
-    if (n == 0) return cudaSuccess;
-    const int64_t threads = static_cast<int64_t>(n) * W;
-    const unsigned blocks =
-        static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-    particle_pass_kernel<P, W, kTranspose><<<blocks, kThreads, 0, stream>>>(
-        fl, bd, islots, out, n, k, kb, gx, gy, gz, c);
-    return cudaGetLastError();
-  }
-};
+cudaError_t launch_particles(const float* fl, const float* bd,
+                             const int64_t* islots, float* out, int n, int k,
+                             int kb, int gx, int gy, int gz, const Consts& c,
+                             cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  const int64_t threads = static_cast<int64_t>(n) * W;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  particle_pass_kernel<P, W, kTranspose><<<blocks, kThreads, 0, stream>>>(
+      fl, bd, islots, out, n, k, kb, gx, gy, gz, c);
+  return cudaGetLastError();
+}
 
 // the reduction: 0 the xor butterfly, 1 the transpose reduction, which is
 // instantiated only where its padded sums fit the group (ops/
-// column_pass_cuda.py:variants gives the same pairs); L: the kernel's
-// launch (Cells or Candidates)
-template <template <class, int, bool> class L, class P, int W, class... A>
+// column_pass_cuda.py:variants gives the same pairs)
+template <class P, int W, class... A>
 cudaError_t launch_reduction(int reduction, A... a) {
   switch (reduction) {
     case 0:
-      return L<P, W, false>::run(a...);
+      return launch_particles<P, W, false>(a...);
     case 1:
       if constexpr (pow2_at_least(P::kOut) <= W)
-        return L<P, W, true>::run(a...);
+        return launch_particles<P, W, true>(a...);
       else
         return cudaErrorInvalidValue;
     default:
@@ -1043,265 +986,19 @@ cudaError_t launch_reduction(int reduction, A... a) {
 }
 
 // the group width W, instantiated for 8, 16 and 32 only
-template <template <class, int, bool> class L, class P, class... A>
+template <class P, class... A>
 cudaError_t launch_lanes(int lanes, int reduction, A... a) {
   switch (lanes) {
     case 8:
-      return launch_reduction<L, P, 8>(reduction, a...);
+      return launch_reduction<P, 8>(reduction, a...);
     case 16:
-      return launch_reduction<L, P, 16>(reduction, a...);
+      return launch_reduction<P, 16>(reduction, a...);
     case 32:
-      return launch_reduction<L, P, 32>(reduction, a...);
+      return launch_reduction<P, 32>(reduction, a...);
     default:
       return cudaErrorInvalidValue;
   }
 }
-
-// --- the candidate-balanced particle kernel (DivergencePass,
-// DensityColorgradViscPass) ---
-//
-// Replaces pallas_passes.py:107 `column_pass` for two instances,
-// divergence_pass (:1097), which DFSPH runs in every iteration of its
-// divergence solve, and density_colorgrad_visc_pass (:1238), WCSPH's first
-// traversal. It computes what particle_pass_kernel computes for them, with
-// the same slot-list contract (one group of W lanes per entry of islots, the
-// trash value K*G does nothing, only listed slots of a zeroed output are
-// written), the same pair step (pair_at: the squared-distance test before
-// sqrtf, then in_support, then the functor) and the same two reductions.
-// Only the order in which a particle's sums are added differs.
-//
-// What bounds it on this card: cut-down copies of particle_pass_kernel
-// (exp/pass_split.py) spend 4% of a divergence launch on the slot decode
-// and most of it in the pair step, a chain of dependent loads per slot.
-// The design below attacks the chain and the lanes that wait on the
-// fullest cell. Measured (PERF.md, section 6): with the slot list in the
-// particles' order it took 1.5x the particle-list kernel's time on
-// divergence, its lanes' chunks reading unrelated cells where the
-// particle-list kernel's lanes read neighbouring cells of one slot row; in
-// cell-major order it took 1-2% less than the particle-list kernel's W 8
-// on the dam, and 28% more at the 1M recipe's state and 10% more on
-// density_colorgrad_visc. So no path runs it; chip_smoke.py holds it
-// against plain and times it in every run.
-//
-// What it changes:
-//
-// - 32-bit indexing. The wrapper checks that rows*K*G and 4*Kb*G fit in
-//   int32; slots, cells and row offsets are int, only the base pointers are
-//   64-bit. The slot is decoded into (cell, x, y, z) by multiplying with
-//   magic numbers computed on the host (Divisors), not by the 64-bit
-//   division and remainder routines particle_pass_kernel calls.
-// - Counts first. The group's lanes find the occupancy of the particle's
-//   27 fluid and 27 boundary neighbour cells (the list's 54 entries: fluid
-//   cells in the reference's m-order, then the boundary cells, slots
-//   ascending in each). Ranks fill a cell from slot 0, so "row 0 < POS_GUARD"
-//   holds exactly for the slots below the count, and a halving search of
-//   log2 K + 1 probes finds it (a full cell counts K, or Kb); a lane's
-//   searches run side by side. A scan over the group's shuffles turns the
-//   counts into each entry's first candidate, kept in shared memory.
-// - A balanced share. The particle's T candidates are cut into W contiguous
-//   chunks of T/W (rounded by lane); each lane finds its first entry by one
-//   search of the 55 starts and walks its chunk slot by slot, loading the
-//   next candidate's position before it runs the current one's terms, so
-//   two candidates' loads are in flight and none waits on a test. Lanes no
-//   longer wait on the fullest cell's chain.
-//
-// No atomics and a fixed order (a lane adds its chunk in list order, then
-// the reduction adds the lanes in a fixed order), so two launches are
-// bitwise equal; a sum no pair reaches stays +-0. No lane returns before
-// the shuffles: inside the active branch (uniform over the group) the
-// shuffles take the group's mask, and the reduction the whole warp's.
-
-// n / d for 0 <= n < 2^31 without a division: __umulhi(n, mul) >> shr,
-// with l = ceil(log2 d), mul = ceil(2^(31 + l) / d) and shr = l - 1, for a
-// divisor d >= 2 (ops/column_pass_cuda.py:fast_divisor, which the CPU tests
-// hold against integer division)
-struct Divisor {
-  unsigned mul, shr;
-};
-__device__ __forceinline__ int divide(int n, Divisor d) {
-  return static_cast<int>(__umulhi(static_cast<unsigned>(n), d.mul) >> d.shr);
-}
-
-// the launch's divisors: G (slot -> cell), GY*GZ (cell -> x) and GZ (-> y)
-struct Divisors {
-  Divisor g, gyz, gz;
-};
-
-constexpr int kEntries = 54;  // a particle's list: 27 fluid, 27 boundary cells
-
-// neighbour o's cell offset, o in the reference's m-order
-__device__ __forceinline__ int stencil(int o, int gyz, int gz) {
-  return (o / 9 - 1) * gyz + ((o % 9) / 3 - 1) * gz + (o % 3 - 1);
-}
-
-// A lane's place in its particle's list: entry e holds candidates [lo, hi)
-// of cell cj, fluid (e < 27) or boundary; first: the group's 55 starts.
-struct Cursor {
-  const int* first;
-  int e, lo, hi, cj;
-  bool fluid;
-
-  __device__ void enter(int cell, int gyz, int gz) {
-    lo = first[e];
-    hi = first[e + 1];
-    fluid = e < 27;
-    cj = cell + stencil(fluid ? e : e - 27, gyz, gz);
-  }
-  // advance to the entry holding candidate s (skipping empty entries)
-  __device__ void seek(int s, int cell, int gyz, int gz) {
-    if (s < hi) return;
-    do ++e;
-    while (s >= first[e + 1]);
-    enter(cell, gyz, gz);
-  }
-};
-
-template <class P, int W, bool kTranspose>
-__global__ void __launch_bounds__(kThreads)
-    candidate_pass_kernel(const float* __restrict__ fl,
-                          const float* __restrict__ bd,
-                          const int64_t* __restrict__ islots,
-                          float* __restrict__ out, int n, int k, int kb,
-                          int gx, int gy, int gz, Divisors dv, Consts c) {
-  static_assert(W == 8 || W == 16 || W == 32,
-                "a group is 8, 16 or 32 lanes of one warp");
-  static_assert(P::kBoundary, "the list's second half is the boundary's");
-  constexpr int S = kTranspose ? pow2_at_least(P::kOut) : P::kOut;
-  static_assert(!kTranspose || S <= W,
-                "the transpose leaves each lane one sum: every sum needs a "
-                "lane to store it");
-  constexpr int kGroups = kThreads / W;
-  constexpr int kRounds = (kEntries + W - 1) / W;  // entries per lane
-  __shared__ int starts[kGroups][kEntries + 1];
-
-  const int group = static_cast<int>(threadIdx.x) / W;
-  const int lane = static_cast<int>(threadIdx.x) % W;
-  const unsigned gmask =
-      W == 32 ? 0xffffffffu
-              : ((1u << W) - 1u) << (static_cast<int>(threadIdx.x) % 32 / W * W);
-  const int g = gx * gy * gz, gyz = gy * gz;
-  const int kg = k * g, kbg = kb * g;
-  const int p = static_cast<int>(blockIdx.x) * kGroups + group;
-  const int64_t slot = p < n ? islots[p] : kg;
-
-  // every test below reads only the slot, so it is uniform across the group
-  bool active = slot >= 0 && slot < kg;
-  const int t = active ? static_cast<int>(slot) : 0;
-  int cell = 0;
-  if (active) {
-    cell = t - divide(t, dv.g) * g;
-    const int x = divide(cell, dv.gyz);
-    const int yz = cell - x * gyz;
-    const int y = divide(yz, dv.gz);
-    const int z = yz - y * gz;
-    active = x > 0 && x < gx - 1 && y > 0 && y < gy - 1 && z > 0 &&
-             z < gz - 1 && fl[t] < c.pos_guard;
-  }
-
-  float acc[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) acc[j] = 0.f;
-
-  if (active) {
-    const typename P::I iv = P::load_i(fl, t, kg, c);
-
-    // entry r * W + lane's count: the real slots of its cell, by halving
-    // from the largest power of two <= max(K, Kb); the rounds' probes are
-    // independent of each other
-    int cnt[kRounds], cj[kRounds], kmax[kRounds];
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      const int e = r * W + lane;
-      cnt[r] = 0;
-      kmax[r] = e < 27 ? k : (e < kEntries ? kb : 0);
-      cj[r] = cell + stencil(e < 27 ? e : e - 27, gyz, gz);
-    }
-    for (int step = 1 << (31 - __clz(max(k, kb))); step > 0; step >>= 1) {
-#pragma unroll
-      for (int r = 0; r < kRounds; ++r) {
-        const int s = cnt[r] + step;
-        const float* f = r * W + lane < 27 ? fl : bd;
-        if (s <= kmax[r] && f[(s - 1) * g + cj[r]] < c.pos_guard) cnt[r] = s;
-      }
-    }
-
-    // exclusive scan of the counts in list order -> each entry's first
-    // candidate; total: the particle's candidate count
-    int* first = starts[group];
-    int total = 0;
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      int incl = cnt[r];
-#pragma unroll
-      for (int d = 1; d < W; d *= 2) {
-        const int v = __shfl_up_sync(gmask, incl, d, W);
-        if (lane >= d) incl += v;
-      }
-      if (r * W + lane < kEntries) first[r * W + lane] = total + incl - cnt[r];
-      total += __shfl_sync(gmask, incl, W - 1, W);
-    }
-    if (lane == 0) first[kEntries] = total;
-    __syncwarp(gmask);
-
-    // this lane's chunk [s, end) of the list
-    int s = lane * total / W;
-    const int end = (lane + 1) * total / W;
-    if (s < end) {
-      Cursor at{first, 0};
-#pragma unroll
-      for (int step = 32; step > 0; step >>= 1)  // the last start <= s
-        if (at.e + step < kEntries && first[at.e + step] <= s) at.e += step;
-      at.enter(cell, gyz, gz);
-      // candidate s's rows 0-2, loaded one candidate ahead of its terms
-      bool fluid = at.fluid;
-      const float* f = fluid ? fl : bd;
-      int rs = fluid ? kg : kbg;
-      int tj = (s - at.lo) * g + at.cj;
-      float xj = f[tj], yj = f[rs + tj], zj = f[2 * rs + tj];
-      for (; s < end; ++s) {
-        bool fluid_n = fluid;
-        const float* f_n = f;
-        int rs_n = rs, tj_n = tj;
-        float xn = 0.f, yn = 0.f, zn = 0.f;
-        if (s + 1 < end) {
-          at.seek(s + 1, cell, gyz, gz);
-          fluid_n = at.fluid;
-          f_n = fluid_n ? fl : bd;
-          rs_n = fluid_n ? kg : kbg;
-          tj_n = (s + 1 - at.lo) * g + at.cj;
-          xn = f_n[tj_n];
-          yn = f_n[rs_n + tj_n];
-          zn = f_n[2 * rs_n + tj_n];
-        }
-        pair_at<P>(acc, iv, f, tj, rs, xj, yj, zj, fluid, c);
-        fluid = fluid_n;
-        f = f_n;
-        rs = rs_n;
-        tj = tj_n;
-        xj = xn;
-        yj = yn;
-        zj = zn;
-      }
-    }
-  }
-  reduce_store<P, W, kTranspose>(acc, lane, active, out, t, kg);
-}
-
-// The candidate kernel's launch, kThreads / W particles per block
-template <class P, int W, bool kTranspose>
-struct Candidates {
-  static cudaError_t run(const float* fl, const float* bd,
-                         const int64_t* islots, float* out, int n, int k,
-                         int kb, int gx, int gy, int gz, const Divisors& dv,
-                         const Consts& c, cudaStream_t stream) {
-    if (n == 0) return cudaSuccess;
-    constexpr int kGroups = kThreads / W;
-    const unsigned blocks = static_cast<unsigned>((n + kGroups - 1) / kGroups);
-    candidate_pass_kernel<P, W, kTranspose><<<blocks, kThreads, 0, stream>>>(
-        fl, bd, islots, out, n, k, kb, gx, gy, gz, dv, c);
-    return cudaGetLastError();
-  }
-};
 
 // --- the brick-tiled fluid-only kernel (exp/flat_pallas_proto.py:67) ---
 
@@ -1527,7 +1224,7 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto pass) {
-    return launch_lanes<Cells, decltype(pass)>(
+    return launch_lanes<decltype(pass)>(
         lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
   };
   switch (pass_id) {
@@ -1559,42 +1256,6 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
       return run(XsphColorgradPass{});
     case 13:
       return run(XsphPass{});
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// The candidate kernel on pass ids 1 (density_colorgrad_visc) and 4
-// (divergence) of column_pass_launch, with lanes, reduction, islots and out
-// as particle_pass_launch takes them; divs: the (mul, shr) pairs of G,
-// GY*GZ and GZ (ops/column_pass_cuda.py:fast_divisor), n_divs 6. The
-// caller checks that rows*K*G and 4*Kb*G fit in int32. Returns a
-// cudaError_t; any other pass id, width, reduction or divisor count is
-// cudaErrorInvalidValue.
-extern "C" int candidate_pass_launch(int pass_id, int lanes, int reduction,
-                                     const float* fl, const float* bd,
-                                     const int64_t* islots, float* out, int n,
-                                     int k, int kb, int gx, int gy, int gz,
-                                     const unsigned* divs, int n_divs,
-                                     const float* consts, int n_consts,
-                                     int device, void* stream) {
-  Consts c;
-  if (!read_consts(consts, n_consts, &c) || n < 0 || n_divs != 6)
-    return cudaErrorInvalidValue;
-  const Divisors dv{{divs[0], divs[1]}, {divs[2], divs[3]}, {divs[4], divs[5]}};
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto run = [&](auto pass) {
-    return launch_lanes<Candidates, decltype(pass)>(
-        lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, dv, c,
-        s);
-  };
-  switch (pass_id) {
-    case 1:
-      return run(DensityColorgradViscPass{});
-    case 4:
-      return run(DivergencePass{});
     default:
       return cudaErrorInvalidValue;
   }

@@ -131,7 +131,6 @@ def run_case(case: str, device, mesh=None, seed: int = 0) -> dict:
         "dropped_frames": sim.dropped_frames, "capacity": caps,
         "metrics": metrics, "ms": ms, "wall_s": time.perf_counter() - t0,
         "launches": dict(cc.LAUNCHES),
-        "design_launches": dict(cc.DESIGN_LAUNCHES),
         "halo": dict(halo.COUNTS), "staged": sorted(halo.STAGED)}
     st = sim.state
     return {"pos": st.pos.cpu().numpy(), "vel": st.vel.cpu().numpy(),

@@ -62,6 +62,7 @@ class Layout(NamedTuple):
     idx: bx.BoxIndex         # the whole box's index (the same on every rank)
     islots: torch.Tensor     # (N,) slot list of this rank's grid
     work: torch.Tensor       # islots in cell-major order: the passes' list
+    #                          (surface_pressure takes islots)
     fill: Callable           # (fields, fills) -> stacked grid tensor
     read: Callable           # grid tensor -> (F, N)
     dims: DenseDims          # grid dims for the fluid passes
@@ -380,9 +381,13 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
         cg = o[1:4] / torch.clamp(o[4], min=cfg.epsilon)[None]
         vel_d = vel_d + o[5:8] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
+        # the one pass that runs faster on the slots in the particles'
+        # order than in cell-major order: 0.0723 against 0.0758 ms a launch
+        # at W 8 on the 300-frame WCSPH dam, both passes of chip_smoke's
+        # ladder (CUDA graph, PERF.md section 6)
         sp = pp.surface_pressure_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None], cg], 0),
-            bdx, dims, dims_b, cfg, executor, islots=lo.work)
+            bdx, dims, dims_b, cfg, executor, islots=lo.islots)
         vel_d = vel_d + sp[0:3] * dt
         vel_d = vel_d + _accel_clamp(sp[3:6], cfg) * dt
     else:

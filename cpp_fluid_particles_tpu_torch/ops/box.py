@@ -14,9 +14,10 @@ device-side origin:
 
 The index also lists the slots in cell-major order (``BoxIndex.work``,
 from the same stable sort that ranks the particles), the list the
-particle-list passes take: the particles a block of the kernel serves then
-share their neighbour cells, so the kernel finds their rows in L1. The
-passes' outputs do not depend on the list's order.
+particle-list passes take but surface_pressure (faster on ``slots``): the
+particles a block of the kernel serves then share their neighbour cells,
+so the kernel finds their rows in L1. The passes' outputs do not depend on
+the list's order.
 
 Fluid outside the box (possible only when the true bounding box exceeds
 the box size) follows the ballistic fallback and is counted in

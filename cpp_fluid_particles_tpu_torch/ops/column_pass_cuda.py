@@ -19,18 +19,13 @@ combines, at the (width, reduction) pairs ``variants`` gives for the pass's
 sum count; ``passes.column_pass`` sends those fourteen passes there on a
 card, so no path launches ``column_pass_cuda``: it stays the yardstick, and
 the executor of color_gradient and density_colorgrad, which nothing runs.
-For ``CANDIDATE_PASSES`` (divergence, density_colorgrad_visc) it also
-takes ``design="candidates"``: the candidate kernel, a balanced share of
-each particle's candidate pairs per lane with 32-bit indexing, which no
-pass runs by default (``PASS_DESIGN``).
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
 through the untiled kernel as its yardstick.
 ``LAUNCHES`` counts the launches of each pass instance, of each
-particle-list instance (``particle_<name>``, whichever design ran it) and
-of each fluid-only instance of the prototype's bodies, tiled and untiled;
-``DESIGN_LAUNCHES`` those of each design of each particle-list instance.
+particle-list instance (``particle_<name>``) and of each fluid-only
+instance of the prototype's bodies, tiled and untiled.
 """
 
 from __future__ import annotations
@@ -103,7 +98,7 @@ LANES = (32, 8, 16)
 # against 1.799 at W 32 on the 1M recipe's state; density_colorgrad_visc
 # (WCSPH's, K 22) 0.0611 at W 8 (butterfly) against 0.0622 transposed and
 # 0.0747 at its former W 32 transposed (CUDA-graph ms, best of two, one
-# call; exp/pass_split.py, PERF.md section 6)
+# call; PERF.md section 6)
 PASS_LANES = {"surface_pressure": 8, "density_visc": 16,
               "pressure_force": 8, "divergence": 8,
               "density_colorgrad_visc": 8}
@@ -148,34 +143,14 @@ PASS_REDUCTION = {"xsph_colorgrad": "transpose", "surface": "transpose",
                   "pressure_force": "transpose", "xsph": "transpose",
                   "density": "transpose"}
 
-# the designs of a particle-list pass: "cells", particle_pass_kernel (each
-# lane walks whole neighbour cells), and "candidates", candidate_pass_kernel
-# (counts first, then each lane a balanced share of the particle's candidate
-# pairs, 32-bit indexing); csrc/column_pass.cu says how. Only
-# CANDIDATE_PASSES have the second
-DESIGNS = ("cells", "candidates")
-CANDIDATE_PASSES = ("divergence", "density_colorgrad_visc")
-
-# passes whose default design is not DESIGNS[0]. The candidate kernel
-# would have to beat the particle-list kernel's default in both passes of
-# chip_smoke's ladder and not lose elsewhere; none does. With the slot list
-# in cell-major order, divergence took 0.0463 ms (candidates, W 8) against
-# the particle-list kernel's 0.0470 at W 8 on the dam, 1-2% less, but
-# 1.466 against 1.149 on the 1M recipe's state; density_colorgrad_visc
-# took 0.0671 against 0.0611 (CUDA-graph ms, one call; exp/pass_split.py,
-# PERF.md section 6)
-PASS_DESIGN: dict = {}
-
-# launches per pass instance, per particle-list instance (particle_<name>,
-# whichever design ran it), and per fluid-only instance of the prototype's
-# bodies (flat_<body>: the tiled kernel; untiled_<body>: column_pass_kernel);
-# bumped once per successful launch
+# launches per pass instance, per particle-list instance (particle_<name>),
+# and per fluid-only instance of the prototype's bodies (flat_<body>: the
+# tiled kernel; untiled_<body>: column_pass_kernel); bumped once per
+# successful launch
 LAUNCHES = {name: 0 for name in PASS_IDS}
 LAUNCHES.update({f"particle_{name}": 0 for name in PARTICLE_PASSES})
 LAUNCHES.update({f"{kind}_{body}": 0 for kind in ("flat", "untiled")
                  for body in FLAT_IDS})
-
-INT32_MAX = 2 ** 31 - 1
 
 
 def variants(name: str) -> tuple:
@@ -190,22 +165,6 @@ def variants(name: str) -> tuple:
                  if red == "butterfly" or padded <= lanes)
 
 
-def designs(name: str) -> tuple:
-    """The designs the particle-list pass ``name`` has, DESIGNS[0] first."""
-    return DESIGNS if name in CANDIDATE_PASSES else DESIGNS[:1]
-
-
-def default_design(name: str) -> str:
-    """The design pass ``name`` runs on a card unless told otherwise."""
-    return PASS_DESIGN.get(name, DESIGNS[0])
-
-
-# launches of each design of each particle-list instance (<design>_<name>);
-# their sum over the designs is LAUNCHES["particle_<name>"]
-DESIGN_LAUNCHES = {f"{design}_{name}": 0 for name in PARTICLE_PASSES
-                   for design in designs(name)}
-
-
 def default_lanes(name: str) -> int:
     """The group width the particle-list kernel runs pass ``name`` at."""
     return PASS_LANES.get(name, LANES[0])
@@ -217,40 +176,8 @@ def default_reduction(name: str) -> str:
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DESIGN_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
-
-
-def fast_divisor(d: int):
-    """-> (mul, shr) with n // d == (n * mul) >> (32 + shr) for every
-    0 <= n < 2**31: l = ceil(log2 d), mul = ceil(2**(31 + l) / d) < 2**32
-    and shr = l - 1 (the candidate kernel's ``divide``, __umulhi then a
-    shift). d >= 2."""
-    if d < 2:
-        raise ValueError(f"fast_divisor: divisor {d} < 2")
-    lg = (d - 1).bit_length()
-    return -(-(1 << (31 + lg)) // d), lg - 1
-
-
-@functools.lru_cache(maxsize=64)
-def _divisors(dims: DenseDims):
-    """The candidate kernel's Divisors: (mul, shr) of G, GY*GZ and GZ, made
-    once per grid shape (the kernel only reads them)."""
-    vals = [v for d in (dims.g, dims.gy * dims.gz, dims.gz)
-            for v in fast_divisor(d)]
-    return (ctypes.c_uint * len(vals))(*vals)
-
-
-def int32_reach(name: str, dims: DenseDims, dims_b: Optional[DenseDims]):
-    """The largest flat index + 1 the candidate kernel forms for pass
-    ``name``: its input or output rows x K x G, and the boundary's 4 rows x
-    Kb x G."""
-    spec = PASSES[name]
-    reach = max(spec.fi, spec.n_out) * dims.k * dims.g
-    if spec.has_bd and dims_b is not None:
-        reach = max(reach, BOUNDARY_ROWS * dims_b.k * dims.g)
-    return reach
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -299,10 +226,6 @@ def _library() -> ctypes.CDLL:
     fn = lib.particle_pass_launch
     fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
                    ci, ci, vp]
-    fn.restype = ci
-    fn = lib.candidate_pass_launch
-    fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
-                   ci, vp, ci, ci, vp]
     fn.restype = ci
     return lib
 
@@ -385,9 +308,8 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
                        dims: DenseDims, dims_b: Optional[DenseDims],
                        cfg: SimConfig,
                        lanes: Optional[int] = None,
-                       reduction: Optional[str] = None,
-                       design: Optional[str] = None) -> torch.Tensor:
-    """Pass ``name`` (one of ``passes.PARTICLE_PASSES``) through a
+                       reduction: Optional[str] = None) -> torch.Tensor:
+    """Pass ``name`` (one of ``passes.PARTICLE_PASSES``) through the
     particle-list kernel on the current stream of ``fl``'s device: a group
     of ``lanes`` lanes (one of LANES; default ``default_lanes(name)``) for
     each particle of ``islots``, the step's ``BoxIndex.work`` or the
@@ -395,17 +317,12 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
     slot axis, K*G for an invalid particle), its sums
     combined by ``reduction`` (one of REDUCTIONS; default
     ``default_reduction(name)``); a pair outside ``variants(name)`` is
-    refused before anything runs. ``design`` (one of ``designs(name)``;
-    default ``default_design(name)``) picks the kernel: "cells",
-    particle_pass_kernel, or "candidates", candidate_pass_kernel, which
-    refuses operands whose flat indices pass the int32 range. A fluid-only
-    pass (``has_bd`` False) takes ``bd=None, dims_b=None``, and the kernel
-    gets a null boundary pointer and Kb = 0; a boundary operand where a pass
-    takes none, or none where it takes one, is refused. Returns (n_out, K,
-    G), zeroed by one memset before the launch (it counts in the kernel's
-    time): the kernel writes only the listed slots. Counted as
-    ``particle_<name>`` in LAUNCHES and as ``<design>_<name>`` in
-    DESIGN_LAUNCHES."""
+    refused before anything runs. A fluid-only pass (``has_bd`` False)
+    takes ``bd=None, dims_b=None``, and the kernel gets a null boundary
+    pointer and Kb = 0; a boundary operand where a pass takes none, or
+    none where it takes one, is refused. Returns (n_out, K, G), zeroed by one
+    memset before the launch (it counts in the kernel's time): the kernel
+    writes only the listed slots. Counted as ``particle_<name>``."""
     fn = "particle_pass_cuda"
     if name not in PARTICLE_PASSES:
         raise ValueError(f"{fn}: pass {name!r} has no particle-list kernel; "
@@ -421,16 +338,6 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
         raise ValueError(f"{fn}: pass {name} has {PASSES[name].n_out} sums, "
                          f"too many for the {reduction} reduction at {lanes} "
                          f"lanes; its variants are {variants(name)}")
-    design = default_design(name) if design is None else design
-    if design not in DESIGNS:
-        raise ValueError(f"{fn}: design {design!r} is not one of {DESIGNS}")
-    if design not in designs(name):
-        raise ValueError(f"{fn}: pass {name} has no {design} design; its "
-                         f"designs are {designs(name)}")
-    if design == "candidates" and int32_reach(name, dims, dims_b) > INT32_MAX:
-        raise ValueError(f"{fn}: the {design} design indexes in int32, and "
-                         f"pass {name}'s operands reach "
-                         f"{int32_reach(name, dims, dims_b)} > {INT32_MAX}")
     if islots.dtype != torch.int64 or islots.dim() != 1:
         raise ValueError(f"{fn}: islots must be 1-D int64, got "
                          f"{islots.dtype} of shape {tuple(islots.shape)}")
@@ -447,21 +354,15 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
         return out
     consts = _consts(cfg)
     stream = torch.cuda.current_stream(fl.device).cuda_stream
-    args = (PASS_IDS[name], lanes, REDUCTIONS.index(reduction),
-            fl.data_ptr(), bd_ptr, islots.data_ptr(), out.data_ptr(), n,
-            dims.k, kb, dims.gx, dims.gy, dims.gz)
-    tail = (consts, len(consts), fl.device.index, stream)
-    if design == "cells":
-        err = _library().particle_pass_launch(*args, *tail)
-    else:
-        divs = _divisors(dims)
-        err = _library().candidate_pass_launch(*args, divs, len(divs), *tail)
+    err = _library().particle_pass_launch(
+        PASS_IDS[name], lanes, REDUCTIONS.index(reduction), fl.data_ptr(),
+        bd_ptr, islots.data_ptr(), out.data_ptr(), n, dims.k, kb, dims.gx,
+        dims.gy, dims.gz, consts, len(consts), fl.device.index, stream)
     if err != 0:
-        raise RuntimeError(f"{fn}: launching {name} ({design}) with {lanes} "
-                           f"lanes and the {reduction} reduction failed with "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"{fn}: launching {name} with {lanes} lanes and "
+                           f"the {reduction} reduction failed with CUDA "
+                           f"error {err}")
     LAUNCHES[f"particle_{name}"] += 1
-    DESIGN_LAUNCHES[f"{design}_{name}"] += 1
     return out
 
 

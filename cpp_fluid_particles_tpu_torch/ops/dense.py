@@ -103,18 +103,14 @@ def cell_order(key: torch.Tensor):
     return rank, order
 
 
-def cell_ranks(key: torch.Tensor) -> torch.Tensor:
-    """Rank of each particle within its key run (``cell_order``)."""
-    return cell_order(key)[0]
-
-
 def build_dense_index(pos: torch.Tensor, cfg: SimConfig,
                       dims: DenseDims) -> DenseIndex:
     """cell ids -> within-cell ranks -> ghosted slot indices. Replaces the
     reference's counting sort without reordering the state."""
     inb, cc = clamp_coords(cell_coords(pos, cfg), dims)
     cell = (cc[:, 0] * dims.cy + cc[:, 1]) * dims.cz + cc[:, 2]
-    rank = cell_ranks(torch.where(inb, cell, dims.cx * dims.cy * dims.cz))
+    rank, _ = cell_order(torch.where(inb, cell,
+                                     dims.cx * dims.cy * dims.cz))
 
     valid = inb & (rank < dims.k)
     gcell = (((cc[:, 0] + 1) * dims.gy + (cc[:, 1] + 1)) * dims.gz

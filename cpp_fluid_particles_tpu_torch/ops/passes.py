@@ -14,8 +14,9 @@ defined by two TERM functions in vector-component form over pair blocks
 
 Executors (same signature, ``(name, fl, bd, dims, dims_b, cfg,
 islots=None) -> (n_out, K, G)``; ``islots`` lists the particles' slots
-of fl's grid, the step's ``BoxIndex.work`` (in cell-major order) or the
-scene build's boundary ``DenseIndex.slots``, which the callers of
+of fl's grid, the step's ``BoxIndex.work`` (in cell-major order; for
+surface_pressure ``BoxIndex.slots``, in the particles' order) or the scene
+build's boundary ``DenseIndex.slots``, which the callers of
 ``PARTICLE_PASSES`` give):
 
   * ``column_pass_plain`` — port of ``column_pass_xla`` (pallas_passes.py:287)
@@ -651,7 +652,7 @@ def density_colorgrad_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
 def surface_pressure_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
                           islots):
     """fl: [pos3, mass, rho, p, cg3]; bd: [pos3, mass]; islots: the step's
-    ``BoxIndex.work``. Returns (6, K, G)."""
+    ``BoxIndex.slots`` (in the particles' order). Returns (6, K, G)."""
     return column_pass("surface_pressure", fl, bd, dims, dims_b, cfg,
                        executor, islots=islots)
 

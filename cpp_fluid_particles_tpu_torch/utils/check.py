@@ -52,21 +52,29 @@ def time_graph_ms(fn, reps: int) -> float:
     that captured reps calls: their device time back to back, without the
     host's enqueueing between them, which time_ms includes when a call's
     device work is shorter than its host work. fn runs once first, outside
-    the graph."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    graph.replay()
-    t1.record()
-    t1.synchronize()
+    the graph. The kernels' launch counts (``column_pass_cuda.LAUNCHES``)
+    are left as they were: a wrapper counts a launch when the graph
+    captures it, and the graph's replays launch again uncounted, so neither
+    count would be the launches that ran."""
+    from ..ops.column_pass_cuda import LAUNCHES
+    saved = dict(LAUNCHES)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+    finally:
+        LAUNCHES.update(saved)
     return t0.elapsed_time(t1) / reps
 
 

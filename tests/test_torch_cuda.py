@@ -3,10 +3,9 @@ for pbd_lambda, stiffness_accel, divergence, surface_pressure,
 density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
 density_visc, pressure_force, density_alpha, the fluid-only viscosity,
 surface and xsph, and the scene build's density (at each group width and
-reduction the pass takes; the wrapper refuses the others), the candidate
-kernel of divergence and density_colorgrad_visc (on the steps' slot
-lists, on cells full to K and on empty ones, on a 2x2 block's window, and
-in a solver step), and its brick-tiled fluid-only variant on the card.
+reduction the pass takes; the wrapper refuses the others; divergence and
+density_colorgrad_visc also on cells full to K and on empty ones, and on a
+2x2 block's window), and its brick-tiled fluid-only variant on the card.
 Every Simulation on the card launches the particle-list density once, for
 its scene, and the column kernel never.
 
@@ -264,9 +263,9 @@ def _no_r2_cut(monkeypatch):
 def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
     """The squared-distance early-out rejects only pairs that in_support
     rejects too, and runs the same float operations on the others: the
-    column kernel, and the particle-list kernel in each of its designs at
-    every (width, reduction) of the pass, give bitwise the same output with
-    r2_cut as with +inf."""
+    column kernel, and the particle-list kernel at every (width,
+    reduction) of the pass, give bitwise the same output with r2_cut as
+    with +inf."""
     _, fl, bd, dims, dims_b, islots = operands[name]
 
     def run_all():
@@ -274,15 +273,14 @@ def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
         if name in pp.PARTICLE_PASSES:
             outs += [cc.particle_pass_cuda(name, fl, bd, islots, dims,
                                            dims_b, CFG, lanes=lanes,
-                                           reduction=red, design=design)
-                     for design in cc.designs(name)
+                                           reduction=red)
                      for lanes, red in cc.variants(name)]
         torch.cuda.synchronize()
         return outs
     cut = run_all()
     _no_r2_cut(monkeypatch)
     uncut = run_all()
-    assert len(cut) == 1 + (len(cc.variants(name)) * len(cc.designs(name))
+    assert len(cut) == 1 + (len(cc.variants(name))
                             if name in pp.PARTICLE_PASSES else 0)
     for a, b in zip(cut, uncut):
         assert torch.equal(a, b)
@@ -591,28 +589,26 @@ def test_flat_wrapper_checks_the_brick(flat_state):
 
 
 # ----------------------------------------------------------------------
-# the candidate kernel (design "candidates") of CANDIDATE_PASSES
+# the particle-list kernel on full and empty cells and on a block's window
 # ----------------------------------------------------------------------
 
-def _candidates_vs(name, fl, bd, islots, dims, dims_b, lanes, reduction,
-                   want):
-    """The candidate kernel on these operands: two launches bitwise equal,
-    each counted once in LAUNCHES and DESIGN_LAUNCHES, within BAR of
-    ``want`` (per output row, at the listed slots) and 0 at every other
-    slot; the butterfly at the same width bitwise equal -> the output."""
-    n0 = cc.LAUNCHES[f"particle_{name}"]
-    d0 = dict(cc.DESIGN_LAUNCHES)
+# the two passes whose default variant the work list moved to W 8
+WINDOW_PASSES = ("divergence", "density_colorgrad_visc")
 
-    def run(red=reduction):
+
+def _particles_vs(name, fl, bd, islots, dims, dims_b, lanes, reduction,
+                  want):
+    """The particle-list kernel on these operands: two launches bitwise
+    equal, each counted once, within BAR of ``want`` (per output row, at
+    the listed slots) and 0 at every other slot -> the output."""
+    n0 = cc.LAUNCHES[f"particle_{name}"]
+
+    def run():
         return cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
-                                     lanes=lanes, reduction=red,
-                                     design="candidates")
+                                     lanes=lanes, reduction=reduction)
     got, again = run(), run()
     torch.cuda.synchronize()
     assert cc.LAUNCHES[f"particle_{name}"] == n0 + 2
-    assert cc.DESIGN_LAUNCHES[f"candidates_{name}"] == \
-        d0[f"candidates_{name}"] + 2
-    assert cc.DESIGN_LAUNCHES[f"cells_{name}"] == d0[f"cells_{name}"]
     assert torch.equal(got, again)
     assert bool(torch.isfinite(got).all()) and bool(got.any())
     listed = islots[islots < dims.k * dims.g]
@@ -624,27 +620,7 @@ def _candidates_vs(name, fl, bd, islots, dims, dims_b, lanes, reduction,
     rest = torch.ones(flat.shape[1], dtype=torch.bool, device=flat.device)
     rest[listed] = False
     assert not bool(flat[:, rest].any())
-    assert torch.equal(got, run("butterfly"))
     return got
-
-
-@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
-@pytest.mark.parametrize("lanes", cc.LANES)
-@pytest.mark.parametrize("name", cc.CANDIDATE_PASSES)
-def test_candidate_kernel_matches_plain_and_cells(operands, name, lanes,
-                                                  reduction):
-    """The candidate kernel on the slot list its step gives it: within BAR
-    of the plain executor and of the particle-list kernel at the same
-    variant (the sums run in another order), two launches bitwise."""
-    _, fl, bd, dims, dims_b, islots = operands[name]
-    want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
-    got = _candidates_vs(name, fl, bd, islots, dims, dims_b, lanes,
-                         reduction, want)
-    cells = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
-                                  lanes=lanes, reduction=reduction,
-                                  design="cells")
-    scale = float(cells.abs().max())
-    torch.testing.assert_close(got, cells, rtol=BAR, atol=BAR * scale)
 
 
 def _full_and_empty_cells(dev, name):
@@ -696,28 +672,21 @@ def _full_and_empty_cells(dev, name):
 
 @pytest.mark.parametrize("reduction", cc.REDUCTIONS)
 @pytest.mark.parametrize("lanes", cc.LANES)
-@pytest.mark.parametrize("name", cc.CANDIDATE_PASSES)
-def test_candidate_kernel_on_full_and_empty_cells(dev, name, lanes,
-                                                  reduction):
+@pytest.mark.parametrize("name", WINDOW_PASSES)
+def test_particle_kernel_on_full_and_empty_cells(dev, name, lanes,
+                                                 reduction):
     """Cells full to K (and to Kb on the boundary) have no padding slot to
-    stop a probe, empty ones count 0, and the ghost ring holds particles as
-    a block's window does: the candidate kernel within BAR of the plain
-    executor at every listed slot, 0 elsewhere, and of the particle-list
-    kernel."""
+    stop a walk, empty ones none to read, and the ghost ring holds
+    particles as a block's window does: the particle-list kernel within BAR
+    of the plain executor at every listed slot, 0 elsewhere."""
     fl, bd, islots, dims, dims_b = _full_and_empty_cells(dev, name)
     want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
-    got = _candidates_vs(name, fl, bd, islots, dims, dims_b, lanes,
-                         reduction, want)
-    cells = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
-                                  lanes=lanes, reduction=reduction,
-                                  design="cells")
-    scale = float(cells.abs().max())
-    torch.testing.assert_close(got, cells, rtol=BAR, atol=BAR * scale)
+    _particles_vs(name, fl, bd, islots, dims, dims_b, lanes, reduction, want)
 
 
 @pytest.fixture(scope="module")
 def window_operands(dev):
-    """For each of CANDIDATE_PASSES: the whole box's operands from one step
+    """For each of WINDOW_PASSES: the whole box's operands from one step
     of its solver after 3 frames of the block, and the BoxIndex, full
     boundary grid and dims that ops/box.slab_window cuts a block's window
     from."""
@@ -751,20 +720,19 @@ def _window(x, slab, dims):
 
 @pytest.mark.parametrize("reduction", cc.REDUCTIONS)
 @pytest.mark.parametrize("lanes", cc.LANES)
-@pytest.mark.parametrize("name", cc.CANDIDATE_PASSES)
-def test_candidate_kernel_on_a_2x2_window(window_operands, name, lanes,
-                                          reduction):
+@pytest.mark.parametrize("name", WINDOW_PASSES)
+def test_particle_kernel_on_a_2x2_window(window_operands, name, lanes,
+                                         reduction):
     """On each block of a 2x2 mesh, the window ops/box.slab_window cuts
     (its cell-major slot list and boundary window) with the fluid grid's
-    window, ghost planes refreshed: the candidate kernel within BAR of the
-    plain executor on the window, and at the block's own particles bitwise
-    equal to the kernel on the whole box, as the mesh needs."""
+    window, ghost planes refreshed: the particle-list kernel within BAR of
+    the plain executor on the window, and at the block's own particles
+    bitwise equal to the kernel on the whole box, as the mesh needs."""
     fl, bd, dims, dims_b, islots, idx, full_bd, full, box, box_b = \
         window_operands[name]
     assert torch.equal(idx.work, islots)
     whole = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
-                                  lanes=lanes, reduction=reduction,
-                                  design="candidates")
+                                  lanes=lanes, reduction=reduction)
     whole = whole.reshape(whole.shape[0], -1)
     kg = dims.k * dims.g
     seen = 0
@@ -781,8 +749,8 @@ def test_candidate_kernel_on_a_2x2_window(window_operands, name, lanes,
         lfl = _window(fl, slab, dims)
         assert torch.equal(lbd, _window(bd, slab, dims_b))
         want = pp.column_pass_plain(name, lfl, lbd, ldims, ldims_b, CFG)
-        got = _candidates_vs(name, lfl, lbd, lslots, ldims, ldims_b, lanes,
-                             reduction, want)
+        got = _particles_vs(name, lfl, lbd, lslots, ldims, ldims_b, lanes,
+                            reduction, want)
         own = lslots < ldims.k * ldims.g
         assert torch.equal(got.reshape(got.shape[0], -1)[:, lslots[own]],
                            whole[:, islots[own]])
@@ -791,66 +759,14 @@ def test_candidate_kernel_on_a_2x2_window(window_operands, name, lanes,
     assert seen == int((islots < kg).sum())
 
 
-@pytest.mark.parametrize("design", cc.DESIGNS)
-@pytest.mark.parametrize("solver", ["dfsph", "wcsph"])
-def test_steps_agree_with_plain_in_either_design(dev, monkeypatch, solver,
-                                                 design):
-    """With ``design`` the default of CANDIDATE_PASSES, the card's frames
-    launch only it for them (DESIGN_LAUNCHES), and one step from the state
-    they reached agrees with the CPU's at the one-step bars, with equal
-    DFSPH iteration counts."""
-    for name in cc.CANDIDATE_PASSES:
-        monkeypatch.setitem(cc.PASS_DESIGN, name, design)
-    cc.reset_launch_counts()
-    gpu = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
-                       device=dev)
-    gpu.run(3)
-    name = {"dfsph": "divergence", "wcsph": "density_colorgrad_visc"}[solver]
-    assert cc.DESIGN_LAUNCHES[f"{design}_{name}"] == \
-        cc.LAUNCHES[f"particle_{name}"] > 0
-    assert sum(cc.DESIGN_LAUNCHES[f"{d}_{name}"] for d in cc.DESIGNS) == \
-        cc.LAUNCHES[f"particle_{name}"]
-    if solver == "dfsph":
-        _dfsph_step_agrees(gpu, CFG)
-        return
-    dims, dims_b = gpu._dims()
-
-    def cpu(x):
-        return type(x)(*(t.cpu() for t in x))
-    g1, _, _ = ds.wcsph_step(gpu.state, (), gpu.scene, CFG, CFG.dt, dims,
-                             dims_b, gpu.box)
-    c1, _, _ = ds.wcsph_step(cpu(gpu.state), (), cpu(gpu.scene), CFG, CFG.dt,
-                             dims, dims_b, gpu.box)
-    np.testing.assert_allclose(g1.pos.cpu().numpy(), c1.pos.numpy(),
-                               atol=2e-6)
-    np.testing.assert_allclose(g1.vel.cpu().numpy(), c1.vel.numpy(),
-                               atol=2e-3)
-
-
-@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
-@pytest.mark.parametrize("lanes", cc.LANES)
-@pytest.mark.parametrize("name", cc.CANDIDATE_PASSES)
-def test_candidate_kernel_writes_only_listed_slots(operands, name, lanes,
-                                                   reduction):
-    """As test_particle_kernel_writes_only_listed_slots, for the candidate
-    kernel: dropped particles read 0, the others as with the whole list;
-    an empty list gives zeros."""
-    _, fl, bd, dims, dims_b, islots = operands[name]
-
-    def run(slots):
-        return cc.particle_pass_cuda(name, fl, bd, slots, dims, dims_b, CFG,
-                                     lanes=lanes, reduction=reduction,
-                                     design="candidates")
-    full = run(islots).reshape(pp.PASSES[name].n_out, -1)
-    kg = dims.k * dims.g
-    drop = torch.arange(0, islots.shape[0], 3, device=islots.device)
-    cut = islots.clone()
-    cut[drop] = kg
-    part = run(cut).reshape(full.shape[0], -1)
-    gone = islots[drop]
-    gone = gone[gone < kg]
-    assert gone.numel() > 0
-    assert not bool(part[:, gone].any())
-    kept = cut[cut < kg]
-    assert torch.equal(part[:, kept], full[:, kept])
-    assert not bool(run(islots[:0]).any())
+def test_graph_timing_leaves_the_launch_counts(operands):
+    """utils.check.time_graph_ms captures a wrapper in a CUDA graph and
+    replays it: the launch counts are as before, neither the captured
+    calls nor the replays counted."""
+    from cpp_fluid_particles_tpu_torch.utils.check import time_graph_ms
+    _, fl, bd, dims, dims_b, islots = operands["divergence"]
+    before = dict(cc.LAUNCHES)
+    ms = time_graph_ms(lambda: cc.particle_pass_cuda(
+        "divergence", fl, bd, islots, dims, dims_b, CFG), 5)
+    assert ms > 0
+    assert cc.LAUNCHES == before

@@ -6,7 +6,7 @@ density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad,
 density_visc, pressure_force, density_alpha, the fluid-only viscosity,
 surface and xsph, and the scene build's density run through
 ``column_pass_cuda.particle_pass_cuda``: one group of lanes per particle
-of a slot list (the step's ``BoxIndex.slots``; for the scene's density
+of a slot list (the step's ``BoxIndex.work``; for the scene's density
 the boundary's ``DenseIndex.slots``), writing only those slots of an
 output zeroed beforehand. That is right only if the list names every real
 slot of the grid the pass reads, each once, inside the ghost ring, and
@@ -22,6 +22,7 @@ passes refuse what the kernel cannot take. The kernel itself runs only on
 the card (tests/test_torch_cuda.py).
 """
 
+import contextlib
 import functools
 import re
 
@@ -148,8 +149,7 @@ def test_work_list_is_the_slot_list_in_cell_major_order(case):
 def _recorded_calls(solver, mode="parity", surface=True):
     """-> ([(pass name, fl, islots or None)] of one step of ``solver`` in
     ``mode``, with surface effects on or off, on the small domain's block
-    after two frames, the step's slot list in cell-major order,
-    ``BoxIndex.work``)."""
+    after two frames, the step's box index)."""
     cfg = SMALL if mode == "parity" else T.dam_break_config(
         mode=mode, space_size=SMALL.space_size)
     if not surface:
@@ -166,10 +166,9 @@ def _recorded_calls(solver, mode="parity", surface=True):
     dims, dims_b = sim._dims()
     tds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, cfg, cfg.dt,
                             dims, dims_b, sim.box, executor=record)
-    want = tds.bx.build_box_index(
-        sim.state.pos, cfg, dims,
-        tdense.DenseDims(*sim.box, dims.k)).work
-    return seen, want
+    idx = tds.bx.build_box_index(sim.state.pos, cfg, dims,
+                                 tdense.DenseDims(*sim.box, dims.k))
+    return seen, idx
 
 
 # the passes of each step that take the slot list, surface effects on:
@@ -192,18 +191,23 @@ UNLISTED = {"pbd": set(), "dfsph": set(), "wcsph": set(),
             "pbd_off": set(), "dfsph_off": set(), "wcsph_off": set()}
 # the pass the scene build hands the boundary index's slot list
 SCENE_LISTED = {"density"}
+# the step passes handed the box index's slots in the particles' order
+# (BoxIndex.slots); the others take them in cell-major order (BoxIndex.work)
+PARTICLE_ORDER = {"surface_pressure"}
 
 
 @pytest.mark.parametrize("solver", list(LISTED))
 def test_steps_hand_the_slot_list_to_the_particle_passes(solver):
     name_of_solver, off, _ = solver.partition("_off")
-    seen, want = _recorded_calls(name_of_solver, "parity", surface=not off)
+    seen, idx = _recorded_calls(name_of_solver, "parity", surface=not off)
     with_list = {name for name, _, islots in seen if islots is not None}
     assert with_list == LISTED[solver]
     assert set.union(*LISTED.values(), SCENE_LISTED) \
         == set(tpp.PARTICLE_PASSES)
+    assert PARTICLE_ORDER <= set.union(*LISTED.values())
     for name, _, islots in seen:
         if name in tpp.PARTICLE_PASSES:
+            want = idx.slots if name in PARTICLE_ORDER else idx.work
             assert islots is not None and torch.equal(islots, want), name
     assert ({name for name, _, _ in seen} - set(tpp.PARTICLE_PASSES)
             == UNLISTED[solver])
@@ -217,7 +221,8 @@ def test_pbd_slot_list_names_every_real_slot_of_the_projected_grid(mode):
     POS_PAD, so the list still names every real slot of that grid once.
     Fast mode adds the warm-start predictor and the Chebyshev
     extrapolation."""
-    seen, want = _recorded_calls("pbd", mode)
+    seen, idx = _recorded_calls("pbd", mode)
+    want = idx.work
     first = next(f for name, f, _ in seen if name == "pbd_lambda")
     for pass_name in ("xsph_colorgrad", "surface"):
         (fl, islots), = [(fl, islots) for name, fl, islots in seen
@@ -453,82 +458,69 @@ def test_r2_cut_turns_away_no_pair_in_support(radius):
     assert h * h < r2_cut <= h * h * np.float32(1.0003)
 
 
-def test_particle_wrapper_refuses_a_design_it_lacks():
-    """The candidate design exists for CANDIDATE_PASSES only; an unknown
-    design, a design the pass lacks, and for the candidate kernel operands
-    whose flat indices pass the int32 range are refused on the CPU before
-    the device check, and nothing launches. The design defaults name only
-    those two passes."""
-    fl, bd, d = _operands()
-    fl = fl[:tpp.PASSES["divergence"].fi]
-    islots = torch.full((4,), d.k * d.g, dtype=torch.int64)
-    before, dbefore = dict(tcc.LAUNCHES), dict(tcc.DESIGN_LAUNCHES)
-    with pytest.raises(ValueError, match="design 'tiles' is not one of"):
-        tcc.particle_pass_cuda("divergence", fl, bd, islots, d, d, TCFG,
-                               design="tiles")
-    with pytest.raises(ValueError, match="stiffness_accel has no candidates "
-                       "design"):
-        tcc.particle_pass_cuda("stiffness_accel", fl[:5], bd, islots, d, d,
-                               TCFG, design="candidates")
-    # 8 output rows x 16 slots x 672^3 ghosted cells: 4.9e9 > 2^31 - 1
-    big = tdense.DenseDims(670, 670, 670, 16)
-    with pytest.raises(ValueError, match="indexes in int32"):
-        tcc.particle_pass_cuda("density_colorgrad_visc", fl, bd, islots, big,
-                               big._replace(k=7), TCFG, design="candidates")
-    # the boundary alone past the range: 4 rows x Kb 500 x 1.2e6 cells
-    wide = tdense.DenseDims(104, 104, 104, 1)
-    assert tcc.int32_reach("divergence", wide, wide) <= tcc.INT32_MAX
-    assert tcc.int32_reach("divergence", wide,
-                           wide._replace(k=500)) > tcc.INT32_MAX
-    with pytest.raises(ValueError, match="indexes in int32"):
-        tcc.particle_pass_cuda("divergence", fl, bd, islots, wide,
-                               wide._replace(k=500), TCFG,
-                               design="candidates")
-    # the cells design indexes in int64: the same operands get past the
-    # design checks to the device check
-    with pytest.raises(ValueError, match="not a CUDA device"):
-        tcc.particle_pass_cuda("density_colorgrad_visc", fl, bd, islots, big,
-                               big._replace(k=7), TCFG, design="cells")
-    assert tcc.LAUNCHES == before and tcc.DESIGN_LAUNCHES == dbefore
-    assert tcc.CANDIDATE_PASSES == ("divergence", "density_colorgrad_visc")
-    assert set(tcc.PASS_DESIGN) <= set(tcc.CANDIDATE_PASSES)
-    assert tcc.DESIGNS == ("cells", "candidates")
-    for name in tpp.PARTICLE_PASSES:
-        want = tcc.DESIGNS if name in tcc.CANDIDATE_PASSES else ("cells",)
-        assert tcc.designs(name) == want
-        assert tcc.default_design(name) in want
-    assert set(tcc.DESIGN_LAUNCHES) == {
-        f"{design}_{name}" for name in tpp.PARTICLE_PASSES
-        for design in tcc.designs(name)}
-    # the dam at its largest K and the 1M recipe's one-device grid fit
-    dam = tdense.dims_for(TCFG, 22)
-    assert tcc.int32_reach("density_colorgrad_visc", dam,
-                           dam._replace(k=7)) == 8 * 22 * 27 ** 3
-    assert tcc.int32_reach("divergence", tdense.DenseDims(60, 60, 60, 10),
-                           tdense.DenseDims(60, 60, 60, 7)) \
-        == 7 * 10 * 62 ** 3
+class _FakeGraphs:
+    """Stands in for torch.cuda's graph and event calls on the CPU: a
+    graph records the calls made under its capture and replays them."""
+
+    class CUDAGraph:
+        def __init__(self):
+            self.calls = []
+
+        def replay(self):
+            for fn in self.calls:
+                fn()
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 2.0
 
 
-@pytest.mark.parametrize("cells, k", [((25, 25, 25), 22), ((25, 25, 25), 16),
-                                      ((60, 60, 60), 10), ((13, 25, 13), 22),
-                                      ((1, 1, 1), 1)])
-def test_fast_divisor_divides_every_index(cells, k):
-    """The candidate kernel divides a slot by G, a cell by GY*GZ and its
-    remainder by GZ with ``fast_divisor``'s (mul, shr): exact for every
-    index those divisions see on the dam's box, the 1M recipe's grid, a 2x2
-    block's window and the smallest grid, and for every n < 2^31 it is
-    handed (sampled)."""
-    d = tdense.DenseDims(*cells, k)
-    rng = np.random.default_rng(5)
-    for div, reach in ((d.g, d.k * d.g), (d.gy * d.gz, d.g),
-                       (d.gz, d.gy * d.gz)):
-        mul, shr = tcc.fast_divisor(div)
-        assert 0 < mul < 2 ** 32 and shr >= 0
-        n = np.concatenate([np.arange(reach, dtype=np.uint64),
-                            rng.integers(0, 2 ** 31, 100_000,
-                                         dtype=np.uint64),
-                            np.array([2 ** 31 - 1], np.uint64)])
-        got = (n * np.uint64(mul)) >> np.uint64(32 + shr)
-        np.testing.assert_array_equal(got, n // np.uint64(div))
-    with pytest.raises(ValueError, match="< 2"):
-        tcc.fast_divisor(1)
+@pytest.mark.parametrize("fails", [False, True])
+def test_graph_timing_leaves_the_launch_counts(monkeypatch, fails):
+    """``utils.check.time_graph_ms`` leaves ``LAUNCHES`` as it found it,
+    whatever the wrapper it times counted while it ran, and also when the
+    timed call raises."""
+    from cpp_fluid_particles_tpu_torch.utils import check
+    capturing = []
+
+    @contextlib.contextmanager
+    def graph(g):
+        capturing.append(g)
+        yield
+        capturing.pop()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraphs.CUDAGraph)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeGraphs.Event)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    ran = []
+
+    def launch():
+        ran.append(1)
+        tcc.LAUNCHES["particle_divergence"] += 1
+
+    def fn():
+        if capturing:
+            capturing[-1].calls.append(launch)
+            tcc.LAUNCHES["particle_divergence"] += 1
+            if fails:
+                raise RuntimeError("launch failed")
+        else:
+            launch()
+    before = dict(tcc.LAUNCHES)
+    if fails:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            check.time_graph_ms(fn, 4)
+    else:
+        assert check.time_graph_ms(fn, 4) == 0.5
+        # the warm-up call and two replays of four calls ran
+        assert len(ran) == 9
+    assert tcc.LAUNCHES == before

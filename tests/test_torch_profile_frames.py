@@ -45,14 +45,6 @@ torch.set_num_threads(2)
      "namespace)::SurfacePass>(...)", "column_surface"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
     ("Memset (Device)", "other"),
-    ("void (anonymous namespace)::candidate_pass_kernel<(anonymous "
-     "namespace)::DivergencePass, 32, false>(float const*, float const*, "
-     "long const*, float*, int, int, int, int, int, int, (anonymous "
-     "namespace)::Divisors, (anonymous namespace)::Consts)",
-     "candidate_divergence"),
-    ("void (anonymous namespace)::candidate_pass_kernel<(anonymous "
-     "namespace)::DensityColorgradViscPass, 32, true>(...)",
-     "candidate_density_colorgrad_visc"),
 ])
 def test_device_events_fall_into_kernel_groups(name, want):
     assert pf.group(name) == want
@@ -91,22 +83,3 @@ def test_surface_flag_parses_and_defaults_to_on():
     assert ap.parse_args(["--surface", "off"]).surface == "off"
     with pytest.raises(SystemExit):
         ap.parse_args(["--surface", "maybe"])
-
-
-def test_pass_split_cuts_apply_to_the_kernel_source():
-    """exp/pass_split.py builds its cut-down copies by replacing text of
-    csrc/column_pass.cu: every replaced text is in today's source, each cut
-    changes it, and the study needs a card."""
-    from cpp_fluid_particles_tpu_torch.exp import pass_split as ps
-    from cpp_fluid_particles_tpu_torch.ops import column_pass_cuda as cc
-    src = cc.SOURCE.read_text()
-    for name, edits in ps.CUTS.items():
-        cut = ps.cut_source(src, edits)
-        assert cut != src, name
-        for _, new in edits:
-            assert new in cut, name
-    with pytest.raises(RuntimeError, match="is not in"):
-        ps.cut_source(src, [("no such text", "")])
-    if not torch.cuda.is_available():
-        with pytest.raises(SystemExit, match="needs a CUDA device"):
-            ps.main(["--out", "unused"])
