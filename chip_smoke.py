@@ -7,9 +7,10 @@ with nvcc, holds each of the neighbor pass's sixteen instances, and the
 particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
 surface_pressure, density_colorgrad_visc, xsph_colorgrad,
 density_alpha_colorgrad, density_visc, pressure_force, density_alpha,
-viscosity, surface, xsph and the scene build's density on the main path
-(so no path launches the column kernel), against the plain torch executor
-on the card,
+viscosity, surface, xsph and the scene build's density, and the
+cell-packed record kernel and its pack that run surface and
+surface_pressure on the main path (so no path launches the column kernel),
+against the plain torch executor on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
 each with the launch counts reset just before it and read just after:
@@ -26,8 +27,9 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
   2. build    nvcc build of the kernels, seconds taken, and ptxas's
               registers and spills for every instance, the particle-list
               kernel's at each (group width, reduction) of
-              ``variants(name)`` too; for the six fluid-only instances of
-              phase 7 also their shared memory
+              ``variants(name)`` too, the record kernel's also at each
+              unroll of ``UNROLLS``, and the pack kernel's; for the six
+              fluid-only instances of phase 7 also their shared memory
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
               its path gives it, at frame 0 and after the path's run;
               per-row tolerance ``utils.check.PASS_BAR``: rtol 2e-5,
@@ -46,27 +48,33 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               against the plain executor and column_pass_kernel at the
               same bar, two launches bitwise (and whether the transpose
               reduction is bitwise equal to the butterfly at the same
-              width)
+              width). surface and surface_pressure also through the
+              record kernel: its pack bitwise equal to pack_records_plain,
+              the walk at each variant and unroll against the plain
+              executor at the bar and bitwise equal to the particle-list
+              kernel at the same variant
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps; for WCSPH and DFSPH also with
               surface effects off
   5. slice    WCSPH: 300 frames at dt 0.001 through the constructor,
               run() and run_scan(); physics and launch-count checks
-              (particle_density_colorgrad_visc == particle_surface_pressure
-              == the frames run, particle_density == 1, the scene build's;
+              (particle_density_colorgrad_visc == pack_surface_pressure ==
+              record_surface_pressure == the frames run, particle_density
+              == 1, the scene build's;
               on this and every later path the column kernel's count of
               every instance is 0), ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
               particle_stiffness_accel >= 5 x the frames run,
               particle_density_alpha_colorgrad == particle_viscosity ==
-              particle_surface == the frames run), plus iteration bounds,
+              pack_surface == record_surface == the frames run), plus
+              iteration bounds,
               the mean iterations and the host syncs per frame
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
               projection with its exact all-lambda-zero exit):
               particle_pbd_lambda == particle_stiffness_accel == the sum
               of the frames' iterations, particle_xsph_colorgrad ==
-              particle_surface == the frames run
+              pack_surface == record_surface == the frames run
   5d. pbd_default  ``Simulation(device="cuda")`` as constructed (PBD in
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
@@ -91,7 +99,14 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               ``BoxIndex.slots``, in the particles'), then the same
               backwards, column kernel (best of two each), every
               rung timed by CUDA events around 50 calls and by a CUDA graph
-              of 50 calls (the device's time alone); then divergence once
+              of 50 calls (the device's time alone); surface (on DFSPH's
+              state and on PBD's) and surface_pressure add the record
+              kernel's rungs, its pack included: each variant at the
+              default unroll, the default variant at the other unrolls and
+              on the other order, then the pack alone and the walk alone,
+              and a line saying whether the record kernel's default beat
+              the particle-list kernel's in both ladder passes; then
+              divergence once
               more on the 1M recipe's one-device state after its warm-up
               frame, against plain, in cell-major order and in the
               particles', in turns
@@ -196,12 +211,12 @@ MESH_TIMEOUT = 420       # seconds for one run of the per-rank entry point
 MESH_KERNELS = {
     "dfsph": ("particle_density", "particle_density_alpha_colorgrad",
               "particle_divergence", "particle_stiffness_accel",
-              "particle_viscosity", "particle_surface"),
+              "particle_viscosity", "pack_surface", "record_surface"),
     "wcsph": ("particle_density", "particle_density_colorgrad_visc",
-              "particle_surface_pressure"),
+              "pack_surface_pressure", "record_surface_pressure"),
     "pbd": ("particle_density", "particle_pbd_lambda",
             "particle_stiffness_accel", "particle_xsph_colorgrad",
-            "particle_surface")}
+            "pack_surface", "record_surface")}
 CHUNK = 25
 STEP_POS_ATOL = 2e-6
 STEP_VEL_ATOL = 2e-3
@@ -319,6 +334,16 @@ def capture(sim, ds, pp, dt):
     return list(rec.calls.values())
 
 
+def launched(name, n):
+    """The launch counts of ``n`` calls of pass ``name`` on its path: the
+    record kernel's pack and walk for the passes of its RECORD_IDS, else
+    the particle-list kernel's."""
+    from cpp_fluid_particles_tpu_torch.ops.column_pass_cuda import RECORD_IDS
+    if name in RECORD_IDS:
+        return {f"pack_{name}": n, f"record_{name}": n}
+    return {f"particle_{name}": n}
+
+
 def note_err(errs, key, max_abs, worst_rel):
     e = errs.setdefault(key, {"max_abs_err": 0.0, "max_rel_err": 0.0})
     e["max_abs_err"] = max(e["max_abs_err"], max_abs)
@@ -377,6 +402,54 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
                 f"max_err/row_max={vs_column:.3e}, bitwise_repeat=yes, "
                 f"bitwise equal to {cc.REDUCTIONS[0]}: "
                 f"{'yes' if same else 'no'}")
+        if name in cc.RECORD_IDS:
+            compare_records(tag, name, fl, bd, dims, dims_b, islots, cfg,
+                            want, outs, cc, torch, errs)
+
+
+def compare_records(tag, name, fl, bd, dims, dims_b, islots, cfg, want,
+                    outs, cc, torch, errs):
+    """The pack kernel bitwise against its plain version (two packs bitwise
+    equal), then the record kernel at each (group width, reduction) of
+    ``cc.variants(name)`` and each unroll of ``cc.UNROLLS``: two launches
+    bitwise, within the bar of the plain executor ``want``, and bitwise
+    equal to the particle-list kernel's ``outs`` at the same variant
+    (errors kept as ``record_<name>``; the pack's as ``pack_<name>``)."""
+    from cpp_fluid_particles_tpu_torch.utils.check import row_errors
+    packs = [cc.pack_records(name, fl, bd, dims, dims_b, cfg)
+             for _ in range(2)]
+    plain = cc.pack_records_plain(name, fl, bd, cfg)
+    torch.cuda.synchronize()
+    for a, b, c in zip(*packs, plain):
+        if a is None and b is None and c is None:
+            continue
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"{tag} pack {name}: two packs differ or "
+                                 "differ from pack_records_plain")
+    note_err(errs, f"pack_{name}", 0.0, 0.0)
+    kb = dims_b.k if dims_b is not None else 0
+    log("kernel", f"{tag} pack {name} K={dims.k} Kb={kb}: records "
+        f"({dims.g * dims.k} fluid, {dims.g * kb} boundary) bitwise equal to "
+        "pack_records_plain; bitwise_repeat=yes")
+    for lanes, red in cc.variants(name):
+        errs_u = []
+        for unroll in cc.UNROLLS:
+            what = f"{tag} record {name} W={lanes} {red} U={unroll}"
+            got = launch_twice(what, lambda: cc.record_pass_cuda(
+                name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
+                reduction=red, unroll=unroll), torch)
+            max_abs, worst_rel = row_errors(what, got, want)
+            note_err(errs, f"record_{name}", max_abs, worst_rel)
+            if not torch.equal(got, outs[lanes, red]):
+                raise AssertionError(f"{what}: not bitwise equal to the "
+                                     "particle-list kernel at W="
+                                     f"{lanes} {red}")
+            errs_u.append(f"U={unroll} {worst_rel:.3e}")
+        log("kernel", f"{tag} record {name} W={lanes} {red} "
+            f"N={islots.shape[0]} K={dims.k} Kb={kb}: vs plain "
+            f"max_err/row_max {', '.join(errs_u)}; each unroll bitwise "
+            "equal to the particle-list kernel at this variant; "
+            "bitwise_repeat=yes")
 
 
 def scene_mass_vs_plain(sim, ds, pp, torch, errs):
@@ -576,8 +649,8 @@ def pbd_checks(st, cfg, off=False):
     n = sum(it)
     want = {"particle_pbd_lambda": n, "particle_stiffness_accel": n}
     want.update({"particle_xsph": frames_run} if off else
-                {"particle_xsph_colorgrad": frames_run,
-                 "particle_surface": frames_run})
+                dict(launched("surface", frames_run),
+                     particle_xsph_colorgrad=frames_run))
     expect_launches(st, want)
     if not (min(it) >= 1 and max(it) <= cfg.pbd_max_iter):
         raise AssertionError(f"PBD iterations out of bounds: "
@@ -664,13 +737,16 @@ def functor(name):
 
 
 def ptxas_entry(ptxas, kernel, name, fluid_only, lanes=None,
-                transpose=None):
+                transpose=None, unroll=None):
     """The one ptxas entry of ``kernel`` on pass ``name``'s functor,
     wrapped in FluidOnly or not, at group width ``lanes`` and reduction
-    (``transpose``, the template's bool) for the particle-list kernel ->
-    (registers, spill bytes, smem)."""
+    (``transpose``, the template's bool) for the particle-list kernel, and
+    also at ``unroll`` for the record kernel -> (registers, spill bytes,
+    smem)."""
     f = functor(name)
     tail = None if lanes is None else f"ELi{lanes}ELb{int(transpose)}E"
+    if unroll is not None:
+        tail += f"Li{unroll}E"
     hits = [v for k, v in ptxas.items()
             if f"{len(kernel)}{kernel}" in k and f"{len(f)}{f}" in k
             and ("9FluidOnly" in k) == fluid_only
@@ -708,15 +784,22 @@ def pair_counts(pp, torch, fl, src, dims, h):
     return cand, sup
 
 
-def operand_bytes(src):
-    """The bytes a pass must read of the operand grid src (rows, K, G):
-    every row of each real slot, and row 0 of the first padding slot of
-    each cell that is not full, where a slot loop learns the cell's
-    occupancy (ranks fill a cell from slot 0)."""
+def occupancy(src):
+    """(real slots, cells not full) of the operand grid src (rows, K, G):
+    a slot loop reads each real slot and probes the first padding slot of
+    each cell that is not full, where it learns the cell's occupancy (ranks
+    fill a cell from slot 0)."""
     from cpp_fluid_particles_tpu_torch.ops.grid import POS_PAD
     real = (src[0] < POS_PAD / 2).sum(0)
-    return 4 * (src.shape[0] * int(real.sum())
-                + int((real < src.shape[1]).sum()))
+    return int(real.sum()), int((real < src.shape[1]).sum())
+
+
+def operand_bytes(src):
+    """The bytes a pass must read of the operand grid src (rows, K, G):
+    every row of each real slot, and row 0 of each probed padding slot
+    (``occupancy``)."""
+    real, probes = occupancy(src)
+    return 4 * (src.shape[0] * real + probes)
 
 
 def pass_bound(pp, torch, name, fl, bd, dims, dims_b, cfg, n_out):
@@ -750,6 +833,42 @@ def rung(lanes, red, order=None):
     return f"{red} W{lanes}" + ("" if order is None else f" {order}")
 
 
+def record_rung(lanes, red, unroll, order=None, walk=False):
+    """A ladder key of the record kernel: "record <reduction> W<lanes>
+    U<unroll>[ <order>]", its pack included; "walk ..." the walk alone, on
+    records packed before the timing."""
+    return (f"{'walk' if walk else 'record'} {red} W{lanes} U{unroll}"
+            + ("" if order is None else f" {order}"))
+
+
+def record_rungs(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
+    """The record kernel's rungs of pass ``name``: at each (group width,
+    reduction) of ``cc.variants(name)`` at its default unroll, at its
+    default (width, reduction) at the other unrolls, each with the pack
+    included, on ``islots``; the default on ``alt``'s list where given;
+    the pack alone; the walk alone at the default -> [(key, fn)]."""
+    lanes, red, unroll = cc.RECORD_DEFAULTS[name]
+
+    def record(lanes, red, unroll, lst, recs=None):
+        return lambda: cc.record_pass_cuda(
+            name, fl, bd, lst, dims, dims_b, cfg, lanes=lanes, reduction=red,
+            unroll=unroll, records=recs)
+    out = [(record_rung(w, r, unroll), record(w, r, unroll, islots))
+           for r in cc.REDUCTIONS for w in sorted(cc.LANES)
+           if (w, r) in cc.variants(name)]
+    out += [(record_rung(lanes, red, u), record(lanes, red, u, islots))
+            for u in cc.UNROLLS if u != unroll]
+    if alt is not None:
+        out.append((record_rung(lanes, red, unroll, alt[0]),
+                    record(lanes, red, unroll, alt[1])))
+    recs = cc.pack_records(name, fl, bd, dims, dims_b, cfg)
+    out.append(("pack", lambda: cc.pack_records(name, fl, bd, dims, dims_b,
+                                                cfg)))
+    out.append((record_rung(lanes, red, unroll, walk=True),
+                record(lanes, red, unroll, islots, recs)))
+    return out
+
+
 def time_ladder(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
     """The particle-list kernel at each (group width, reduction) of
     ``cc.variants(name)`` beside the column kernel, in turns within this
@@ -762,7 +881,9 @@ def time_ladder(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
     call sees, the host's work included where the device finishes first)
     and by one replay of a CUDA graph of 50 calls (``time_graph_ms``: the
     device's time alone) -> ({"column": [two runs], rung(...): [two
-    runs]}, the same of graph ms)."""
+    runs]}, the same of graph ms). A pass of ``cc.RECORD_IDS`` also takes
+    the record kernel's rungs (``record_rungs``) after the particle-list
+    kernel's."""
     from cpp_fluid_particles_tpu_torch.utils.check import (time_graph_ms,
                                                            time_ms)
 
@@ -780,6 +901,9 @@ def time_ladder(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
         lanes, red = cc.default_lanes(name), cc.default_reduction(name)
         rungs.append((rung(lanes, red, alt[0]), particle(lanes, red,
                                                          alt[1])))
+    if name in cc.RECORD_IDS:
+        rungs += record_rungs(name, fl, bd, islots, alt, dims, dims_b, cfg,
+                              cc)
     runs = {"column": [time_ms(column, 50)]}
     graph = {"column": [time_graph_ms(column, 50)]}
     for key, fn in rungs + rungs[::-1]:
@@ -790,14 +914,21 @@ def time_ladder(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
     return runs, graph
 
 
-def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None):
+def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None,
+                solver=None):
     """Phase 6 on the captured calls; ``orders(islots)`` -> (the order
     islots is in, the other order's name, the same slots in that order),
-    or None where it does not know them."""
+    or None where it does not know them. A pass is timed on the first
+    state that gives it, kept as ``times[name]``; a pass of
+    ``cc.RECORD_IDS`` also on each later one, as ``times[name@solver]``
+    (surface: DFSPH's state, then PBD's)."""
     from cpp_fluid_particles_tpu_torch.utils.check import time_ms
     for name, fl, bd, dims, dims_b, islots in calls:
+        tkey = name
         if name in times:
-            continue
+            if name not in cc.RECORD_IDS:
+                continue
+            tkey = f"{name}@{solver}"
 
         def kern():
             cc.column_pass_cuda(name, fl, bd, dims, dims_b, cfg)
@@ -810,15 +941,15 @@ def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None):
         k2 = time_ms(kern, 50)
         p2 = time_ms(plain, 5)
         kb = dims_b.k if dims_b is not None else 0
-        times[name] = dict({"ms": min(k1, k2), "plain_ms": min(p1, p2),
+        times[tkey] = dict({"ms": min(k1, k2), "plain_ms": min(p1, p2),
                             "runs_ms": [p1, k1, k2, p2],
                             "grid": [dims.gx, dims.gy, dims.gz],
                             "K": dims.k, "Kb": kb},
                            **pass_bound(pp, torch, name, fl, bd, dims,
                                         dims_b, cfg,
                                         pp.PASSES[name].n_out))
-        t = times[name]
-        log("timing", f"{name} K={dims.k} Kb={kb} grid={dims.gx}x{dims.gy}x"
+        t = times[tkey]
+        log("timing", f"{tkey} K={dims.k} Kb={kb} grid={dims.gx}x{dims.gy}x"
             f"{dims.gz}: kernel {min(k1, k2):.4f} ms, plain "
             f"{min(p1, p2):.4f} ms (plain,kernel,kernel,plain = "
             f"{p1:.4f},{k1:.4f},{k2:.4f},{p2:.4f}); bound "
@@ -841,9 +972,28 @@ def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None):
                  ladder=runs, ladder_graph=graph)
         if alt is not None:
             t["other_order_graph_ms"] = gbest[rung(lanes, red, alt[0])]
+        if name in cc.RECORD_IDS:
+            t.update(record_times(name, fl, bd, dims, dims_b, cfg, alt, best,
+                                  gbest, cc))
+            key = record_rung(t["record_lanes"], t["record_reduction"],
+                              t["record_unroll"])
+            wins = [a < b for a, b in zip(graph[key],
+                                          graph[rung(lanes, red)])]
+            t["record_wins_both_passes"] = all(wins)
+            pk = t["pack"]
+            log("timing", f"{tkey} record kernel at its default {key} "
+                f"(pack included) against the particle-list kernel's "
+                f"{rung(lanes, red)}, graph ms per ladder pass: "
+                + ", ".join(f"{a:.4f} vs {b:.4f}" for a, b in zip(
+                    graph[key], graph[rung(lanes, red)]))
+                + f" (faster in both: {'yes' if all(wins) else 'no'}); "
+                f"walk alone {t['walk_graph_ms']:.4f}; pack "
+                f"{pk['ms']:.4f} / {pk['graph_ms']:.4f} ms (events / graph), "
+                f"plain {pk['plain_ms']:.4f}, bound {pk['bound_ms']:.4f} by "
+                f"{pk['bound_by']} ({pk['bytes']} B) | {card}")
         on = f" on the path's list ({order})" if order else ""
         then = f", the default on {alt[0]}" if alt is not None else ""
-        log("timing", f"{name} ladder N={islots.shape[0]} K={dims.k} Kb={kb}"
+        log("timing", f"{tkey} ladder N={islots.shape[0]} K={dims.k} Kb={kb}"
             f" (column kernel; particle-list kernel at each variant{on}, "
             f"butterfly first{then}, and back; column kernel; best of two, "
             f"events / graph): "
@@ -857,6 +1007,43 @@ def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None):
             f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by "
             f"{t['bound_by']} ({t['pairs']} pairs, {t['pairs_in_support']} "
             f"in support) | {card}")
+
+
+def record_times(name, fl, bd, dims, dims_b, cfg, alt, best, gbest, cc):
+    """The record kernel's numbers of pass ``name`` from its ladder rungs,
+    and its pack's beside the pack's plain version (best of two runs of 5
+    calls, events) and the pack's bound on the bytes the walk needs of it:
+    the operand's real slots and probes read once (``operand_bytes``), and
+    written once the {x, y, z, m} record of each real slot and probed
+    padding slot and the j side of each real slot, the same for the
+    boundary's records; the j side's operations per real slot -> a
+    record."""
+    from cpp_fluid_particles_tpu_torch.utils.check import time_ms
+    lanes, red, unroll = cc.RECORD_DEFAULTS[name]
+    key = record_rung(lanes, red, unroll)
+    plain = [time_ms(lambda: cc.pack_records_plain(name, fl, bd, cfg), 5)
+             for _ in range(2)]
+    real, probes = occupancy(fl)
+    nbytes = operand_bytes(fl) + 16 * (real + probes) \
+        + (4 if name == "surface" else 8) * real
+    if bd is not None:
+        nbytes += operand_bytes(bd) + 16 * sum(occupancy(bd))
+    flops = (5 if name == "surface" else 8) * real
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    rec = {"record_lanes": lanes, "record_reduction": red,
+           "record_unroll": unroll, "record_ms": best[key],
+           "record_graph_ms": gbest[key],
+           "walk_graph_ms": gbest[record_rung(lanes, red, unroll,
+                                              walk=True)],
+           "pack": {"ms": best["pack"], "graph_ms": gbest["pack"],
+                    "plain_ms": min(plain), "bytes": nbytes, "flops": flops,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops > t_bytes
+                    else "bytes"}}
+    if alt is not None:
+        rec["record_other_order_graph_ms"] = gbest[
+            record_rung(lanes, red, unroll, alt[0])]
+    return rec
 
 
 class _Stop(Exception):
@@ -1112,8 +1299,8 @@ def app_phase(cfp, ds, cc, torch, card):
             if png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError("no PNG header")
             n = st["rerun_frames"]
-            expect_launches(st, {"particle_density_colorgrad_visc": n,
-                                 "particle_surface_pressure": n})
+            expect_launches(st, dict(launched("surface_pressure", n),
+                                     particle_density_colorgrad_visc=n))
             tail = ""
         drop_columns(st)
         # the card's render of the final state against the CPU's
@@ -1231,7 +1418,7 @@ def mesh_launches(res, tag, ref=None):
     solver = m["case"].split(":")[0].split("-")[0]
     missing = [k for k in MESH_KERNELS[solver] if not m["launches"].get(k)]
     column = {k: v for k, v in m["launches"].items()
-              if not k.startswith("particle_") and v}
+              if not k.startswith(("particle_", "pack_", "record_")) and v}
     if missing or column:
         raise AssertionError(f"[mesh] {tag} {m['case']} rank {m['rank']}: "
                              f"not launched {missing}, column kernel "
@@ -1266,7 +1453,7 @@ def mesh_line(tag, res, note=""):
     runs = 1 + m["frames"] + m["retries"]   # warm-up and re-runs included
     k, box = m["capacity"][-1]
     h = m["halo"]
-    launches = {key[len("particle_"):]: v for key, v in
+    launches = {key.replace("particle_", "", 1): v for key, v in
                 sorted(m["launches"].items()) if v}
     iters = {key: [f.get(key) for f in m["metrics"]]
              for key in ITER_KEYS if key in m["metrics"][0]}
@@ -1279,7 +1466,7 @@ def mesh_line(tag, res, note=""):
             f"{m['mesh']}): "
             f"{m['fluid']:,} fluid + {m['boundary']:,} boundary, K {k}, box "
             f"{box}, {block_text(m, box)}, retries {m['retries']}; "
-            f"particle-list launches {launches}; per frame run: exchanges "
+            f"launches {launches}; per frame run: exchanges "
             f"{h.get('exchanges', 0) / runs:.2f} "
             f"({h.get('exchange_bytes', 0) / runs / 1e6:.3f} MB sent; by "
             f"axis {axes}), "
@@ -1362,7 +1549,7 @@ def _mesh_phase(torch, card, out_dir, data_dir):
     return record
 
 
-def kernel_row(name, paths, owner, errs, times, pp):
+def kernel_row(name, paths, owner, errs, times, pp, cc):
     """The kernels-table row of pass ``name``. The PARTICLE_PASSES give
     the particle-list kernel, which their paths run: its launches, errors,
     and event and graph ms at the pass's default width and reduction
@@ -1387,6 +1574,21 @@ def kernel_row(name, paths, owner, errs, times, pp):
             row["order"] = t["order"]
         if "other_order_graph_ms" in t:
             row["other_order_graph_ms"] = t["other_order_graph_ms"]
+    if name in cc.RECORD_IDS:
+        # the path's kernel is the record kernel, its pack included; the
+        # particle-list kernel's default beside it
+        key = f"record_{name}"
+        row.update(max_abs_err=errs[key]["max_abs_err"], ms=t["record_ms"],
+                   graph_ms=t["record_graph_ms"],
+                   particle_ms=t["particle_ms"],
+                   particle_graph_ms=t["graph_ms"],
+                   walk_graph_ms=t["walk_graph_ms"],
+                   pack_graph_ms=t["pack"]["graph_ms"],
+                   lanes=t["record_lanes"], reduction=t["record_reduction"],
+                   unroll=t["record_unroll"],
+                   wins_both_passes=t["record_wins_both_passes"])
+        if "record_other_order_graph_ms" in t:
+            row["other_order_graph_ms"] = t["record_other_order_graph_ms"]
     if name in STATE:
         row["state"] = STATE[name]
     if name == "density":
@@ -1396,6 +1598,22 @@ def kernel_row(name, paths, owner, errs, times, pp):
     else:
         row["launches"] = paths[owner.get(name, "dfsph")]["launches"][key]
     return row
+
+
+def pack_row(name, paths, owner, errs, times):
+    """The kernels-table row of pass ``name``'s pack kernel, which its path
+    launches once per call of the record kernel."""
+    pk = times[name]["pack"]
+    return {"name": f"pack_{name}", "route": "cuda", "source": KERNEL_SRC,
+            "replaces": TPU_KERNEL,
+            "launches": paths[owner.get(name, "dfsph")]["launches"][
+                f"pack_{name}"],
+            "max_abs_err": errs[f"pack_{name}"]["max_abs_err"],
+            "ms": pk["ms"], "graph_ms": pk["graph_ms"],
+            "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
+            "bound_by": pk["bound_by"], "library_ms": None,
+            "note": f"the records {name}'s record kernel walks, packed once "
+                    "per call"}
 
 
 def main(argv) -> int:
@@ -1438,6 +1656,17 @@ def main(argv) -> int:
                                    False, lanes, red == "transpose")
             regs[f"particle_{name}_W{lanes}_{red}"] = {
                 "registers": r, "spill_bytes": sp}
+    for name in cc.RECORD_IDS:
+        r, sp, _ = ptxas_entry(ptxas, "pack_kernel", name, False)
+        regs[f"pack_{name}"] = {"registers": r, "spill_bytes": sp}
+        for lanes, red in sorted(cc.variants(name),
+                                 key=lambda v: (v[1], v[0])):
+            for unroll in cc.UNROLLS:
+                r, sp, _ = ptxas_entry(ptxas, "record_pass_kernel", name,
+                                       False, lanes, red == "transpose",
+                                       unroll)
+                regs[f"record_{name}_W{lanes}_{red}_U{unroll}"] = {
+                    "registers": r, "spill_bytes": sp}
     flat_regs = {}
     for body, name in pp.FLAT_BODIES.items():
         rows = pp.PASSES[name].fi
@@ -1540,8 +1769,11 @@ def main(argv) -> int:
              "pressure_force": "wcsph_surface_off",
              "density_alpha": "dfsph_surface_off", "pbd_lambda": "pbd",
              "xsph_colorgrad": "pbd", "xsph": "pbd_surface_off"}
-    table = {"kernels": [kernel_row(name, paths, owner, errs, times, pp)
+    table = {"kernels": [kernel_row(name, paths, owner, errs, times, pp,
+                                    cc)
                          for name in cc.PASS_IDS]
+        + [pack_row(name, paths, owner, errs, times)
+           for name in cc.RECORD_IDS]
         + [{"name": f"flat_{body}", "route": "cuda", "source": KERNEL_SRC,
             "replaces": FLAT_TPU_KERNEL, "launches": rec["launches"],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -1583,8 +1815,8 @@ def path_phase(cfp, ds, cc, torch, cfg, solver, phase, dt, card):
         # each frame run (warm-up, retries included) launches both WCSPH
         # passes once, each through the particle-list kernel, plus the
         # scene build's particle_density launch
-        expect_launches(st, {"particle_density_colorgrad_visc": frames_run,
-                             "particle_surface_pressure": frames_run})
+        expect_launches(st, dict(launched("surface_pressure", frames_run),
+                                 particle_density_colorgrad_visc=frames_run))
         log(phase, slice_line(st, card))
     elif solver == "dfsph":
         # per frame run: one density_alpha_colorgrad, viscosity and
@@ -1593,12 +1825,12 @@ def path_phase(cfp, ds, cc, torch, cfg, solver, phase, dt, card):
         # particle-list kernel runs both), at least 5 (1 + 1 + >= 1
         # divergence iterations and 1 + 1 + >= 2 density iterations of
         # each); the column kernel launches nothing
-        expect_launches(st, {"particle_density_alpha_colorgrad": frames_run,
-                             "particle_viscosity": frames_run,
-                             "particle_surface": frames_run,
-                             "particle_divergence": (5 * frames_run, None),
-                             "particle_stiffness_accel":
-                                 (5 * frames_run, None)})
+        expect_launches(st, dict(launched("surface", frames_run),
+                                 particle_density_alpha_colorgrad=frames_run,
+                                 particle_viscosity=frames_run,
+                                 particle_divergence=(5 * frames_run, None),
+                                 particle_stiffness_accel=(5 * frames_run,
+                                                           None)))
         divergence_is_stiffness_accel(st)
         cap = cfg.dfsph_max_iter
         di, ni = st["divergence_iters"], st["density_iters"]
@@ -1644,7 +1876,7 @@ def final_phase(sim, ds, pp, cc, torch, cfg, solver, dt, card, errs,
         if torch.equal(islots, idx.slots):
             return "slots", "work", idx.work
         return None
-    time_passes(calls, cfg, pp, cc, torch, card, times, orders)
+    time_passes(calls, cfg, pp, cc, torch, card, times, orders, solver)
 
 
 def default_phase(cfp, ds, cc, torch, card):

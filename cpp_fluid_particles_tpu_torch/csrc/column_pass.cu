@@ -51,18 +51,22 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
-// particle_pass_kernel (below) runs fourteen instances on the main path:
-// pbd_lambda, stiffness_accel, divergence, surface_pressure,
+// particle_pass_kernel (below) has fourteen instances and runs twelve on
+// the main path: pbd_lambda, stiffness_accel, divergence,
 // density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad, the
 // surface-off density_visc, pressure_force and density_alpha, the
-// fluid-only viscosity, surface and (PBD with surface effects off) xsph,
-// and the scene build's density over the boundary grid. A group of lanes
-// per particle of the slot list splits that particle's 27-cell walk, and
-// the group's sums are reduced by an xor butterfly or, for passes with many
-// sums, a transpose reduction. No path launches column_pass_kernel any
-// more: it runs only as the yardstick of those fourteen (the note above the
-// particle template says why it is slower) and for color_gradient and
-// density_colorgrad, which nothing runs.
+// fluid-only viscosity and (PBD with surface effects off) xsph, and the
+// scene build's density over the boundary grid. A group of lanes per
+// particle of the slot list splits that particle's 27-cell walk, and the
+// group's sums are reduced by an xor butterfly or, for passes with many
+// sums, a transpose reduction. record_pass_kernel (below) runs the other
+// two, surface_pressure and the fluid-only surface, in the same groups over
+// a cell-packed copy of the operand that pack_kernel writes once per call;
+// their particle-list instances stay as its bitwise yardstick. No path
+// launches column_pass_kernel any more: it runs only as the yardstick of
+// those fourteen (the note above the particle template says why it is
+// slower) and for color_gradient and density_colorgrad, which nothing
+// runs.
 //
 // Support is tested BEFORE the kernel polynomials are evaluated: against a
 // POS_PAD slot r ~ 1.7e6 and the Akinci piece overflows float32 to inf,
@@ -144,12 +148,17 @@ __device__ __forceinline__ float p_over_rho2(const float* f, int64_t t,
   return f[5 * kg + t] / fmaxf(c.eps, rho * rho);
 }
 
-// |cg|^2 from the three rows starting at row
+// |cg|^2 from the three rows starting at row, each product and sum rounded
+// once, in the plain executor's order, and never contracted into an fma:
+// the record kernel's pack (pack_kernel) forms it once per slot and the
+// other kernels per pair, and all of them, and the pack's plain version,
+// must give the same bits
 __device__ __forceinline__ float cg2(const float* f, int64_t t, int64_t kg,
                                      int row) {
   const float gx = f[row * kg + t], gy = f[(row + 1) * kg + t],
               gz = f[(row + 2) * kg + t];
-  return gx * gx + gy * gy + gz * gz;
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
 }
 
 // i-side loads shared by the instances below
@@ -235,28 +244,37 @@ struct DensityColorgradViscPass {
 
 // WCSPH traversal 2 (pallas_passes.py:1316): fl = [pos3, mass, rho, p,
 // cg3]. Outputs [sax, say, saz, pax, pay, paz] (pa before the MAX_A clamp).
+// J is a slot's j side, {|cg|^2, p / max(eps, rho^2)}: the functor forms it
+// per pair from the rows (side), record_pass_kernel once per slot in the
+// pack (pack_kernel); terms and bdry_terms then run the same float
+// operations on either.
 struct SurfacePressurePass {
   static constexpr int kOut = 6;
   static constexpr bool kBoundary = true;
   struct I {
     float x, y, z, c2, gate, p_rho2;
   };
+  using J = float2;
+  __device__ static J side(const float* f, int64_t t, int64_t kg,
+                           const Consts& c) {
+    return make_float2(cg2(f, t, kg, 6), p_over_rho2(f, t, kg, c));
+  }
+  __device__ static I make_i(float x, float y, float z, J j,
+                             const Consts& c) {
+    const float n = sqrtf(j.x);
+    return {x, y, z, j.x, n / fmaxf(c.eps, n), j.y};
+  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts& c) {
-    const float c2 = cg2(fl, t, kg, 6);
-    const float n = sqrtf(c2);
-    return {fl[t], fl[kg + t], fl[2 * kg + t], c2, n / fmaxf(c.eps, n),
-            p_over_rho2(fl, t, kg, c)};
+    return make_i(fl[t], fl[kg + t], fl[2 * kg + t], side(fl, t, kg, c), c);
   }
-  __device__ static void fluid(float* acc, const I& i, const float* fl,
-                               int64_t tj, int64_t kg, float dx, float dy,
-                               float dz, float r, const Consts& c) {
-    const float mj = fl[3 * kg + tj];
+  __device__ static void terms(float* acc, const I& i, float mj, J j,
+                               float dx, float dy, float dz, float r,
+                               const Consts& c) {
     const float cw = grad_w_cubic_coef(r, c);
-    const float st = c.st_coef * (i.c2 + cg2(fl, tj, kg, 6)) *
-                     grad_w_surface_coef(r, c);
+    const float st = c.st_coef * (i.c2 + j.x) * grad_w_surface_coef(r, c);
     const float ms = mj * (st + c.air_coef * i.gate * cw);
-    const float mp = mj * ((i.p_rho2 + p_over_rho2(fl, tj, kg, c)) * cw);
+    const float mp = mj * ((i.p_rho2 + j.y) * cw);
     acc[0] += ms * dx;
     acc[1] += ms * dy;
     acc[2] += ms * dz;
@@ -264,13 +282,23 @@ struct SurfacePressurePass {
     acc[4] -= mp * dy;
     acc[5] -= mp * dz;
   }
-  __device__ static void bdry(float* acc, const I& i, const float* bd,
-                              int64_t tj, int64_t kbg, float dx, float dy,
-                              float dz, float r, const Consts& c) {
-    const float coefb = -bd[3 * kbg + tj] * i.p_rho2 * grad_w_cubic_coef(r, c);
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    terms(acc, i, fl[3 * kg + tj], side(fl, tj, kg, c), dx, dy, dz, r, c);
+  }
+  __device__ static void bdry_terms(float* acc, const I& i, float mb,
+                                    float dx, float dy, float dz, float r,
+                                    const Consts& c) {
+    const float coefb = -mb * i.p_rho2 * grad_w_cubic_coef(r, c);
     acc[3] += coefb * dx;
     acc[4] += coefb * dy;
     acc[5] += coefb * dz;
+  }
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    bdry_terms(acc, i, bd[3 * kbg + tj], dx, dy, dz, r, c);
   }
 };
 
@@ -452,29 +480,41 @@ struct ViscosityPass {
 
 // Surface tension + air pressure from a carried color gradient
 // (src/BasicSPHSolver.cu:332-370; pallas_passes.py:1013), fluid only:
-// fl = [pos3, mass, cg3]. Outputs [sax, say, saz].
+// fl = [pos3, mass, cg3]. Outputs [sax, say, saz]. J, a slot's j side, is
+// |cg|^2, formed as SurfacePressurePass forms its J.
 struct SurfacePass {
   static constexpr int kOut = 3;
   static constexpr bool kBoundary = false;
   struct I {
     float x, y, z, c2, gate;
   };
+  using J = float;
+  __device__ static J side(const float* f, int64_t t, int64_t kg,
+                           const Consts&) {
+    return cg2(f, t, kg, 4);
+  }
+  __device__ static I make_i(float x, float y, float z, J j,
+                             const Consts& c) {
+    const float n = sqrtf(j);
+    return {x, y, z, j, n / fmaxf(c.eps, n)};
+  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts& c) {
-    const float c2 = cg2(fl, t, kg, 4);
-    const float n = sqrtf(c2);
-    return {fl[t], fl[kg + t], fl[2 * kg + t], c2, n / fmaxf(c.eps, n)};
+    return make_i(fl[t], fl[kg + t], fl[2 * kg + t], side(fl, t, kg, c), c);
+  }
+  __device__ static void terms(float* acc, const I& i, float mj, J j,
+                               float dx, float dy, float dz, float r,
+                               const Consts& c) {
+    const float st = c.st_coef * (i.c2 + j) * grad_w_surface_coef(r, c);
+    const float ms = mj * (st + c.air_coef * i.gate * grad_w_cubic_coef(r, c));
+    acc[0] += ms * dx;
+    acc[1] += ms * dy;
+    acc[2] += ms * dz;
   }
   __device__ static void fluid(float* acc, const I& i, const float* fl,
                                int64_t tj, int64_t kg, float dx, float dy,
                                float dz, float r, const Consts& c) {
-    const float st = c.st_coef * (i.c2 + cg2(fl, tj, kg, 4)) *
-                     grad_w_surface_coef(r, c);
-    const float ms =
-        fl[3 * kg + tj] * (st + c.air_coef * i.gate * grad_w_cubic_coef(r, c));
-    acc[0] += ms * dx;
-    acc[1] += ms * dy;
-    acc[2] += ms * dz;
+    terms(acc, i, fl[3 * kg + tj], side(fl, tj, kg, c), dx, dy, dz, r, c);
   }
 };
 
@@ -880,6 +920,40 @@ __device__ __forceinline__ void transpose_step(float (&acc)[S], int lane) {
   }
 }
 
+// A group's S sums (kOut, padded to S where kTranspose) reduced over its W
+// lanes as set out above, and stored at slot t of out (row stride kg) if
+// active: the record kernel's reduction. particle_pass_kernel writes the
+// same steps out itself; calling this instead changed its SASS (see
+// separation below). Groups are W-aligned inside the warp, so xor by m < W
+// stays in the group.
+template <int kOut, int W, bool kTranspose, int S>
+__device__ __forceinline__ void reduce_store(float (&acc)[S], int lane,
+                                             bool active,
+                                             float* __restrict__ out,
+                                             int64_t t, int64_t kg) {
+  if constexpr (kTranspose) {
+    transpose_step<S / 2, W / 2>(acc, lane);
+#pragma unroll
+    for (int m = W / (2 * S); m > 0; m >>= 1)
+      acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], m);
+    constexpr int kStride = W / S;  // lane n * kStride holds sum n
+    if (active && lane % kStride == 0 && lane / kStride < kOut)
+      out[(lane / kStride) * kg + t] = acc[0];
+  } else {
+#pragma unroll
+    for (int m = W / 2; m > 0; m >>= 1) {
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
+    }
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (lane == j % W) out[j * kg + t] = acc[j];
+    }
+  }
+}
+
 template <class P, int W, bool kTranspose>
 __global__ void __launch_bounds__(kThreads)
     particle_pass_kernel(const float* __restrict__ fl,
@@ -953,31 +1027,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <class P, int W, bool kTranspose>
-cudaError_t launch_particles(const float* fl, const float* bd,
-                             const int64_t* islots, float* out, int n, int k,
-                             int kb, int gx, int gy, int gz, const Consts& c,
-                             cudaStream_t stream) {
-  if (n == 0) return cudaSuccess;
+// the blocks of a group kernel: n particles of W lanes each
+template <int W>
+unsigned group_blocks(int n) {
   const int64_t threads = static_cast<int64_t>(n) * W;
-  const unsigned blocks =
-      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  particle_pass_kernel<P, W, kTranspose><<<blocks, kThreads, 0, stream>>>(
-      fl, bd, islots, out, n, k, kb, gx, gy, gz, c);
-  return cudaGetLastError();
+  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
+
+// the launcher of particle_pass_kernel<P, W, kTranspose>
+template <class P, int W, bool kTranspose>
+struct Particles {
+  static cudaError_t run(const float* fl, const float* bd,
+                         const int64_t* islots, float* out, int n, int k,
+                         int kb, int gx, int gy, int gz, const Consts& c,
+                         cudaStream_t stream) {
+    if (n == 0) return cudaSuccess;
+    particle_pass_kernel<P, W, kTranspose>
+        <<<group_blocks<W>(n), kThreads, 0, stream>>>(fl, bd, islots, out, n,
+                                                      k, kb, gx, gy, gz, c);
+    return cudaGetLastError();
+  }
+};
 
 // the reduction: 0 the xor butterfly, 1 the transpose reduction, which is
 // instantiated only where its padded sums fit the group (ops/
-// column_pass_cuda.py:variants gives the same pairs)
-template <class P, int W, class... A>
+// column_pass_cuda.py:variants gives the same pairs); L is the group
+// kernel's launcher
+template <template <class, int, bool> class L, class P, int W, class... A>
 cudaError_t launch_reduction(int reduction, A... a) {
   switch (reduction) {
     case 0:
-      return launch_particles<P, W, false>(a...);
+      return L<P, W, false>::run(a...);
     case 1:
       if constexpr (pow2_at_least(P::kOut) <= W)
-        return launch_particles<P, W, true>(a...);
+        return L<P, W, true>::run(a...);
       else
         return cudaErrorInvalidValue;
     default:
@@ -986,19 +1069,233 @@ cudaError_t launch_reduction(int reduction, A... a) {
 }
 
 // the group width W, instantiated for 8, 16 and 32 only
-template <class P, class... A>
+template <template <class, int, bool> class L, class P, class... A>
 cudaError_t launch_lanes(int lanes, int reduction, A... a) {
   switch (lanes) {
     case 8:
-      return launch_reduction<P, 8>(reduction, a...);
+      return launch_reduction<L, P, 8>(reduction, a...);
     case 16:
-      return launch_reduction<P, 16>(reduction, a...);
+      return launch_reduction<L, P, 16>(reduction, a...);
     case 32:
-      return launch_reduction<P, 32>(reduction, a...);
+      return launch_reduction<L, P, 32>(reduction, a...);
     default:
       return cudaErrorInvalidValue;
   }
 }
+
+// --- the cell-packed record kernel (SurfacePass, SurfacePressurePass) ---
+//
+// Replaces the same TPU kernel, pallas_passes.py:107 `column_pass`, for
+// surface (:1013) and surface_pressure (:1316), the second traversal of
+// the PBD, DFSPH and WCSPH frames, in place of particle_pass_kernel on
+// those two instances. It computes what particle_pass_kernel computes: the
+// same slot list, groups of W lanes, offsets in m-order, slots in rank
+// order, float operations (the functors' terms and bdry_terms) and
+// reductions, so its output is bitwise that kernel's at the same (W,
+// reduction).
+//
+// What it changes is where the walk's loads come from. particle_pass_kernel
+// reads the operand's planes (row r of slot s of cell c at r*K*G + s*G + c):
+// per candidate x, y and z from three planes, three lines, the padding test
+// on x first; per pair in support mass and |cg|^2 (surface) or mass,
+// |cg|^2, rho and p (surface_pressure), four to six more lines, and
+// |cg|^2 and p / max(eps, rho^2) formed again for every i, some 30-40
+// times per particle. Consecutive slots of a cell are G floats apart.
+//
+// pack_kernel, one launch per pass call on the operand as the executor
+// gets it (after a mesh's ghost exchange), writes a record of every
+// (cell, slot) of the grid, ghost cells and padding included, at c*K + s:
+// geo = {x, y, z, m} (a padding slot keeps x = POS_PAD), side = the pass's
+// J (P::side: |cg|^2, and for surface_pressure p / max(eps, rho^2)), and
+// for surface_pressure the boundary window's {x, y, z, m} at c*Kb + s.
+// The walk then reads per candidate one 16-byte record, which shares its
+// line with the cell's next slots, and per pair in support one 4- or 8-byte
+// J with no division. Its U-slot batches (U = 1 or 2) load the next
+// record before the padding test of the first: every slot below K holds a
+// record, so a batch needs no guard but s < K, and a walk does not wait on
+// one slot's test to issue the next slot's load. Batches of 4 lost to both
+// on every state (more registers, loads past the cell's last particle;
+// PERF.md section 6) and were dropped.
+//
+// Bound: as particle_pass_kernel's, the chain of dependent loads per slot
+// (PERF.md section 6); the pack adds a read of the operand's rows and a
+// write of 24 bytes per slot (20 for surface), plus 16 per boundary slot.
+
+// the records of one grid, each indexed c*K + s (boundary c*Kb + s)
+template <class P>
+struct Records {
+  const float4* geo;             // {x, y, z, m}
+  const typename P::J* side;     // the pass's j side
+  const float4* bgeo;            // the boundary's {x, y, z, m}, or null
+};
+
+// one thread per record, the fluid's K*G, then (kBoundary) the
+// boundary's Kb*G: consecutive threads write consecutive records
+template <class P>
+__global__ void __launch_bounds__(kThreads)
+    pack_kernel(const float* __restrict__ fl, const float* __restrict__ bd,
+                float4* __restrict__ geo, typename P::J* __restrict__ side,
+                float4* __restrict__ bgeo, int k, int kb, int64_t g,
+                Consts c) {
+  const int64_t kg = k * g;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t < kg) {
+    const int64_t cell = t / k;
+    const int64_t ti = (t - cell * k) * g + cell;
+    geo[t] = make_float4(fl[ti], fl[kg + ti], fl[2 * kg + ti], fl[3 * kg + ti]);
+    side[t] = P::side(fl, ti, kg, c);
+  } else if constexpr (P::kBoundary) {
+    const int64_t kbg = kb * g;
+    const int64_t u = t - kg;
+    if (u >= kbg) return;
+    const int64_t cell = u / kb;
+    const int64_t ti = (u - cell * kb) * g + cell;
+    bgeo[u] = make_float4(bd[ti], bd[kbg + ti], bd[2 * kbg + ti],
+                          bd[3 * kbg + ti]);
+  }
+}
+
+template <class P>
+cudaError_t launch_pack(const float* fl, const float* bd, void* geo,
+                        void* side, void* bgeo, int k, int kb, int64_t g,
+                        const Consts& c, cudaStream_t stream) {
+  const int64_t n = (k + (P::kBoundary ? kb : 0)) * g;
+  if (n == 0) return cudaSuccess;
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  pack_kernel<P><<<blocks, kThreads, 0, stream>>>(
+      fl, bd, static_cast<float4*>(geo),
+      static_cast<typename P::J*>(side), static_cast<float4*>(bgeo), k, kb,
+      g, c);
+  return cudaGetLastError();
+}
+
+struct Pair {
+  float dx, dy, dz, r;
+};
+
+// pair_terms's geometry on a record's x, y, z: the separation i - j and
+// its length -> false outside the support. The particle-list kernel keeps
+// its own copy in pair_terms: written through this helper it compiled to
+// other SASS, and its twelve other instances lost 7-12% (PERF.md section 6)
+template <class I>
+__device__ __forceinline__ bool separation(const I& iv, float xj, float yj,
+                                           float zj, const Consts& c,
+                                           Pair* q) {
+  q->dx = iv.x - xj;
+  q->dy = iv.y - yj;
+  q->dz = iv.z - zj;
+  const float d2 = q->dx * q->dx + q->dy * q->dy + q->dz * q->dz;
+  // in_support needs r <= h (1 + 2^-23), so d2 <= h^2 (1 + 3 * 2^-23): a
+  // pair past r2_cut is rejected without its square root and division,
+  // and every other pair is tested exactly as before
+  if (!(d2 <= c.r2_cut)) return false;
+  q->r = sqrtf(d2);
+  return in_support(q->r, c);
+}
+
+// One cell's records from base (its slot 0) up to the first padding slot
+// (ranks fill a cell from slot 0), U at a time: the fluid's through
+// P::terms with the slot's J, the boundary's (kFluid false) through
+// P::bdry_terms.
+template <class P, bool kFluid, int U>
+__device__ __forceinline__ void walk_records(
+    float* acc, const typename P::I& iv, const float4* __restrict__ geo,
+    const typename P::J* __restrict__ side, int64_t base, int k,
+    const Consts& c) {
+  for (int s0 = 0; s0 < k; s0 += U) {
+    float4 rj[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      rj[u] = s0 + u < k ? geo[base + s0 + u]
+                         : make_float4(c.pos_guard, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!(rj[u].x < c.pos_guard)) return;
+      Pair q;
+      if (!separation(iv, rj[u].x, rj[u].y, rj[u].z, c, &q)) continue;
+      if constexpr (kFluid)
+        P::terms(acc, iv, rj[u].w, side[base + s0 + u], q.dx, q.dy, q.dz,
+                 q.r, c);
+      else
+        P::bdry_terms(acc, iv, rj[u].w, q.dx, q.dy, q.dz, q.r, c);
+    }
+  }
+}
+
+// particle_pass_kernel's groups over the records: islots names plane
+// slots s*G + c (the trash value K*G for an invalid particle), the i side
+// comes from record c*K + s, each lane walks its offsets' cells with
+// walk_records, and the sums are reduced and stored as there.
+template <class P, int W, bool kTranspose, int U>
+__global__ void __launch_bounds__(kThreads)
+    record_pass_kernel(Records<P> rec, const int64_t* __restrict__ islots,
+                       float* __restrict__ out, int n, int k, int kb, int gx,
+                       int gy, int gz, Consts c) {
+  static_assert(W == 8 || W == 16 || W == 32,
+                "a group is 8, 16 or 32 lanes of one warp");
+  static_assert(U == 1 || U == 2, "a batch is 1 or 2 slots");
+  constexpr int S = kTranspose ? pow2_at_least(P::kOut) : P::kOut;
+  static_assert(!kTranspose || S <= W,
+                "the transpose leaves each lane one sum: every sum needs a "
+                "lane to store it");
+  const int64_t g = static_cast<int64_t>(gx) * gy * gz;
+  const int64_t kg = k * g;
+  const int64_t p =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / W;
+  const int lane = static_cast<int>(threadIdx.x % W);
+  const int64_t t = p < n ? islots[p] : kg;  // kg: the trash slot
+
+  // every test below reads only t, so it is uniform across the group
+  bool active = t >= 0 && t < kg;
+  int64_t cell = 0, ri = 0;
+  float4 gi = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t gyz = static_cast<int64_t>(gy) * gz;
+  if (active) {
+    cell = t % g;
+    ri = cell * k + t / g;
+    const int x = static_cast<int>(cell / gyz);
+    const int y = static_cast<int>((cell / gz) % gy);
+    const int z = static_cast<int>(cell % gz);
+    gi = rec.geo[ri];
+    active = x > 0 && x < gx - 1 && y > 0 && y < gy - 1 && z > 0 &&
+             z < gz - 1 && gi.x < c.pos_guard;
+  }
+
+  float acc[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) acc[j] = 0.f;
+
+  if (active) {
+    const typename P::I iv = P::make_i(gi.x, gi.y, gi.z, rec.side[ri], c);
+    for (int o = lane; o < 27; o += W) {
+      const int64_t cj =
+          cell + (o / 9 - 1) * gyz + ((o % 9) / 3 - 1) * gz + (o % 3 - 1);
+      walk_records<P, true, U>(acc, iv, rec.geo, rec.side, cj * k, k, c);
+      if constexpr (P::kBoundary)
+        walk_records<P, false, U>(acc, iv, rec.bgeo, rec.side, cj * kb, kb,
+                                  c);
+    }
+  }
+
+  reduce_store<P::kOut, W, kTranspose>(acc, lane, active, out, t, kg);
+}
+
+// the launchers of record_pass_kernel<P, W, kTranspose, U>
+template <int U>
+struct RecordsIn {
+  template <class P, int W, bool kTranspose>
+  struct L {
+    static cudaError_t run(Records<P> rec, const int64_t* islots, float* out,
+                           int n, int k, int kb, int gx, int gy, int gz,
+                           const Consts& c, cudaStream_t stream) {
+      if (n == 0) return cudaSuccess;
+      record_pass_kernel<P, W, kTranspose, U>
+          <<<group_blocks<W>(n), kThreads, 0, stream>>>(
+              rec, islots, out, n, k, kb, gx, gy, gz, c);
+      return cudaGetLastError();
+    }
+  };
+};
 
 // --- the brick-tiled fluid-only kernel (exp/flat_pallas_proto.py:67) ---
 
@@ -1224,7 +1521,7 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto pass) {
-    return launch_lanes<decltype(pass)>(
+    return launch_lanes<Particles, decltype(pass)>(
         lanes, reduction, fl, bd, islots, out, n, k, kb, gx, gy, gz, c, s);
   };
   switch (pass_id) {
@@ -1256,6 +1553,81 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
       return run(XsphColorgradPass{});
     case 13:
       return run(XsphPass{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The cell-packed records of pass ids 2 (surface_pressure: geo and side
+// (float2) from fl = [pos3, mass, rho, p, cg3], bgeo from bd) and 7
+// (surface: geo and side (float) from fl = [pos3, mass, cg3]; bd and bgeo
+// null, kb 0) of column_pass_launch, each record at c*K + s (boundary
+// c*Kb + s) of buffers the caller allocates. Returns a cudaError_t; any
+// other pass id is cudaErrorInvalidValue.
+extern "C" int pack_records_launch(int pass_id, const float* fl,
+                                   const float* bd, void* geo, void* side,
+                                   void* bgeo, int k, int kb, int gx, int gy,
+                                   int gz, const float* consts, int n_consts,
+                                   int device, void* stream) {
+  Consts c;
+  if (!read_consts(consts, n_consts, &c)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t g = static_cast<int64_t>(gx) * gy * gz;
+  switch (pass_id) {
+    case 2:
+      return launch_pack<SurfacePressurePass>(fl, bd, geo, side, bgeo, k, kb,
+                                              g, c, s);
+    case 7:
+      return launch_pack<SurfacePass>(fl, nullptr, geo, side, nullptr, k, 0,
+                                      g, c, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The record kernel on pass ids 2 (surface_pressure) and 7 (surface) over
+// pack_records_launch's records, W = lanes in {8, 16, 32}, reduction 0 or
+// 1 as particle_pass_launch, U = unroll in {1, 2} slots a batch, over
+// the n particles of islots (plane slots as particle_pass_launch's). out
+// must be zeroed by the caller. Returns a cudaError_t; any other pass id,
+// width, reduction or unroll is cudaErrorInvalidValue.
+extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
+                                  int unroll, const void* geo,
+                                  const void* side, const void* bgeo,
+                                  const int64_t* islots, float* out, int n,
+                                  int k, int kb, int gx, int gy, int gz,
+                                  const float* consts, int n_consts,
+                                  int device, void* stream) {
+  Consts c;
+  if (!read_consts(consts, n_consts, &c) || n < 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto run = [&](auto pass) -> cudaError_t {
+    using P = decltype(pass);
+    const Records<P> rec{static_cast<const float4*>(geo),
+                         static_cast<const typename P::J*>(side),
+                         static_cast<const float4*>(bgeo)};
+    const int kbp = P::kBoundary ? kb : 0;
+    switch (unroll) {
+      case 1:
+        return launch_lanes<RecordsIn<1>::L, P>(
+            lanes, reduction, rec, islots, out, n, k, kbp, gx, gy, gz, c, s);
+      case 2:
+        return launch_lanes<RecordsIn<2>::L, P>(
+            lanes, reduction, rec, islots, out, n, k, kbp, gx, gy, gz, c, s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  };
+  switch (pass_id) {
+    case 2:
+      return run(SurfacePressurePass{});
+    case 7:
+      return run(SurfacePass{});
     default:
       return cudaErrorInvalidValue;
   }

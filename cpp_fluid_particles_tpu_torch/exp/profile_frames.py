@@ -20,9 +20,9 @@ passes. Each window prints one line and one JSON record (also written to
   * device busy ms per frame: the union of the device intervals (kernels,
     memsets, copies) the profiler recorded; busy share: that over the
     faster unprofiled ms/frame;
-  * device ms per frame of each kernel group (the particle-list kernel per
-    pass, the column kernel per pass, everything else) and the device ops
-    per frame.
+  * device ms per frame of each kernel group (the particle-list kernel,
+    the column kernel, the record kernel and its pack, each per pass;
+    everything else) and the device ops per frame.
 
 K and the box are whatever the run reached; a window whose runs refit
 either is flagged (``refit``) because its frames then ran at other shapes.
@@ -76,7 +76,8 @@ def card() -> str:
 
 def group(name: str) -> str:
     """A device event's name -> its kernel group."""
-    for kernel in ("particle_pass_kernel", "column_pass_kernel"):
+    for kernel in ("particle_pass_kernel", "column_pass_kernel",
+                   "record_pass_kernel", "pack_kernel"):
         if kernel in name:
             m = re.search(r"::(\w+Pass)\b", name)
             what = FUNCTORS.get(m.group(1), m.group(1)) if m else "?"

@@ -382,9 +382,10 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
         vel_d = vel_d + o[5:8] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
         # the one pass that runs faster on the slots in the particles'
-        # order than in cell-major order: 0.0723 against 0.0758 ms a launch
-        # at W 8 on the 300-frame WCSPH dam, both passes of chip_smoke's
-        # ladder (CUDA graph, PERF.md section 6)
+        # order than in cell-major order: through the record kernel, 0.0639
+        # against 0.0671 ms a launch, pack included, on the 300-frame WCSPH
+        # dam (the particle-list kernel: 0.0723 against 0.0758 ms; CUDA
+        # graph, PERF.md section 6)
         sp = pp.surface_pressure_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None], cg], 0),
             bdx, dims, dims_b, cfg, executor, islots=lo.islots)

@@ -16,15 +16,22 @@ density_alpha, the fluid-only viscosity, surface and xsph, and the scene
 build's density) through the particle-list kernel, a group of ``LANES``
 lanes per particle of a slot list whose sums one of ``REDUCTIONS``
 combines, at the (width, reduction) pairs ``variants`` gives for the pass's
-sum count; ``passes.column_pass`` sends those fourteen passes there on a
-card, so no path launches ``column_pass_cuda``: it stays the yardstick, and
-the executor of color_gradient and density_colorgrad, which nothing runs.
+sum count. ``record_pass_cuda`` runs surface and surface_pressure
+(``RECORD_IDS``) through the cell-packed record kernel: ``pack_records``
+(the pack kernel on a card, ``pack_records_plain`` on the CPU) writes one
+record per (cell, slot) of the operand, and the walk reads those records in
+the particle-list kernel's groups and order, bitwise its output.
+``passes.column_pass`` sends the fourteen passes to one of the two on a
+card (``RECORD_IDS`` to the record kernel), so no path launches
+``column_pass_cuda``: it stays the yardstick, and the executor of
+color_gradient and density_colorgrad, which nothing runs.
 ``flat_pass_cuda`` runs the fluid-only bodies of exp/flat_pallas_proto.py
 (``passes.FLAT_BODIES``) through the brick-tiled kernel that replaces its
 ``flat_pallas_pass`` (``passes.flat_pallas_pass`` dispatches to it), or
 through the untiled kernel as its yardstick.
 ``LAUNCHES`` counts the launches of each pass instance, of each
-particle-list instance (``particle_<name>``) and of each fluid-only
+particle-list instance (``particle_<name>``), of each record instance's
+pack and walk (``pack_<name>``, ``record_<name>``) and of each fluid-only
 instance of the prototype's bodies, tiled and untiled.
 """
 
@@ -37,7 +44,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -147,8 +154,33 @@ PASS_REDUCTION = {"xsph_colorgrad": "transpose", "surface": "transpose",
 # and per fluid-only instance of the prototype's bodies (flat_<body>: the
 # tiled kernel; untiled_<body>: column_pass_kernel); bumped once per
 # successful launch
+# pass name -> its id in pack_records_launch and record_pass_launch
+# (csrc/column_pass.cu): the passes the cell-packed record kernel serves
+RECORD_IDS = {"surface_pressure": 2, "surface": 7}
+
+# slots a batch of the record kernel's walk loads before it tests the
+# first for padding (batches of 4 lost to both on every dam state: PERF.md
+# section 6)
+UNROLLS = (1, 2)
+
+# the record kernel's (lanes, reduction, unroll) per pass. On the 300-frame
+# dam states (NVIDIA H100 80GB HBM3, 700 W; CUDA graph, pack included,
+# best of two; PERF.md section 6), surface took 0.0490 ms on DFSPH's (K
+# 16) and on PBD's (K 18) at W 8 transposed, unroll 1 (butterfly 0.0489 /
+# 0.0496, unroll 2 0.0495 / 0.0497, W 32 0.0535 / 0.0539) against the
+# particle-list kernel's 0.0547 / 0.0549 at its default, W 32 transposed
+# (0.0499 / 0.0512 at W 8 transposed); surface_pressure (WCSPH's, K 22)
+# 0.0639 at W 8 butterfly, unroll 2, in the particles' order (unroll 1
+# 0.0661, transposed 0.0649, cell-major 0.0672) against the particle-list
+# kernel's 0.0652 at its default, W 8 butterfly (0.0638 at W 8
+# transposed). Unroll 4 lost to both unrolls on every state.
+RECORD_DEFAULTS = {"surface": (8, "transpose", 1),
+                   "surface_pressure": (8, "butterfly", 2)}
+
 LAUNCHES = {name: 0 for name in PASS_IDS}
 LAUNCHES.update({f"particle_{name}": 0 for name in PARTICLE_PASSES})
+LAUNCHES.update({f"{kind}_{name}": 0 for kind in ("pack", "record")
+                 for name in RECORD_IDS})
 LAUNCHES.update({f"{kind}_{body}": 0 for kind in ("flat", "untiled")
                  for body in FLAT_IDS})
 
@@ -227,6 +259,14 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ci, ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
                    ci, ci, vp]
     fn.restype = ci
+    fn = lib.pack_records_launch
+    fn.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, ci,
+                   vp]
+    fn.restype = ci
+    fn = lib.record_pass_launch
+    fn.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                   ci, vp, ci, ci, vp]
+    fn.restype = ci
     return lib
 
 
@@ -303,6 +343,30 @@ def column_pass_cuda(name: str, fl: torch.Tensor,
     return out
 
 
+def _group(fn: str, name: str, lanes: Optional[int],
+           reduction: Optional[str], islots: torch.Tensor, defaults):
+    """The (lanes, reduction) a group kernel runs pass ``name`` at
+    (``defaults`` where None), refused outside ``variants(name)``, after
+    checking that ``islots`` is 1-D, int64 and contiguous."""
+    lanes = defaults[0] if lanes is None else lanes
+    if lanes not in LANES:
+        raise ValueError(f"{fn}: lanes {lanes} is not one of {LANES}")
+    reduction = defaults[1] if reduction is None else reduction
+    if reduction not in REDUCTIONS:
+        raise ValueError(f"{fn}: reduction {reduction!r} is not one of "
+                         f"{REDUCTIONS}")
+    if (lanes, reduction) not in variants(name):
+        raise ValueError(f"{fn}: pass {name} has {PASSES[name].n_out} sums, "
+                         f"too many for the {reduction} reduction at {lanes} "
+                         f"lanes; its variants are {variants(name)}")
+    if islots.dtype != torch.int64 or islots.dim() != 1:
+        raise ValueError(f"{fn}: islots must be 1-D int64, got "
+                         f"{islots.dtype} of shape {tuple(islots.shape)}")
+    if not islots.is_contiguous():
+        raise ValueError(f"{fn}: islots is not contiguous")
+    return lanes, reduction
+
+
 def particle_pass_cuda(name: str, fl: torch.Tensor,
                        bd: Optional[torch.Tensor], islots: torch.Tensor,
                        dims: DenseDims, dims_b: Optional[DenseDims],
@@ -327,22 +391,8 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
     if name not in PARTICLE_PASSES:
         raise ValueError(f"{fn}: pass {name!r} has no particle-list kernel; "
                          f"one of {PARTICLE_PASSES}")
-    lanes = default_lanes(name) if lanes is None else lanes
-    if lanes not in LANES:
-        raise ValueError(f"{fn}: lanes {lanes} is not one of {LANES}")
-    reduction = default_reduction(name) if reduction is None else reduction
-    if reduction not in REDUCTIONS:
-        raise ValueError(f"{fn}: reduction {reduction!r} is not one of "
-                         f"{REDUCTIONS}")
-    if (lanes, reduction) not in variants(name):
-        raise ValueError(f"{fn}: pass {name} has {PASSES[name].n_out} sums, "
-                         f"too many for the {reduction} reduction at {lanes} "
-                         f"lanes; its variants are {variants(name)}")
-    if islots.dtype != torch.int64 or islots.dim() != 1:
-        raise ValueError(f"{fn}: islots must be 1-D int64, got "
-                         f"{islots.dtype} of shape {tuple(islots.shape)}")
-    if not islots.is_contiguous():
-        raise ValueError(f"{fn}: islots is not contiguous")
+    lanes, reduction = _group(fn, name, lanes, reduction, islots,
+                              (default_lanes(name), default_reduction(name)))
     bd_ptr, kb = _check_operands(fn, name, fl, bd, dims, dims_b)
     if islots.device != fl.device:
         raise ValueError(f"{fn}: islots is on {islots.device}, fl on "
@@ -363,6 +413,172 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
                            f"the {reduction} reduction failed with CUDA "
                            f"error {err}")
     LAUNCHES[f"particle_{name}"] += 1
+    return out
+
+
+class Records(NamedTuple):
+    """The cell-packed records of one pass operand, slot s of cell c at
+    row c*K + s (boundary c*Kb + s)."""
+    geo: torch.Tensor             # (G*K, 4) [x, y, z, m]
+    side: torch.Tensor            # (G*K,) |cg|^2, or (G*K, 2) with p/rho^2
+    bgeo: Optional[torch.Tensor]  # (G*Kb, 4) the boundary's, or None
+
+
+def _side_plain(name: str, fl: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """The slots' j side as the plain pass bodies form it (ops/passes.py
+    _surface_terms, _surface_pressure_terms): (1, K, G) |cg|^2, and for
+    surface_pressure (2, K, G) with p / max(eps, rho^2)."""
+    row = 4 if name == "surface" else 6
+    c2 = fl[row] * fl[row] + fl[row + 1] * fl[row + 1] \
+        + fl[row + 2] * fl[row + 2]
+    if name == "surface":
+        return c2[None]
+    return torch.stack([c2, fl[5] / torch.clamp(fl[4] * fl[4],
+                                                min=cfg.epsilon)])
+
+
+def _cell_major(x: torch.Tensor) -> torch.Tensor:
+    """(rows, K, G) -> (G*K, rows): slot s of cell c at row c*K + s."""
+    return x.permute(2, 1, 0).reshape(-1, x.shape[0]).contiguous()
+
+
+def pack_records_plain(name: str, fl: torch.Tensor,
+                       bd: Optional[torch.Tensor], cfg: SimConfig) -> Records:
+    """The records of pass ``name`` (one of RECORD_IDS) in torch ops: what
+    the pack kernel writes, bitwise on a card (its |cg|^2 is rounded as
+    here, never contracted)."""
+    side = _cell_major(_side_plain(name, fl, cfg))
+    return Records(_cell_major(fl[:4]),
+                   side[:, 0].contiguous() if name == "surface" else side,
+                   None if bd is None else _cell_major(bd))
+
+
+def pack_records(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
+                 dims: DenseDims, dims_b: Optional[DenseDims],
+                 cfg: SimConfig) -> Records:
+    """The cell-packed records of pass ``name`` (one of RECORD_IDS) from its
+    operand ``fl`` (Fi, K, G) and, for surface_pressure, the boundary
+    window ``bd`` (4, Kb, G), every (cell, slot) of the ghosted grid: on
+    the CPU ``pack_records_plain``; on a card the pack kernel, one launch
+    on the current stream into buffers from ``torch.empty`` (no sync, so a
+    CUDA graph can hold it), counted as ``pack_<name>``."""
+    fn = "pack_records"
+    if name not in RECORD_IDS:
+        raise ValueError(f"{fn}: pass {name!r} has no record kernel; one of "
+                         f"{tuple(RECORD_IDS)}")
+    if fl.device.type == "cpu":
+        want = (PASSES[name].fi, dims.k, dims.g)
+        if tuple(fl.shape) != want or (bd is None) == PASSES[name].has_bd:
+            raise ValueError(f"{fn}: {name} takes fl of shape {want}"
+                             + (" and a boundary operand"
+                                if PASSES[name].has_bd else " alone"))
+        return pack_records_plain(name, fl, bd, cfg)
+    bd_ptr, kb = _check_operands(fn, name, fl, bd, dims, dims_b)
+    return _pack(name, fl, bd_ptr, dims, kb, _consts(cfg),
+                 torch.cuda.current_stream(fl.device).cuda_stream)
+
+
+def _pack(name, fl, bd_ptr, dims, kb, consts, stream) -> Records:
+    """The pack kernel on checked operands."""
+    n = dims.g * dims.k
+    geo = torch.empty((n, 4), dtype=torch.float32, device=fl.device)
+    side = torch.empty((n,) if name == "surface" else (n, 2),
+                       dtype=torch.float32, device=fl.device)
+    bgeo = None if bd_ptr is None else torch.empty(
+        (dims.g * kb, 4), dtype=torch.float32, device=fl.device)
+    err = _library().pack_records_launch(
+        RECORD_IDS[name], fl.data_ptr(), bd_ptr, geo.data_ptr(),
+        side.data_ptr(), None if bgeo is None else bgeo.data_ptr(), dims.k,
+        kb, dims.gx, dims.gy, dims.gz, consts, len(consts), fl.device.index,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"pack_records: packing {name} failed with CUDA "
+                           f"error {err}")
+    LAUNCHES[f"pack_{name}"] += 1
+    return Records(geo, side, bgeo)
+
+
+def _check_records(fn: str, name: str, recs: Records, fl: torch.Tensor,
+                   dims: DenseDims, dims_b: Optional[DenseDims]) -> None:
+    """Check records handed to the walk against pass ``name``'s grids: the
+    walk indexes them by the grids' K, Kb and G, so a pack of another pass,
+    K or window would send it out of bounds."""
+    n = dims.g * dims.k
+    want = {"geo": (n, 4), "side": (n,) if name == "surface" else (n, 2),
+            "bgeo": None}
+    if PASSES[name].has_bd:
+        want["bgeo"] = (dims.g * (dims_b.k if dims_b is not None else 0), 4)
+    for what, shape in want.items():
+        t = getattr(recs, what)
+        if t is None and shape is None:
+            continue
+        if t is None or shape is None:
+            got = "None" if t is None else "given"
+            raise ValueError(f"{fn}: records.{what} is {got}; {name} takes "
+                             f"{shape}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: records.{what} has shape "
+                             f"{tuple(t.shape)}, expected {shape} for {name}"
+                             f" at K {dims.k}, G {dims.g}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{fn}: records.{what} is not contiguous "
+                             "float32")
+        if t.device != fl.device:
+            raise ValueError(f"{fn}: records.{what} is on {t.device}, fl on "
+                             f"{fl.device}")
+
+
+def record_pass_cuda(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
+                     islots: torch.Tensor, dims: DenseDims,
+                     dims_b: Optional[DenseDims], cfg: SimConfig,
+                     lanes: Optional[int] = None,
+                     reduction: Optional[str] = None,
+                     unroll: Optional[int] = None,
+                     records: Optional[Records] = None) -> torch.Tensor:
+    """Pass ``name`` (one of RECORD_IDS) through the cell-packed record
+    kernel on the current stream of ``fl``'s device: ``pack_records`` of
+    ``fl`` and ``bd`` (unless ``records``, checked against the grids, hands
+    them in), then the walk, a group of ``lanes`` lanes per particle of
+    ``islots`` reduced by ``reduction`` as ``particle_pass_cuda`` takes
+    them, loading ``unroll`` (one of UNROLLS; default the pass's in
+    RECORD_DEFAULTS) slots' records a batch. Returns
+    (n_out, K, G), zeroed by one memset before the walk, which writes only
+    the listed slots; the walk is counted as ``record_<name>``."""
+    fn = "record_pass_cuda"
+    if name not in RECORD_IDS:
+        raise ValueError(f"{fn}: pass {name!r} has no record kernel; one of "
+                         f"{tuple(RECORD_IDS)}")
+    lanes, reduction = _group(fn, name, lanes, reduction, islots,
+                              RECORD_DEFAULTS[name])
+    unroll = RECORD_DEFAULTS[name][2] if unroll is None else unroll
+    if unroll not in UNROLLS:
+        raise ValueError(f"{fn}: unroll {unroll} is not one of {UNROLLS}")
+    if records is not None:
+        _check_records(fn, name, records, fl, dims, dims_b)
+    bd_ptr, kb = _check_operands(fn, name, fl, bd, dims, dims_b)
+    if islots.device != fl.device:
+        raise ValueError(f"{fn}: islots is on {islots.device}, fl on "
+                         f"{fl.device}")
+    consts = _consts(cfg)
+    stream = torch.cuda.current_stream(fl.device).cuda_stream
+    if records is None:
+        records = _pack(name, fl, bd_ptr, dims, kb, consts, stream)
+    out = torch.zeros((PASSES[name].n_out, dims.k, dims.g),
+                      dtype=torch.float32, device=fl.device)
+    n = islots.shape[0]
+    if n == 0:
+        return out
+    err = _library().record_pass_launch(
+        RECORD_IDS[name], lanes, REDUCTIONS.index(reduction), unroll,
+        records.geo.data_ptr(), records.side.data_ptr(),
+        None if records.bgeo is None else records.bgeo.data_ptr(),
+        islots.data_ptr(), out.data_ptr(), n, dims.k, kb, dims.gx, dims.gy,
+        dims.gz, consts, len(consts), fl.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launching {name} with {lanes} lanes, the "
+                           f"{reduction} reduction and unroll {unroll} failed "
+                           f"with CUDA error {err}")
+    LAUNCHES[f"record_{name}"] += 1
     return out
 
 

@@ -32,8 +32,11 @@ surface_pressure, density_colorgrad_visc, xsph_colorgrad,
 density_alpha_colorgrad, density_visc, pressure_force, density_alpha, the
 fluid-only viscosity, surface and xsph, and density) take the
 particle-list kernel (``column_pass_cuda.particle_pass_cuda``), which
-needs ``islots``; only color_gradient and density_colorgrad, which nothing
-runs, take the column kernel.
+needs ``islots``, but for ``column_pass_cuda.RECORD_IDS`` (surface and
+surface_pressure), which take the cell-packed record kernel
+(``column_pass_cuda.record_pass_cuda``) over the same list; only
+color_gradient and density_colorgrad, which nothing runs, take the column
+kernel.
 Outputs are zero on ghost cells and on empty i slots, up to the sign of
 zero.
 """
@@ -597,8 +600,9 @@ def column_pass(name: str, fl, bd, dims, dims_b, cfg,
                     raise ValueError(f"{name} on {fl.device} runs the "
                                      "particle-list kernel, which needs "
                                      "islots")
-                return cc.particle_pass_cuda(name, fl, bd, islots, dims,
-                                             dims_b, cfg)
+                run = (cc.record_pass_cuda if name in cc.RECORD_IDS
+                       else cc.particle_pass_cuda)
+                return run(name, fl, bd, islots, dims, dims_b, cfg)
             executor = cc.column_pass_cuda
         else:
             raise ValueError(f"no neighbor-pass executor for {fl.device}")

@@ -5,7 +5,11 @@ density_visc, pressure_force, density_alpha, the fluid-only viscosity,
 surface and xsph, and the scene build's density (at each group width and
 reduction the pass takes; the wrapper refuses the others; divergence and
 density_colorgrad_visc also on cells full to K and on empty ones, and on a
-2x2 block's window), and its brick-tiled fluid-only variant on the card.
+2x2 block's window), the cell-packed record kernel and its pack that run
+surface and surface_pressure on the steps (at each width, reduction and
+unroll, in any order of the slot list, on full and empty cells and on a
+2x2 block's window, bitwise the particle-list kernel), and the brick-tiled
+fluid-only variant, on the card.
 Every Simulation on the card launches the particle-list density once, for
 its scene, and the column kernel never.
 
@@ -263,9 +267,9 @@ def _no_r2_cut(monkeypatch):
 def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
     """The squared-distance early-out rejects only pairs that in_support
     rejects too, and runs the same float operations on the others: the
-    column kernel, and the particle-list kernel at every (width,
-    reduction) of the pass, give bitwise the same output with r2_cut as
-    with +inf."""
+    column kernel, the particle-list kernel at every (width, reduction) of
+    the pass, and the record kernel at every (width, reduction, unroll),
+    give bitwise the same output with r2_cut as with +inf."""
     _, fl, bd, dims, dims_b, islots = operands[name]
 
     def run_all():
@@ -275,13 +279,20 @@ def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
                                            dims_b, CFG, lanes=lanes,
                                            reduction=red)
                      for lanes, red in cc.variants(name)]
+        if name in cc.RECORD_IDS:
+            outs += [cc.record_pass_cuda(name, fl, bd, islots, dims, dims_b,
+                                         CFG, lanes=lanes, reduction=red,
+                                         unroll=u)
+                     for lanes, red in cc.variants(name)
+                     for u in cc.UNROLLS]
         torch.cuda.synchronize()
         return outs
     cut = run_all()
     _no_r2_cut(monkeypatch)
     uncut = run_all()
-    assert len(cut) == 1 + (len(cc.variants(name))
-                            if name in pp.PARTICLE_PASSES else 0)
+    n_var = len(cc.variants(name)) if name in pp.PARTICLE_PASSES else 0
+    n_rec = n_var * len(cc.UNROLLS) if name in cc.RECORD_IDS else 0
+    assert len(cut) == 1 + n_var + n_rec
     for a, b in zip(cut, uncut):
         assert torch.equal(a, b)
 
@@ -316,7 +327,9 @@ def test_scene_build_runs_through_the_kernel(dev):
 
 def test_simulation_runs_through_the_kernel(dev):
     """The same frames on the card and on the CPU agree at the one-step
-    bars after 3 frames, and the card's frames all launched the kernel."""
+    bars after 3 frames, and the card's frames all launched the kernels:
+    density_colorgrad_visc the particle-list kernel, surface_pressure the
+    record kernel and its pack."""
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
                        device=dev)
@@ -325,7 +338,7 @@ def test_simulation_runs_through_the_kernel(dev):
     _scene_built_once()
     assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
         "particle_density": 1, "particle_density_colorgrad_visc": frames,
-        "particle_surface_pressure": frames}
+        "pack_surface_pressure": frames, "record_surface_pressure": frames}
     cpu = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
                        device="cpu")
     cpu.run(3)
@@ -402,7 +415,8 @@ def _dfsph_step_agrees(gpu, cfg):
 
 def test_dfsph_simulation_runs_through_the_kernel(dev):
     """Every pass of the card's DFSPH frames launched the particle-list
-    kernel; then one step from the state they reached agrees on the card
+    kernel, surface the record kernel and its pack; then one step from the
+    state they reached agrees on the card
     and on the CPU at the one-step bars, with equal iteration counts."""
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="dfsph", cfg=CFG, fluid_pos=_block(),
@@ -410,8 +424,8 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
     _dfsph_frames_launched(("particle_density_alpha_colorgrad",
-                            "particle_viscosity", "particle_surface"),
-                           frames)
+                            "particle_viscosity", "pack_surface",
+                            "record_surface"), frames)
     _dfsph_step_agrees(gpu, CFG)
 
 
@@ -482,10 +496,11 @@ def _pbd_frames_agree(cfg, per_frame, dev):
 def test_pbd_simulation_runs_through_the_kernel(dev):
     """Every pass of the card's PBD frames launched the particle-list
     kernel, the two projection passes once per projection iteration,
-    xsph_colorgrad and surface once per frame; one step from the state
-    they reached agrees with the CPU's."""
-    _pbd_frames_agree(CFG, ("particle_xsph_colorgrad", "particle_surface"),
-                      dev)
+    xsph_colorgrad once per frame, and surface the record kernel and its
+    pack once per frame; one step from the state they reached agrees with
+    the CPU's."""
+    _pbd_frames_agree(CFG, ("particle_xsph_colorgrad", "pack_surface",
+                            "record_surface"), dev)
 
 
 def test_surface_off_pbd_simulation_runs_through_the_kernel(dev):
@@ -769,4 +784,269 @@ def test_graph_timing_leaves_the_launch_counts(operands):
     ms = time_graph_ms(lambda: cc.particle_pass_cuda(
         "divergence", fl, bd, islots, dims, dims_b, CFG), 5)
     assert ms > 0
+    assert cc.LAUNCHES == before
+
+
+# ----------------------------------------------------------------------
+# the cell-packed record kernel (surface, surface_pressure) and its pack
+# ----------------------------------------------------------------------
+
+def _order(islots, dims, order):
+    """The same slots as the step's list ``islots``: as given ("step"), in
+    cell-major order ("cell_major", BoxIndex.work's: by cell, then rank;
+    trash last) or shuffled (seeded)."""
+    if order == "step":
+        return islots
+    if order == "shuffled":
+        gen = torch.Generator().manual_seed(7)
+        return islots[torch.randperm(islots.shape[0], generator=gen).to(
+            islots.device)].contiguous()
+    kg = dims.k * dims.g
+    key = torch.where(islots < kg, (islots % dims.g) * dims.k
+                      + islots // dims.g, kg)
+    return islots[torch.sort(key, stable=True).indices].contiguous()
+
+
+@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+def test_pack_kernel_is_bitwise_its_plain_version(operands, name):
+    """The pack kernel writes exactly pack_records_plain's records (|cg|^2
+    is rounded as the torch ops round it, never contracted into an fma),
+    twice the same, one launch counted per call and no walk."""
+    _, fl, bd, dims, dims_b, _ = operands[name]
+    n0 = dict(cc.LAUNCHES)
+    got = cc.pack_records(name, fl, bd, dims, dims_b, CFG)
+    again = cc.pack_records(name, fl, bd, dims, dims_b, CFG)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES[f"pack_{name}"] == n0[f"pack_{name}"] + 2
+    assert cc.LAUNCHES[f"record_{name}"] == n0[f"record_{name}"]
+    plain = cc.pack_records_plain(name, fl, bd, CFG)
+    for a, b, c in zip(got, again, plain):
+        if c is None:
+            assert a is None and b is None
+            continue
+        assert a.is_cuda and torch.equal(a, b) and torch.equal(a, c)
+    assert (got.bgeo is None) == (not pp.PASSES[name].has_bd)
+
+
+@pytest.mark.parametrize("order", ["step", "cell_major", "shuffled"])
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
+@pytest.mark.parametrize("lanes", cc.LANES)
+@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+def test_record_kernel_is_bitwise_the_particle_kernel(operands, name, lanes,
+                                                      reduction, order):
+    """At every unroll, the record kernel on the step's operand and slots
+    (in the list's order, cell-major, or shuffled): within BAR of the plain
+    executor, two launches bitwise equal, and bitwise equal to the
+    particle-list kernel at the same (width, reduction): the same pairs
+    in the same order through the same float operations. Each call counts
+    one pack and one walk; with records handed in, the walk alone."""
+    _, fl, bd, dims, dims_b, islots = operands[name]
+    lst = _order(islots, dims, order)
+    want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
+    part = cc.particle_pass_cuda(name, fl, bd, lst, dims, dims_b, CFG,
+                                 lanes=lanes, reduction=reduction)
+    recs = cc.pack_records(name, fl, bd, dims, dims_b, CFG)
+    scale = float(want.abs().max())
+    for unroll in cc.UNROLLS:
+        n0 = dict(cc.LAUNCHES)
+        got = cc.record_pass_cuda(name, fl, bd, lst, dims, dims_b, CFG,
+                                  lanes=lanes, reduction=reduction,
+                                  unroll=unroll)
+        again = cc.record_pass_cuda(name, fl, bd, lst, dims, dims_b, CFG,
+                                    lanes=lanes, reduction=reduction,
+                                    unroll=unroll, records=recs)
+        torch.cuda.synchronize()
+        assert cc.LAUNCHES[f"pack_{name}"] == n0[f"pack_{name}"] + 1
+        assert cc.LAUNCHES[f"record_{name}"] == n0[f"record_{name}"] + 2
+        assert torch.equal(got, again)
+        assert bool(torch.isfinite(got).all()) and bool(got.any())
+        torch.testing.assert_close(got, want, rtol=BAR, atol=BAR * scale)
+        assert torch.equal(got, part), unroll
+
+
+@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+def test_record_kernel_writes_only_listed_slots(operands, name):
+    """Invalid particles (slot K*G) leave their slots 0 and the others as
+    with the whole list; an empty list gives an all-zero output."""
+    _, fl, bd, dims, dims_b, islots = operands[name]
+    full = cc.record_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG)
+    kg = dims.k * dims.g
+    drop = torch.arange(0, islots.shape[0], 3, device=islots.device)
+    cut = islots.clone()
+    cut[drop] = kg
+    part = cc.record_pass_cuda(name, fl, bd, cut, dims, dims_b, CFG
+                               ).reshape(full.shape[0], -1)
+    full = full.reshape(full.shape[0], -1)
+    gone = islots[drop]
+    gone = gone[gone < kg]
+    assert gone.numel() > 0
+    assert not bool(part[:, gone].any())
+    kept = cut[cut < kg]
+    assert torch.equal(part[:, kept], full[:, kept])
+    empty = cc.record_pass_cuda(name, fl, bd, islots[:0], dims, dims_b, CFG)
+    assert not bool(empty.any())
+
+
+@pytest.mark.parametrize("unroll", cc.UNROLLS)
+@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+def test_record_kernel_on_full_and_empty_cells(dev, name, unroll):
+    """Cells full to K (and Kb) hold no padding record to stop a batch of
+    the walk, empty ones stop it at their first record, and the ghost ring
+    holds particles: within BAR of the plain executor at every listed slot,
+    0 elsewhere, and bitwise the particle-list kernel, at every variant."""
+    fl, bd, islots, dims, dims_b = _full_and_empty_cells(dev, name)
+    if not pp.PASSES[name].has_bd:
+        bd, dims_b = None, None
+    want = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
+    for lanes, red in cc.variants(name):
+        part = _particles_vs(name, fl, bd, islots, dims, dims_b, lanes, red,
+                             want)
+        got = cc.record_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                  lanes=lanes, reduction=red, unroll=unroll)
+        assert torch.equal(got, part), (lanes, red)
+
+
+@pytest.fixture(scope="module")
+def record_window_operands(dev):
+    """For each record pass: the whole box's operands from one step of its
+    solver (surface: DFSPH; surface_pressure: WCSPH) after 3 frames of the
+    block, and the BoxIndex, full boundary grid and dims that
+    ops/box.slab_window cuts a block's window from."""
+    got = {}
+    for name, solver in (("surface", "dfsph"), ("surface_pressure", "wcsph")):
+        sim = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
+                           device=dev)
+        sim.run(3)
+        calls = {}
+
+        def record(n, fl, bd, dims, dims_b, cfg, islots=None):
+            calls.setdefault(n, (fl, bd, dims, dims_b, islots))
+            return pp.column_pass_plain(n, fl, bd, dims, dims_b, cfg)
+        full, full_b = sim._dims()
+        ds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, CFG, CFG.dt,
+                               full, full_b, sim.box, executor=record)
+        box = DenseDims(*sim.box, full.k)
+        idx = bxm.build_box_index(sim.state.pos, CFG, full, box)
+        got[name] = calls[name] + (idx, sim.scene.bd, full, box,
+                                   DenseDims(*sim.box, full_b.k))
+    return got
+
+
+@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
+@pytest.mark.parametrize("lanes", cc.LANES)
+@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+def test_record_kernel_on_a_2x2_window(record_window_operands, name, lanes,
+                                       reduction):
+    """On each block of a 2x2 mesh, the window ops/box.slab_window cuts
+    (the list the step hands the pass there: surface the window's
+    cell-major list, surface_pressure its slots in the particles' order;
+    surface_pressure's boundary window) with the fluid grid's window,
+    ghost cells refreshed: the record kernel, packing the window, is
+    bitwise the particle-list kernel on it, 0 at every slot it does not
+    list, at the block's own particles bitwise the record kernel on the
+    whole box, as the mesh needs, and so within BAR of the plain executor
+    on the window, the bar's row max being the whole box's (a block lists
+    as few as a dozen particles, too few for its own row max to scale the
+    bar)."""
+    fl, bd, dims, dims_b, islots, idx, full_bd, full, box, box_b = \
+        record_window_operands[name]
+    work = name != "surface_pressure"
+    assert torch.equal(idx.work if work else idx.slots, islots)
+    whole = cc.record_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG,
+                                lanes=lanes, reduction=reduction)
+    whole = whole.reshape(whole.shape[0], -1)
+    scale = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG).reshape(
+        whole.shape[0], -1).abs().amax(1)
+    kg = dims.k * dims.g
+    seen = 0
+    for r in range(4):
+        mesh = tmesh.Mesh(None, r, 4, fl.device, None, tmesh.AXES_2D, (2, 2))
+        slab = halo.make_slab(mesh, box.cx, box.cz)
+        if slab.empty:
+            continue
+        lslots, lwork, ldims, ldims_b, lbd = bxm.slab_window(
+            idx, full_bd, full, box, box_b, slab)
+        lst = lwork if work else lslots
+        lfl = _window(fl, slab, dims)
+        if bd is None:
+            lbd, ldims_b = None, None
+        else:
+            assert torch.equal(lbd, _window(bd, slab, dims_b))
+        got = cc.record_pass_cuda(name, lfl, lbd, lst, ldims, ldims_b, CFG,
+                                  lanes=lanes, reduction=reduction)
+        part = cc.particle_pass_cuda(name, lfl, lbd, lst, ldims, ldims_b, CFG,
+                                     lanes=lanes, reduction=reduction)
+        assert torch.equal(got, part)
+        # the window's list maps the whole box's elementwise
+        own = lst < ldims.k * ldims.g
+        flat = got.reshape(got.shape[0], -1)
+        assert torch.equal(flat[:, lst[own]], whole[:, islots[own]])
+        rest = torch.ones(flat.shape[1], dtype=torch.bool, device=fl.device)
+        rest[lst[own]] = False
+        assert not bool(flat[:, rest].any())
+        want = pp.column_pass_plain(name, lfl, lbd, ldims, ldims_b, CFG
+                                    ).reshape(flat.shape)
+        for row in range(flat.shape[0]):
+            torch.testing.assert_close(
+                flat[row, lst[own]], want[row, lst[own]], rtol=BAR,
+                atol=BAR * float(scale[row]))
+        seen += int(own.sum())
+    assert seen == int((islots < kg).sum())
+
+
+def test_record_wrappers_refuse_on_the_card(operands):
+    """On CUDA tensors too, a pass without a record kernel, an unroll,
+    width or reduction the kernel lacks, and a slot list on another device
+    are refused before anything launches."""
+    _, fl, bd, dims, dims_b, islots = operands["surface_pressure"]
+    _, dfl, _, ddims, _, _ = operands["divergence"]
+    before = dict(cc.LAUNCHES)
+    with pytest.raises(ValueError, match="no record kernel"):
+        cc.pack_records("divergence", dfl, bd, ddims, dims_b, CFG)
+    with pytest.raises(ValueError, match="unroll 8 is not one of"):
+        cc.record_pass_cuda("surface_pressure", fl, bd, islots, dims,
+                            dims_b, CFG, unroll=8)
+    with pytest.raises(ValueError, match="lanes 4 is not one of"):
+        cc.record_pass_cuda("surface_pressure", fl, bd, islots, dims,
+                            dims_b, CFG, lanes=4)
+    with pytest.raises(ValueError, match="islots is on cpu"):
+        cc.record_pass_cuda("surface_pressure", fl, bd, islots.cpu(), dims,
+                            dims_b, CFG)
+    with pytest.raises(ValueError, match="a boundary operand"):
+        cc.record_pass_cuda("surface_pressure", fl, None, islots, dims, None,
+                            CFG)
+    # records of another pass, or packed on the CPU, are refused too
+    _, sfl, _, sdims, _, _ = operands["surface"]
+    recs = cc.pack_records_plain("surface_pressure", fl, bd, CFG)
+    other = cc.pack_records("surface", sfl, None, sdims, None, CFG)
+    before = dict(cc.LAUNCHES)
+    with pytest.raises(ValueError, match=r"records\.(geo|side) has shape"):
+        cc.record_pass_cuda("surface_pressure", fl, bd, islots, dims,
+                            dims_b, CFG, records=other)
+    with pytest.raises(ValueError, match="records.geo is on cpu"):
+        cc.record_pass_cuda("surface_pressure", fl, bd, islots, dims,
+                            dims_b, CFG,
+                            records=cc.Records(*(t.cpu() for t in recs)))
+    assert cc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+def test_record_kernel_replays_from_a_cuda_graph(operands, name):
+    """The pack and the walk allocate on the current stream and never
+    sync, so a CUDA graph holds both: its replay gives the eager output
+    bitwise, and utils.check.time_graph_ms leaves the launch counts."""
+    from cpp_fluid_particles_tpu_torch.utils.check import time_graph_ms
+    _, fl, bd, dims, dims_b, islots = operands[name]
+    eager = cc.record_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cc.record_pass_cuda(name, fl, bd, islots, dims, dims_b, CFG)
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    before = dict(cc.LAUNCHES)
+    assert time_graph_ms(lambda: cc.record_pass_cuda(
+        name, fl, bd, islots, dims, dims_b, CFG), 5) > 0
     assert cc.LAUNCHES == before

@@ -43,6 +43,19 @@ torch.set_num_threads(2)
      "namespace)::XsphColorgradPass>(...)", "column_xsph_colorgrad"),
     ("void (anonymous namespace)::column_pass_kernel<(anonymous "
      "namespace)::SurfacePass>(...)", "column_surface"),
+    ("void (anonymous namespace)::record_pass_kernel<(anonymous "
+     "namespace)::SurfacePressurePass, 8, false, 2>((anonymous namespace)::"
+     "Records<(anonymous namespace)::SurfacePressurePass>, long const*, "
+     "float*, int, int, int, int, int, int, (anonymous namespace)::Consts)",
+     "record_surface_pressure"),
+    ("void (anonymous namespace)::record_pass_kernel<(anonymous "
+     "namespace)::SurfacePass, 8, true, 1>(...)", "record_surface"),
+    ("void (anonymous namespace)::pack_kernel<(anonymous "
+     "namespace)::SurfacePressurePass>(float const*, float const*, float4*, "
+     "(anonymous namespace)::SurfacePressurePass::J*, float4*, int, int, "
+     "long, (anonymous namespace)::Consts)", "pack_surface_pressure"),
+    ("void (anonymous namespace)::pack_kernel<(anonymous "
+     "namespace)::SurfacePass>(...)", "pack_surface"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
     ("Memset (Device)", "other"),
 ])
