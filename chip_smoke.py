@@ -8,8 +8,9 @@ particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
 surface_pressure, density_colorgrad_visc, xsph_colorgrad,
 density_alpha_colorgrad, density_visc, pressure_force, density_alpha,
 viscosity, surface, xsph and the scene build's density, and the
-cell-packed record kernel and its pack that run surface and
-surface_pressure on the main path (so no path launches the column kernel),
+cell-packed record kernel and its pack that run surface, surface_pressure
+and xsph_colorgrad on the main path (so no path launches the column
+kernel),
 against the plain torch executor on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
@@ -48,11 +49,12 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               against the plain executor and column_pass_kernel at the
               same bar, two launches bitwise (and whether the transpose
               reduction is bitwise equal to the butterfly at the same
-              width). surface and surface_pressure also through the
-              record kernel: its pack bitwise equal to pack_records_plain,
-              the walk at each variant and unroll against the plain
-              executor at the bar and bitwise equal to the particle-list
-              kernel at the same variant
+              width). surface, surface_pressure and xsph_colorgrad also
+              through the record kernel: its pack bitwise equal to
+              pack_records_plain on the records a walk reads, the walk at
+              each variant and unroll against the plain executor at the
+              bar and bitwise equal to the particle-list kernel at the
+              same variant
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps; for WCSPH and DFSPH also with
@@ -73,8 +75,9 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
               projection with its exact all-lambda-zero exit):
               particle_pbd_lambda == particle_stiffness_accel == the sum
-              of the frames' iterations, particle_xsph_colorgrad ==
-              pack_surface == record_surface == the frames run
+              of the frames' iterations, pack_xsph_colorgrad ==
+              record_xsph_colorgrad == pack_surface == record_surface ==
+              the frames run
   5d. pbd_default  ``Simulation(device="cuda")`` as constructed (PBD in
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
@@ -100,16 +103,19 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               backwards, column kernel (best of two each), every
               rung timed by CUDA events around 50 calls and by a CUDA graph
               of 50 calls (the device's time alone); surface (on DFSPH's
-              state and on PBD's) and surface_pressure add the record
-              kernel's rungs, its pack included: each variant at the
-              default unroll, the default variant at the other unrolls and
-              on the other order, then the pack alone and the walk alone,
-              and a line saying whether the record kernel's default beat
-              the particle-list kernel's in both ladder passes; then
-              divergence once
-              more on the 1M recipe's one-device state after its warm-up
-              frame, against plain, in cell-major order and in the
-              particles', in turns
+              state and on PBD's), surface_pressure and xsph_colorgrad add
+              the record kernel's rungs, its pack included: each variant
+              at each unroll, the default on the other order, then the
+              pack alone and the walk alone, a line with the record
+              kernel's default beside the particle-list kernel's in both
+              ladder passes and the pack's bytes against its bound, and
+              the adoption rule's verdict (the record kernel keeps the
+              pass only if its best rung beats the particle-list kernel's
+              best rung in both passes by more than the gap between
+              them); then on the 1M recipe's one-device
+              state after its warm-up frame divergence once more, against
+              plain, in cell-major order and in the particles', in turns,
+              and density_alpha_colorgrad held as in phase 3 and laddered
   7. flat     the flat-grid prototype's entry point
               (cpp_fluid_particles_tpu_torch/exp/flat_pallas_proto.py): the
               state after 150 WCSPH frames of the dam on a K = 24
@@ -206,17 +212,14 @@ MESH_1M = "dfsph-fast:scaled1000000:3"
 MESH_DAM = ("wcsph:dam:100", "pbd:dam:100")
 MESH_2D = "2x2"          # the (gx, gz) mesh of run (d)
 MESH_TIMEOUT = 420       # seconds for one run of the per-rank entry point
-# the particle-list kernels each solver's mesh path must launch on every
-# rank (particle_density: the scene build's)
-MESH_KERNELS = {
-    "dfsph": ("particle_density", "particle_density_alpha_colorgrad",
-              "particle_divergence", "particle_stiffness_accel",
-              "particle_viscosity", "pack_surface", "record_surface"),
-    "wcsph": ("particle_density", "particle_density_colorgrad_visc",
-              "pack_surface_pressure", "record_surface_pressure"),
-    "pbd": ("particle_density", "particle_pbd_lambda",
-            "particle_stiffness_accel", "particle_xsph_colorgrad",
-            "pack_surface", "record_surface")}
+# the passes each solver's mesh path must launch on every rank, each
+# through its path's kernel (``launched``; density: the scene build's)
+MESH_PASSES = {
+    "dfsph": ("density", "density_alpha_colorgrad", "divergence",
+              "stiffness_accel", "viscosity", "surface"),
+    "wcsph": ("density", "density_colorgrad_visc", "surface_pressure"),
+    "pbd": ("density", "pbd_lambda", "stiffness_accel", "xsph_colorgrad",
+            "surface")}
 CHUNK = 25
 STEP_POS_ATOL = 2e-6
 STEP_VEL_ATOL = 2e-3
@@ -241,6 +244,9 @@ PAIR_FLOPS = {"density": (10, 10), "density_colorgrad_visc": (46, 30),
               "pbd_lambda": (38, 38), "xsph_colorgrad": (40, 28),
               "xsph": (20, 0), "color_gradient": (28, 28),
               "density_colorgrad": (30, 30)}
+# operations per real slot of a record pass's j side (csrc/column_pass.cu
+# P::side): |cg|^2 5; and p / max(eps, rho^2) 3; m / rho0 1
+SIDE_FLOPS = {"surface": 5, "surface_pressure": 8, "xsph_colorgrad": 1}
 # instances that no step runs, in either package: held in phases 3 and 6
 # on the PBD path's own [pos3, mass] operands, never launched by a path
 OFF_PATH = {name: "no step runs it; held on the PBD path's [pos3, mass] "
@@ -409,28 +415,36 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
 
 def compare_records(tag, name, fl, bd, dims, dims_b, islots, cfg, want,
                     outs, cc, torch, errs):
-    """The pack kernel bitwise against its plain version (two packs bitwise
-    equal), then the record kernel at each (group width, reduction) of
-    ``cc.variants(name)`` and each unroll of ``cc.UNROLLS``: two launches
-    bitwise, within the bar of the plain executor ``want``, and bitwise
-    equal to the particle-list kernel's ``outs`` at the same variant
-    (errors kept as ``record_<name>``; the pack's as ``pack_<name>``)."""
+    """The pack kernel bitwise against its plain version on the records a
+    walk reads (``cc.walked``; two packs bitwise equal there), then the
+    record kernel at each (group width, reduction) of ``cc.variants(name)``
+    and each unroll of ``cc.UNROLLS``: two launches bitwise, within the bar
+    of the plain executor ``want``, and bitwise equal to the particle-list
+    kernel's ``outs`` at the same variant (errors kept as
+    ``record_<name>``; the pack's as ``pack_<name>``)."""
     from cpp_fluid_particles_tpu_torch.utils.check import row_errors
     packs = [cc.pack_records(name, fl, bd, dims, dims_b, cfg)
              for _ in range(2)]
     plain = cc.pack_records_plain(name, fl, bd, cfg)
     torch.cuda.synchronize()
-    for a, b, c in zip(*packs, plain):
-        if a is None and b is None and c is None:
-            continue
-        if not (torch.equal(a, b) and torch.equal(a, c)):
+    real, first = cc.walked(fl[0])
+    read = [real | first, real]
+    if bd is not None:
+        read.append(torch.logical_or(*cc.walked(bd[0])))
+    for a, b, c, m in zip(*packs, plain, read):
+        a, b, c = a[m], b[m], c[m]
+        if not (torch.equal(a, b) and torch.equal(a, c)
+                and bool(torch.isfinite(c).all())):
             raise AssertionError(f"{tag} pack {name}: two packs differ or "
-                                 "differ from pack_records_plain")
+                                 "differ from pack_records_plain on the "
+                                 "records a walk reads")
     note_err(errs, f"pack_{name}", 0.0, 0.0)
     kb = dims_b.k if dims_b is not None else 0
-    log("kernel", f"{tag} pack {name} K={dims.k} Kb={kb}: records "
-        f"({dims.g * dims.k} fluid, {dims.g * kb} boundary) bitwise equal to "
-        "pack_records_plain; bitwise_repeat=yes")
+    log("kernel", f"{tag} pack {name} K={dims.k} Kb={kb}: the records a "
+        f"walk reads ({int(read[0].sum())} of {dims.g * dims.k} fluid, "
+        + (f"{int(read[2].sum())} of {dims.g * kb} boundary"
+           if bd is not None else "no boundary")
+        + ") bitwise equal to pack_records_plain; bitwise_repeat=yes")
     for lanes, red in cc.variants(name):
         errs_u = []
         for unroll in cc.UNROLLS:
@@ -650,7 +664,7 @@ def pbd_checks(st, cfg, off=False):
     want = {"particle_pbd_lambda": n, "particle_stiffness_accel": n}
     want.update({"particle_xsph": frames_run} if off else
                 dict(launched("surface", frames_run),
-                     particle_xsph_colorgrad=frames_run))
+                     **launched("xsph_colorgrad", frames_run)))
     expect_launches(st, want)
     if not (min(it) >= 1 and max(it) <= cfg.pbd_max_iter):
         raise AssertionError(f"PBD iterations out of bounds: "
@@ -843,21 +857,19 @@ def record_rung(lanes, red, unroll, order=None, walk=False):
 
 def record_rungs(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
     """The record kernel's rungs of pass ``name``: at each (group width,
-    reduction) of ``cc.variants(name)`` at its default unroll, at its
-    default (width, reduction) at the other unrolls, each with the pack
-    included, on ``islots``; the default on ``alt``'s list where given;
-    the pack alone; the walk alone at the default -> [(key, fn)]."""
+    reduction) of ``cc.variants(name)`` and each unroll of ``cc.UNROLLS``,
+    each with the pack included, on ``islots``; the default on ``alt``'s
+    list where given; the pack alone; the walk alone at the default ->
+    [(key, fn)]."""
     lanes, red, unroll = cc.RECORD_DEFAULTS[name]
 
     def record(lanes, red, unroll, lst, recs=None):
         return lambda: cc.record_pass_cuda(
             name, fl, bd, lst, dims, dims_b, cfg, lanes=lanes, reduction=red,
             unroll=unroll, records=recs)
-    out = [(record_rung(w, r, unroll), record(w, r, unroll, islots))
-           for r in cc.REDUCTIONS for w in sorted(cc.LANES)
-           if (w, r) in cc.variants(name)]
-    out += [(record_rung(lanes, red, u), record(lanes, red, u, islots))
-            for u in cc.UNROLLS if u != unroll]
+    out = [(record_rung(w, r, u), record(w, r, u, islots))
+           for u in cc.UNROLLS for r in cc.REDUCTIONS
+           for w in sorted(cc.LANES) if (w, r) in cc.variants(name)]
     if alt is not None:
         out.append((record_rung(lanes, red, unroll, alt[0]),
                     record(lanes, red, unroll, alt[1])))
@@ -867,6 +879,48 @@ def record_rungs(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
     out.append((record_rung(lanes, red, unroll, walk=True),
                 record(lanes, red, unroll, islots, recs)))
     return out
+
+
+def adoption(name, graph, cc):
+    """The rule that picks the kernel of a pass of ``cc.RECORD_IDS`` from
+    its ladder's graph ms (two ladder passes a rung, on the path's list):
+    the record kernel's best rung, its pack included, keeps the pass only
+    if it beats the particle-list kernel's best rung in both passes by
+    more than the gap between those two passes (the larger of the two
+    rungs' pass-to-pass spreads); and whether that particle-list rung beats
+    the particle-list kernel's default in both passes -> a record."""
+    def best(keys):
+        k = min(keys, key=lambda key: min(graph[key]))
+        return k, graph[k]
+    rk, rt = best([record_rung(w, r, u) for w, r in cc.variants(name)
+                   for u in cc.UNROLLS])
+    pk, pt = best([rung(w, r) for w, r in cc.variants(name)])
+    dk = rung(cc.default_lanes(name), cc.default_reduction(name))
+    gap = max(abs(rt[0] - rt[1]), abs(pt[0] - pt[1]))
+    return {"record_best": rk, "record_best_graph_ms": rt,
+            "particle_best": pk, "particle_best_graph_ms": pt,
+            "particle_default": dk, "particle_default_graph_ms": graph[dk],
+            "gap_ms": gap,
+            "record_keeps_the_pass": all(a < b - gap for a, b in zip(rt, pt)),
+            "particle_best_beats_its_default": pk != dk and all(
+                a < b for a, b in zip(pt, graph[dk]))}
+
+
+def adoption_line(tkey, ad, card):
+    """One line of ``adoption``'s verdict."""
+    def ms(v):
+        return "/".join(f"{x:.4f}" for x in v)
+    return (f"{tkey} adoption: record best {ad['record_best']} "
+            f"{ms(ad['record_best_graph_ms'])} against particle-list best "
+            f"{ad['particle_best']} {ms(ad['particle_best_graph_ms'])} graph "
+            f"ms per ladder pass, gap {ad['gap_ms']:.4f}: the record kernel "
+            f"keeps the pass: "
+            f"{'yes' if ad['record_keeps_the_pass'] else 'no'};"
+            f" particle-list best against its default "
+            f"{ad['particle_default']} {ms(ad['particle_default_graph_ms'])}: "
+            f"faster in both: "
+            f"{'yes' if ad['particle_best_beats_its_default'] else 'no'} | "
+            f"{card}")
 
 
 def time_ladder(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
@@ -977,20 +1031,21 @@ def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None,
                                   gbest, cc))
             key = record_rung(t["record_lanes"], t["record_reduction"],
                               t["record_unroll"])
-            wins = [a < b for a, b in zip(graph[key],
-                                          graph[rung(lanes, red)])]
-            t["record_wins_both_passes"] = all(wins)
+            t["adoption"] = adoption(name, graph, cc)
+            log("timing", adoption_line(tkey, t["adoption"], card))
             pk = t["pack"]
             log("timing", f"{tkey} record kernel at its default {key} "
                 f"(pack included) against the particle-list kernel's "
                 f"{rung(lanes, red)}, graph ms per ladder pass: "
                 + ", ".join(f"{a:.4f} vs {b:.4f}" for a, b in zip(
                     graph[key], graph[rung(lanes, red)]))
-                + f" (faster in both: {'yes' if all(wins) else 'no'}); "
-                f"walk alone {t['walk_graph_ms']:.4f}; pack "
+                + f"; walk alone {t['walk_graph_ms']:.4f}; pack "
                 f"{pk['ms']:.4f} / {pk['graph_ms']:.4f} ms (events / graph), "
                 f"plain {pk['plain_ms']:.4f}, bound {pk['bound_ms']:.4f} by "
-                f"{pk['bound_by']} ({pk['bytes']} B) | {card}")
+                f"{pk['bound_by']} ({pk['bytes']} B; an estimate from the "
+                f"access pattern, not measured: the pack moves "
+                f"{pk['modelled_bytes']} B, "
+                f"{pk['modelled_bytes'] / pk['bytes']:.2f}x) | {card}")
         on = f" on the path's list ({order})" if order else ""
         then = f", the default on {alt[0]}" if alt is not None else ""
         log("timing", f"{tkey} ladder N={islots.shape[0]} K={dims.k} Kb={kb}"
@@ -1016,19 +1071,27 @@ def record_times(name, fl, bd, dims, dims_b, cfg, alt, best, gbest, cc):
     the operand's real slots and probes read once (``operand_bytes``), and
     written once the {x, y, z, m} record of each real slot and probed
     padding slot and the j side of each real slot, the same for the
-    boundary's records; the j side's operations per real slot -> a
-    record."""
+    boundary's records; the j side's operations per real slot; and an
+    estimate of the bytes the pack moves, from its access pattern and not
+    measured (``modelled_bytes``) -> a record."""
     from cpp_fluid_particles_tpu_torch.utils.check import time_ms
     lanes, red, unroll = cc.RECORD_DEFAULTS[name]
     key = record_rung(lanes, red, unroll)
     plain = [time_ms(lambda: cc.pack_records_plain(name, fl, bd, cfg), 5)
              for _ in range(2)]
     real, probes = occupancy(fl)
-    nbytes = operand_bytes(fl) + 16 * (real + probes) \
-        + (4 if name == "surface" else 8) * real
+    written = 16 * (real + probes) + 4 * cc.SIDE_WIDTH[name] * real
+    nbytes = operand_bytes(fl) + written
+    # an estimate from the access pattern, not a measurement: row 0 of
+    # every slot, the other rows of the real slots, the records a walk reads
+    moved = 4 * (fl.shape[1] * fl.shape[2] + (fl.shape[0] - 1) * real) \
+        + written
     if bd is not None:
-        nbytes += operand_bytes(bd) + 16 * sum(occupancy(bd))
-    flops = (5 if name == "surface" else 8) * real
+        breal, bprobes = occupancy(bd)
+        nbytes += operand_bytes(bd) + 16 * (breal + bprobes)
+        moved += 4 * (bd.shape[1] * bd.shape[2] + (bd.shape[0] - 1) * breal) \
+            + 16 * (breal + bprobes)
+    flops = SIDE_FLOPS[name] * real
     t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
     rec = {"record_lanes": lanes, "record_reduction": red,
            "record_unroll": unroll, "record_ms": best[key],
@@ -1037,6 +1100,7 @@ def record_times(name, fl, bd, dims, dims_b, cfg, alt, best, gbest, cc):
                                               walk=True)],
            "pack": {"ms": best["pack"], "graph_ms": gbest["pack"],
                     "plain_ms": min(plain), "bytes": nbytes, "flops": flops,
+                    "modelled_bytes": moved,
                     "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "operations" if t_ops > t_bytes
                     else "bytes"}}
@@ -1077,20 +1141,25 @@ def operands(sim, ds, pp, bx, torch, name, dt) -> dict:
     return got
 
 
-def million_divergence(cfp, ds, pp, cc, torch, card):
+def million_sim(cfp):
+    """The 1M recipe's one-device DFSPH simulation (``scaled_dam_scene``,
+    fast mode) after the constructor's warm-up frame."""
+    cfg, pos = cfp.scaled_dam_scene(1_000_000)
+    return cfp.Simulation(solver="dfsph", cfg=cfg, fluid_pos=pos,
+                          device="cuda")
+
+
+def million_divergence(sim, cfp, ds, pp, cc, torch, card):
     """Phase 6 at scale: the first divergence pass of a DFSPH step from the
-    1M recipe's state after its warm-up frame (``scaled_dam_scene``, fast
-    mode, one device) at the pass's default variant, against the plain
-    executor and timed in turns on the work list and on the slots in the
-    particles' order (work, slots, slots, work; events and graph) -> a
-    record."""
+    1M recipe's state after its warm-up frame (``million_sim``) at the
+    pass's default variant, against the plain executor and timed in turns
+    on the work list and on the slots in the particles' order (work, slots,
+    slots, work; events and graph) -> a record."""
     from cpp_fluid_particles_tpu_torch.ops import box as bx
     from cpp_fluid_particles_tpu_torch.utils.check import (
         row_errors, time_graph_ms, time_ms)
     t0 = time.perf_counter()
-    cfg, pos = cfp.scaled_dam_scene(1_000_000)
-    sim = cfp.Simulation(solver="dfsph", cfg=cfg, fluid_pos=pos,
-                         device="cuda")
+    cfg = sim.cfg
     name = "divergence"
     op = operands(sim, ds, pp, bx, torch, name, cfp.BENCH_DT["dfsph"])
     fl, bd, dims, dims_b = (op[k] for k in ("fl", "bd", "dims", "dims_b"))
@@ -1124,6 +1193,40 @@ def million_divergence(cfp, ds, pp, cc, torch, card):
             for lst in order)
         + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
         f"({rec['pairs']} pairs, {rec['pairs_in_support']} in support); "
+        f"{rec['wall_s']:.1f} s | {card}")
+    return rec
+
+
+def million_ladder(sim, cfp, ds, pp, cc, torch, card):
+    """Phase 6 at scale for ``density_alpha_colorgrad``: its first call of
+    a step from the 1M recipe's state (``million_sim``), held as phase 3
+    holds it (the particle-list kernel at each variant against plain), then
+    its ladder (``time_ladder``: the column kernel, the particle-list
+    kernel's rungs on the work list and the default on the slots in the
+    particles' order) -> a record."""
+    name = "density_alpha_colorgrad"
+    from cpp_fluid_particles_tpu_torch.ops import box as bx
+    t0 = time.perf_counter()
+    cfg = sim.cfg
+    op = operands(sim, ds, pp, bx, torch, name, cfp.BENCH_DT["dfsph"])
+    fl, bd, dims, dims_b = (op[k] for k in ("fl", "bd", "dims", "dims_b"))
+    errs = {}
+    compare_passes("1M", [(name, fl, bd, dims, dims_b, op["work"])], cfg,
+                   pp, cc, torch, errs)
+    runs, graph = time_ladder(name, fl, bd, op["work"],
+                              ("slots", op["slots"]), dims, dims_b, cfg, cc)
+    rec = {"n": op["work"].shape[0], "K": dims.k, "Kb": dims_b.k,
+           "grid": [dims.gx, dims.gy, dims.gz], "errors": errs,
+           "ladder": runs, "ladder_graph": graph}
+    rec.update(pass_bound(pp, torch, name, fl, bd, dims, dims_b, cfg,
+                          pp.PASSES[name].n_out))
+    rec["wall_s"] = time.perf_counter() - t0
+    log("timing", f"{name} at the 1M recipe's state (N={rec['n']}, "
+        f"K={dims.k}, Kb={dims_b.k}, grid {dims.gx}x{dims.gy}x{dims.gz}) "
+        "ladder, best of two, events / graph ms: "
+        + "; ".join(f"{w} {min(runs[w]):.4f} / {min(graph[w]):.4f}"
+                    for w in runs)
+        + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}; "
         f"{rec['wall_s']:.1f} s | {card}")
     return rec
 
@@ -1416,7 +1519,8 @@ def mesh_launches(res, tag, ref=None):
     as in the single-device run ``ref`` where given; no column kernel."""
     m = res["meta"]
     solver = m["case"].split(":")[0].split("-")[0]
-    missing = [k for k in MESH_KERNELS[solver] if not m["launches"].get(k)]
+    missing = [k for name in MESH_PASSES[solver]
+               for k in launched(name, 1) if not m["launches"].get(k)]
     column = {k: v for k, v in m["launches"].items()
               if not k.startswith(("particle_", "pack_", "record_")) and v}
     if missing or column:
@@ -1586,7 +1690,8 @@ def kernel_row(name, paths, owner, errs, times, pp, cc):
                    pack_graph_ms=t["pack"]["graph_ms"],
                    lanes=t["record_lanes"], reduction=t["record_reduction"],
                    unroll=t["record_unroll"],
-                   wins_both_passes=t["record_wins_both_passes"])
+                   record_keeps_the_pass=t["adoption"][
+                       "record_keeps_the_pass"])
         if "record_other_order_graph_ms" in t:
             row["other_order_graph_ms"] = t["record_other_order_graph_ms"]
     if name in STATE:
@@ -1721,11 +1826,18 @@ def main(argv) -> int:
             times))
         del sim, res
 
-    # 6 at scale: divergence at the 1M recipe's state
-    record["divergence_1m"] = guard("divergence at 1M (phase 6)",
-                                    functools.partial(
-                                        million_divergence, cfp, ds, pp, cc,
-                                        torch, card))
+    # 6 at scale: divergence and density_alpha_colorgrad at the 1M
+    # recipe's state
+    big = guard("the 1M recipe's state (phase 6)",
+                functools.partial(million_sim, cfp))
+    if big is not None:
+        record["divergence_1m"] = guard(
+            "divergence at 1M (phase 6)", functools.partial(
+                million_divergence, big, cfp, ds, pp, cc, torch, card))
+        record["density_alpha_colorgrad_1m"] = guard(
+            "density_alpha_colorgrad at 1M (phase 6)", functools.partial(
+                million_ladder, big, cfp, ds, pp, cc, torch, card))
+        del big
 
     # 5d. the default: Simulation(device="cuda"), PBD in fast mode
     st = guard("pbd_default (phase 5d)", functools.partial(
@@ -1826,7 +1938,8 @@ def path_phase(cfp, ds, cc, torch, cfg, solver, phase, dt, card):
         # divergence iterations and 1 + 1 + >= 2 density iterations of
         # each); the column kernel launches nothing
         expect_launches(st, dict(launched("surface", frames_run),
-                                 particle_density_alpha_colorgrad=frames_run,
+                                 **launched("density_alpha_colorgrad",
+                                            frames_run),
                                  particle_viscosity=frames_run,
                                  particle_divergence=(5 * frames_run, None),
                                  particle_stiffness_accel=(5 * frames_run,

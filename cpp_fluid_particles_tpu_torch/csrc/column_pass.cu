@@ -51,18 +51,19 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
-// particle_pass_kernel (below) has fourteen instances and runs twelve on
+// particle_pass_kernel (below) has fourteen instances and runs eleven on
 // the main path: pbd_lambda, stiffness_accel, divergence,
-// density_colorgrad_visc, xsph_colorgrad, density_alpha_colorgrad, the
-// surface-off density_visc, pressure_force and density_alpha, the
-// fluid-only viscosity and (PBD with surface effects off) xsph, and the
-// scene build's density over the boundary grid. A group of lanes per
-// particle of the slot list splits that particle's 27-cell walk, and the
-// group's sums are reduced by an xor butterfly or, for passes with many
-// sums, a transpose reduction. record_pass_kernel (below) runs the other
-// two, surface_pressure and the fluid-only surface, in the same groups over
-// a cell-packed copy of the operand that pack_kernel writes once per call;
-// their particle-list instances stay as its bitwise yardstick. No path
+// density_colorgrad_visc, density_alpha_colorgrad, the surface-off
+// density_visc, pressure_force and density_alpha, the fluid-only
+// viscosity and (PBD with surface effects off) xsph, and the scene build's
+// density over the boundary grid. A group of lanes per particle of the
+// slot list splits that particle's 27-cell walk, and the group's sums are
+// reduced by an xor butterfly or, for passes with many sums, a transpose
+// reduction. record_pass_kernel (below) runs the other three,
+// surface_pressure, the fluid-only surface and xsph_colorgrad, in the same
+// groups over a cell-packed copy of the operand that pack_kernel writes
+// once per call; their particle-list instances stay as its bitwise
+// yardstick. No path
 // launches column_pass_kernel any more: it runs only as the yardstick of
 // those fourteen (the note above the particle template says why it is
 // slower) and for color_gradient and density_colorgrad, which nothing
@@ -611,28 +612,57 @@ __device__ __forceinline__ void xsph(float* acc, const PosVel& i,
 
 // XSPH viscosity + color field (pallas_passes.py:1377), PBD with surface
 // effects on: fl = [pos3, mass, vel3]. Outputs [dvx, dvy, dvz, numx, numy,
-// numz, den]; the boundary adds to the color field only.
+// numz, den]; the boundary adds to the color field only. J, a slot's j
+// side, is {vx, vy, vz, m / rho0}, the volume formed before it multiplies
+// as colorgrad forms it, so the pack (pack_kernel) forms it once per slot
+// and the other kernels per pair (side) with the same bits; the i side
+// takes its velocity from its own slot's J. The boundary's volume m_b /
+// rho_b stays a division per pair: its record is {x, y, z, m} alone.
 struct XsphColorgradPass {
   static constexpr int kOut = 7;
   static constexpr bool kBoundary = true;
   using I = PosVel;
+  using J = float4;
+  __device__ static J side(const float* f, int64_t t, int64_t kg,
+                           const Consts& c) {
+    return make_float4(f[4 * kg + t], f[5 * kg + t], f[6 * kg + t],
+                       __fdiv_rn(f[3 * kg + t], c.rho0));
+  }
+  __device__ static I make_i(float x, float y, float z, J j, const Consts&) {
+    return {x, y, z, j.x, j.y, j.z};
+  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
-                             const Consts&) {
-    return load_pos_vel(fl, t, kg);
+                             const Consts& c) {
+    return make_i(fl[t], fl[kg + t], fl[2 * kg + t], side(fl, t, kg, c), c);
+  }
+  __device__ static void terms(float* acc, const I& i, float mj, J j,
+                               float dx, float dy, float dz, float r,
+                               const Consts& c) {
+    const float w = w_cubic(r, c);
+    acc[0] += mj * (w * (j.x - i.vx));
+    acc[1] += mj * (w * (j.y - i.vy));
+    acc[2] += mj * (w * (j.z - i.vz));
+    const float cj = j.w * grad_w_cubic_coef(r, c);
+    acc[3] += cj * dx;
+    acc[4] += cj * dy;
+    acc[5] += cj * dz;
+    acc[6] += j.w * w;
   }
   __device__ static void fluid(float* acc, const I& i, const float* fl,
                                int64_t tj, int64_t kg, float dx, float dy,
                                float dz, float r, const Consts& c) {
-    const float mj = fl[3 * kg + tj];
-    const float w = w_cubic(r, c);
-    xsph(acc, i, fl, tj, kg, mj, w);
-    colorgrad(acc + 3, mj, c.rho0, w, grad_w_cubic_coef(r, c), dx, dy, dz);
+    terms(acc, i, fl[3 * kg + tj], side(fl, tj, kg, c), dx, dy, dz, r, c);
   }
-  __device__ static void bdry(float* acc, const I&, const float* bd,
+  __device__ static void bdry_terms(float* acc, const I&, float mb, float dx,
+                                    float dy, float dz, float r,
+                                    const Consts& c) {
+    colorgrad(acc + 3, mb, c.rho_b, w_cubic(r, c), grad_w_cubic_coef(r, c),
+              dx, dy, dz);
+  }
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
                               int64_t tj, int64_t kbg, float dx, float dy,
                               float dz, float r, const Consts& c) {
-    colorgrad(acc + 3, bd[3 * kbg + tj], c.rho_b, w_cubic(r, c),
-              grad_w_cubic_coef(r, c), dx, dy, dz);
+    bdry_terms(acc, i, bd[3 * kbg + tj], dx, dy, dz, r, c);
   }
 };
 
@@ -1083,43 +1113,60 @@ cudaError_t launch_lanes(int lanes, int reduction, A... a) {
   }
 }
 
-// --- the cell-packed record kernel (SurfacePass, SurfacePressurePass) ---
+// --- the cell-packed record kernel (SurfacePass, SurfacePressurePass,
+// XsphColorgradPass) ---
 //
 // Replaces the same TPU kernel, pallas_passes.py:107 `column_pass`, for
 // surface (:1013) and surface_pressure (:1316), the second traversal of
-// the PBD, DFSPH and WCSPH frames, in place of particle_pass_kernel on
-// those two instances. It computes what particle_pass_kernel computes: the
-// same slot list, groups of W lanes, offsets in m-order, slots in rank
-// order, float operations (the functors' terms and bdry_terms) and
-// reductions, so its output is bitwise that kernel's at the same (W,
-// reduction).
+// the PBD, DFSPH and WCSPH frames, and for xsph_colorgrad (:1377), PBD's
+// once-a-frame pass, in place of particle_pass_kernel on those
+// instances. It computes what particle_pass_kernel computes: the same slot
+// list, groups of W lanes, offsets in m-order, slots in rank order, float
+// operations (the functors' terms and bdry_terms) and reductions, so its
+// output is bitwise that kernel's at the same (W, reduction).
 //
 // What it changes is where the walk's loads come from. particle_pass_kernel
 // reads the operand's planes (row r of slot s of cell c at r*K*G + s*G + c):
 // per candidate x, y and z from three planes, three lines, the padding test
-// on x first; per pair in support mass and |cg|^2 (surface) or mass,
-// |cg|^2, rho and p (surface_pressure), four to six more lines, and
-// |cg|^2 and p / max(eps, rho^2) formed again for every i, some 30-40
+// on x first; per pair in support mass and the functor's j rows (|cg|^2's
+// three for surface, rho and p too for surface_pressure, vel3 for
+// xsph_colorgrad), up to six more lines, and the j side's arithmetic
+// (|cg|^2, p / max(eps, rho^2), m / rho0) again for every i, some 30-40
 // times per particle. Consecutive slots of a cell are G floats apart.
+// Where the functor reads only the mass, which the walk's row-0 test
+// already brings in, the records buy less than their pack costs:
+// density_alpha_colorgrad took 0.0512 ms through them against the
+// particle-list kernel's 0.0485, and 1.268 against 1.235 at 1M (PERF.md
+// section 6), so it has no record instance.
 //
 // pack_kernel, one launch per pass call on the operand as the executor
-// gets it (after a mesh's ghost exchange), writes a record of every
-// (cell, slot) of the grid, ghost cells and padding included, at c*K + s:
-// geo = {x, y, z, m} (a padding slot keeps x = POS_PAD), side = the pass's
-// J (P::side: |cg|^2, and for surface_pressure p / max(eps, rho^2)), and
-// for surface_pressure the boundary window's {x, y, z, m} at c*Kb + s.
-// The walk then reads per candidate one 16-byte record, which shares its
-// line with the cell's next slots, and per pair in support one 4- or 8-byte
-// J with no division. Its U-slot batches (U = 1 or 2) load the next
-// record before the padding test of the first: every slot below K holds a
-// record, so a batch needs no guard but s < K, and a walk does not wait on
-// one slot's test to issue the next slot's load. Batches of 4 lost to both
-// on every state (more registers, loads past the cell's last particle;
-// PERF.md section 6) and were dropped.
+// gets it (after a mesh's ghost exchange), over every (cell, slot) of the
+// grid, ghost cells included, writes the records the walk reads, at c*K +
+// s: for a real slot geo = {x, y, z, m} and side = the pass's J (P::side:
+// |cg|^2, {|cg|^2, p / max(eps, rho^2)} or {vx, vy, vz, m / rho0}); for
+// a cell's first padding slot, where every walk of the cell stops, geo =
+// {x, 0, 0, 0} with its POS_PAD x; and the boundary window's the same way
+// at c*Kb + s. It writes no other record (the
+// buffers come from torch.empty), and no walk reads one: a walk stops at
+// its cell's first padding slot, and a cell full to K has none. The walk
+// then reads per candidate one 16-byte record, which shares its line with
+// the cell's next slots, and per pair in support one 4- to 16-byte J with
+// no division. Its U-slot batches (U = 1 or 2) load the next record before
+// the padding test of the first, so a walk does not wait on one slot's
+// test to issue the next slot's load; a batch needs no guard but s < K.
+// Where the first of a batch is the cell's first padding slot, the second
+// is a record the pack did not write: its load is discarded, since the
+// walk returns at the first. Batches of 4 lost to both on every state
+// (more registers, loads past the cell's last particle; PERF.md section 6)
+// and were dropped.
 //
 // Bound: as particle_pass_kernel's, the chain of dependent loads per slot
-// (PERF.md section 6); the pack adds a read of the operand's rows and a
-// write of 24 bytes per slot (20 for surface), plus 16 per boundary slot.
+// (PERF.md section 6). The pack reads row 0 of every slot, once, and the
+// other rows of the real slots, and writes 16 bytes and the J of each real
+// slot and 16 bytes per cell that is not full: by an estimate from this
+// access pattern (not a measurement), 1.7-2.1x the bytes a walk needs of
+// it (the row-0 reads of empty slots); 3.1-4.1 us a call on the dam
+// (PERF.md section 6).
 
 // the records of one grid, each indexed c*K + s (boundary c*Kb + s)
 template <class P>
@@ -1129,29 +1176,46 @@ struct Records {
   const float4* bgeo;            // the boundary's {x, y, z, m}, or null
 };
 
-// one thread per record, the fluid's K*G, then (kBoundary) the
-// boundary's Kb*G: consecutive threads write consecutive records
+// slot s of cell `cell` of grid f (K slots a cell, G cells): a real slot's
+// {x, y, z, m} (and, kSide, its J), or {x, 0, 0, 0} at the cell's first
+// padding slot (slot 0, or the slot before it real), else nothing. Thread
+// (s, cell) reads row 0 of slot s and, at a padding slot, of slot s - 1:
+// both coalesce across the warp's consecutive cells.
+template <class P, bool kSide>
+__device__ __forceinline__ void pack_slot(const float* __restrict__ f,
+                                          float4* __restrict__ geo,
+                                          typename P::J* __restrict__ side,
+                                          int s, int64_t cell, int k,
+                                          int64_t g, const Consts& c) {
+  const int64_t kg = k * g;
+  const int64_t t = s * g + cell;
+  const int64_t rec = cell * k + s;
+  const float x = f[t];
+  if (x < c.pos_guard) {
+    geo[rec] = make_float4(x, f[kg + t], f[2 * kg + t], f[3 * kg + t]);
+    if constexpr (kSide) side[rec] = P::side(f, t, kg, c);
+  } else if (s == 0 || f[t - g] < c.pos_guard) {
+    geo[rec] = make_float4(x, 0.f, 0.f, 0.f);
+  }
+}
+
+// one thread per (slot, cell): blockIdx.y the slot, the fluid's K and
+// then (kBoundary) the boundary's Kb; consecutive threads take consecutive
+// cells of one slot plane
 template <class P>
 __global__ void __launch_bounds__(kThreads)
     pack_kernel(const float* __restrict__ fl, const float* __restrict__ bd,
                 float4* __restrict__ geo, typename P::J* __restrict__ side,
                 float4* __restrict__ bgeo, int k, int kb, int64_t g,
                 Consts c) {
-  const int64_t kg = k * g;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t < kg) {
-    const int64_t cell = t / k;
-    const int64_t ti = (t - cell * k) * g + cell;
-    geo[t] = make_float4(fl[ti], fl[kg + ti], fl[2 * kg + ti], fl[3 * kg + ti]);
-    side[t] = P::side(fl, ti, kg, c);
+  const int64_t cell =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= g) return;
+  const int s = static_cast<int>(blockIdx.y);
+  if (s < k) {
+    pack_slot<P, true>(fl, geo, side, s, cell, k, g, c);
   } else if constexpr (P::kBoundary) {
-    const int64_t kbg = kb * g;
-    const int64_t u = t - kg;
-    if (u >= kbg) return;
-    const int64_t cell = u / kb;
-    const int64_t ti = (u - cell * kb) * g + cell;
-    bgeo[u] = make_float4(bd[ti], bd[kbg + ti], bd[2 * kbg + ti],
-                          bd[3 * kbg + ti]);
+    pack_slot<P, false>(bd, bgeo, nullptr, s - k, cell, kb, g, c);
   }
 }
 
@@ -1159,9 +1223,11 @@ template <class P>
 cudaError_t launch_pack(const float* fl, const float* bd, void* geo,
                         void* side, void* bgeo, int k, int kb, int64_t g,
                         const Consts& c, cudaStream_t stream) {
-  const int64_t n = (k + (P::kBoundary ? kb : 0)) * g;
-  if (n == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const int slots = k + (P::kBoundary ? kb : 0);
+  if (g == 0 || slots == 0) return cudaSuccess;
+  if (slots > 65535) return cudaErrorInvalidValue;  // gridDim.y
+  const dim3 blocks(static_cast<unsigned>((g + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(slots));
   pack_kernel<P><<<blocks, kThreads, 0, stream>>>(
       fl, bd, static_cast<float4*>(geo),
       static_cast<typename P::J*>(side), static_cast<float4*>(bgeo), k, kb,
@@ -1196,7 +1262,9 @@ __device__ __forceinline__ bool separation(const I& iv, float xj, float yj,
 // One cell's records from base (its slot 0) up to the first padding slot
 // (ranks fill a cell from slot 0), U at a time: the fluid's through
 // P::terms with the slot's J, the boundary's (kFluid false) through
-// P::bdry_terms.
+// P::bdry_terms. A batch may load a record past the cell's first padding
+// slot, which the pack did not write: that load is discarded, since the
+// walk returns at the padding slot before it looks at the next.
 template <class P, bool kFluid, int U>
 __device__ __forceinline__ void walk_records(
     float* acc, const typename P::I& iv, const float4* __restrict__ geo,
@@ -1225,7 +1293,9 @@ __device__ __forceinline__ void walk_records(
 // particle_pass_kernel's groups over the records: islots names plane
 // slots s*G + c (the trash value K*G for an invalid particle), the i side
 // comes from record c*K + s, each lane walks its offsets' cells with
-// walk_records, and the sums are reduced and stored as there.
+// walk_records, and the sums are reduced and stored as there. The steps
+// list only slots that hold a particle (ops/box.py BoxIndex), whose
+// records the pack wrote.
 template <class P, int W, bool kTranspose, int U>
 __global__ void __launch_bounds__(kThreads)
     record_pass_kernel(Records<P> rec, const int64_t* __restrict__ islots,
@@ -1559,11 +1629,13 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
 }
 
 // The cell-packed records of pass ids 2 (surface_pressure: geo and side
-// (float2) from fl = [pos3, mass, rho, p, cg3], bgeo from bd) and 7
-// (surface: geo and side (float) from fl = [pos3, mass, cg3]; bd and bgeo
-// null, kb 0) of column_pass_launch, each record at c*K + s (boundary
-// c*Kb + s) of buffers the caller allocates. Returns a cudaError_t; any
-// other pass id is cudaErrorInvalidValue.
+// (float2) from fl = [pos3, mass, rho, p, cg3], bgeo from bd), 7 (surface:
+// geo and side (float) from fl = [pos3, mass, cg3]; bd and bgeo null, kb
+// 0) and 12 (xsph_colorgrad: side (float4) from fl = [pos3, mass, vel3],
+// bgeo from bd) of column_pass_launch, each record at c*K + s (boundary
+// c*Kb + s) of buffers the caller allocates; only the records a walk reads
+// are written (pack_kernel). Returns a cudaError_t; any other pass id, or
+// K + Kb over 65535, is cudaErrorInvalidValue.
 extern "C" int pack_records_launch(int pass_id, const float* fl,
                                    const float* bd, void* geo, void* side,
                                    void* bgeo, int k, int kb, int gx, int gy,
@@ -1582,17 +1654,21 @@ extern "C" int pack_records_launch(int pass_id, const float* fl,
     case 7:
       return launch_pack<SurfacePass>(fl, nullptr, geo, side, nullptr, k, 0,
                                       g, c, s);
+    case 12:
+      return launch_pack<XsphColorgradPass>(fl, bd, geo, side, bgeo, k, kb,
+                                            g, c, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The record kernel on pass ids 2 (surface_pressure) and 7 (surface) over
-// pack_records_launch's records, W = lanes in {8, 16, 32}, reduction 0 or
-// 1 as particle_pass_launch, U = unroll in {1, 2} slots a batch, over
-// the n particles of islots (plane slots as particle_pass_launch's). out
-// must be zeroed by the caller. Returns a cudaError_t; any other pass id,
-// width, reduction or unroll is cudaErrorInvalidValue.
+// The record kernel on pass ids 2 (surface_pressure), 7 (surface) and 12
+// (xsph_colorgrad) over pack_records_launch's records, W = lanes in {8,
+// 16, 32}, reduction 0 or 1 as particle_pass_launch, U = unroll in {1, 2}
+// slots a batch, over the n particles of islots (plane slots as
+// particle_pass_launch's). out must be zeroed by the caller. Returns a
+// cudaError_t; any other pass id, width, reduction or unroll is
+// cudaErrorInvalidValue.
 extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
                                   int unroll, const void* geo,
                                   const void* side, const void* bgeo,
@@ -1628,6 +1704,8 @@ extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
       return run(SurfacePressurePass{});
     case 7:
       return run(SurfacePass{});
+    case 12:
+      return run(XsphColorgradPass{});
     default:
       return cudaErrorInvalidValue;
   }

@@ -19,9 +19,10 @@ frame profiles do not compare; these operands do.
 kernels of the pass: the particle-list kernel (``particle_pass_cuda``) at
 its default and at each other (width, reduction) it takes, and, where the
 tree has it for the pass, the record kernel with its pack
-(``record_pass_cuda``) at its default. It holds each against the plain
-executor (max abs error) and the record kernel bitwise against the
-particle-list kernel at the same (width, reduction), then times them in
+(``record_pass_cuda``) at its default and its pack alone. It holds each
+kernel against the plain executor (max abs error) and the record kernel
+bitwise against the particle-list kernel at the same (width, reduction),
+then times them in
 turns (in order, then backwards, ...), each turn by one replay of a CUDA
 graph of ``--reps`` calls (``time_graph_ms``, the device alone) and by
 CUDA events around ``--reps`` calls (``time_ms``, the host's enqueueing
@@ -45,10 +46,12 @@ import torch
 from ..config import BENCH_DT, SimConfig, dam_break_config
 from ..ops.dense import DenseDims
 
-# (solver, pass): the two passes of the record kernel, surface on both
-# solvers that run it
+# (solver, pass): the passes given a record kernel (density_alpha_colorgrad
+# tried it and lost), surface on both solvers that run it, each on the
+# state of a solver that runs it
 CASES = (("wcsph", "surface_pressure"), ("dfsph", "surface"),
-         ("pbd", "surface"))
+         ("pbd", "surface"), ("pbd", "xsph_colorgrad"),
+         ("dfsph", "density_alpha_colorgrad"))
 CHUNK = 25
 
 
@@ -114,17 +117,18 @@ def load_case(path, device) -> dict:
 def save(out: Path, frames: int, device: str) -> None:
     from ..simulation import Simulation
     out.mkdir(parents=True, exist_ok=True)
-    for solver, name in CASES:
+    for solver in dict.fromkeys(s for s, _ in CASES):
         dt = BENCH_DT[solver]
         sim = Simulation(solver=solver, cfg=dam_break_config("parity"),
                          device=device)
         while sim.frame < frames:
             sim.run_scan(min(CHUNK, frames - sim.frame), dt)
-        case = capture(sim, name, dt)
-        save_case(out / f"{solver}_{name}.npz", case)
-        print(f"[pass_state] saved {solver} {name} after {sim.frame} "
-              f"frames: K {case['dims'].k}, {case['islots'].shape[0]} "
-              f"listed", flush=True)
+        for name in (n for s, n in CASES if s == solver):
+            case = capture(sim, name, dt)
+            save_case(out / f"{solver}_{name}.npz", case)
+            print(f"[pass_state] saved {solver} {name} after {sim.frame} "
+                  f"frames: K {case['dims'].k}, {case['islots'].shape[0]} "
+                  f"listed", flush=True)
 
 
 def card() -> str:
@@ -140,7 +144,7 @@ def time_case(case: dict, turns: int, reps: int) -> dict:
     kernel at its default; "particle <reduction> W<lanes>", the same at
     each other (width, reduction) it takes; "record", the record kernel at
     its default, pack included, held bitwise to the particle-list kernel
-    at the same (width, reduction)."""
+    at the same (width, reduction); "pack", its pack alone."""
     from ..ops import column_pass_cuda as cc
     from ..ops.passes import column_pass_plain
     from ..utils.check import time_graph_ms, time_ms
@@ -161,8 +165,10 @@ def time_case(case: dict, turns: int, reps: int) -> dict:
     if name in getattr(cc, "RECORD_IDS", ()):
         kernels["record"] = lambda: cc.record_pass_cuda(
             name, fl, bd, islots, dims, dims_b, cfg)
+        kernels["pack"] = lambda: cc.pack_records(name, fl, bd, dims, dims_b,
+                                                  cfg)
     want = column_pass_plain(name, fl, bd, dims, dims_b, cfg)
-    outs = {k: fn() for k, fn in kernels.items()}
+    outs = {k: fn() for k, fn in kernels.items() if k != "pack"}
     rec = {"pass": name, "K": dims.k, "listed": int(islots.shape[0]),
            "default": list(default),
            "max_abs_err": {k: float((o - want).abs().max())
@@ -199,7 +205,8 @@ def time_all(state: Path, turns: int, reps: int, tag: str,
                           + "/".join(f"{x:.4f}" for x in rec["graph_ms"][k])
                           + " events ms "
                           + "/".join(f"{x:.4f}" for x in rec["events_ms"][k])
-                          + f" max abs err {rec['max_abs_err'][k]:.3g}"
+                          + ("" if k not in rec["max_abs_err"] else
+                             f" max abs err {rec['max_abs_err'][k]:.3g}")
                           for k in rec["graph_ms"])
               + ("" if "record_bitwise" not in rec else
                  f"; record bitwise {rec['record_bitwise'][0]}: "

@@ -16,11 +16,12 @@ density_alpha, the fluid-only viscosity, surface and xsph, and the scene
 build's density) through the particle-list kernel, a group of ``LANES``
 lanes per particle of a slot list whose sums one of ``REDUCTIONS``
 combines, at the (width, reduction) pairs ``variants`` gives for the pass's
-sum count. ``record_pass_cuda`` runs surface and surface_pressure
-(``RECORD_IDS``) through the cell-packed record kernel: ``pack_records``
-(the pack kernel on a card, ``pack_records_plain`` on the CPU) writes one
-record per (cell, slot) of the operand, and the walk reads those records in
-the particle-list kernel's groups and order, bitwise its output.
+sum count. ``record_pass_cuda`` runs surface, surface_pressure and
+xsph_colorgrad (``RECORD_IDS``) through the cell-packed record kernel:
+``pack_records`` (the pack kernel on a card, ``pack_records_plain`` on the
+CPU) writes the records of the operand's (cell, slot)s that a walk reads
+(``walked``), and the walk reads them in the particle-list kernel's groups
+and order, bitwise its output.
 ``passes.column_pass`` sends the fourteen passes to one of the two on a
 card (``RECORD_IDS`` to the record kernel), so no path launches
 ``column_pass_cuda``: it stays the yardstick, and the executor of
@@ -105,10 +106,13 @@ LANES = (32, 8, 16)
 # against 1.799 at W 32 on the 1M recipe's state; density_colorgrad_visc
 # (WCSPH's, K 22) 0.0611 at W 8 (butterfly) against 0.0622 transposed and
 # 0.0747 at its former W 32 transposed (CUDA-graph ms, best of two, one
-# call; PERF.md section 6)
+# call; PERF.md section 6); density_alpha_colorgrad (DFSPH's, K 18) 0.0526
+# at W 16 transposed against 0.0553 at its former W 32 transposed (W 8,
+# butterfly only: 0.0558), and 1.414 against 1.929 on the 1M recipe's
+# state (W 8 there 1.232)
 PASS_LANES = {"surface_pressure": 8, "density_visc": 16,
               "pressure_force": 8, "divergence": 8,
-              "density_colorgrad_visc": 8}
+              "density_colorgrad_visc": 8, "density_alpha_colorgrad": 16}
 
 # how the particle-list kernel reduces a group's sums, as its template
 # argument kTranspose: "butterfly", xor adds of every sum at every step
@@ -150,13 +154,20 @@ PASS_REDUCTION = {"xsph_colorgrad": "transpose", "surface": "transpose",
                   "pressure_force": "transpose", "xsph": "transpose",
                   "density": "transpose"}
 
-# launches per pass instance, per particle-list instance (particle_<name>),
-# and per fluid-only instance of the prototype's bodies (flat_<body>: the
-# tiled kernel; untiled_<body>: column_pass_kernel); bumped once per
-# successful launch
 # pass name -> its id in pack_records_launch and record_pass_launch
 # (csrc/column_pass.cu): the passes the cell-packed record kernel serves
-RECORD_IDS = {"surface_pressure": 2, "surface": 7}
+# (density_alpha_colorgrad, whose functor reads only the mass, lost to its
+# particle-list kernel through the records: 0.0512 against 0.0485 ms on
+# DFSPH's 300-frame state, 1.268 against 1.235 at 1M; PERF.md section 6)
+RECORD_IDS = {"surface_pressure": 2, "surface": 7, "xsph_colorgrad": 12}
+
+# floats of a record pass's j side, P::J in csrc/column_pass.cu: |cg|^2;
+# |cg|^2 and p / max(eps, rho^2); vel3 and m / rho0
+SIDE_WIDTH = {"surface": 1, "surface_pressure": 2, "xsph_colorgrad": 4}
+
+# what pack_records_plain puts in a record that no walk reads, and the pack
+# kernel does not write
+UNWRITTEN = float("nan")
 
 # slots a batch of the record kernel's walk loads before it tests the
 # first for padding (batches of 4 lost to both on every dam state: PERF.md
@@ -173,10 +184,24 @@ UNROLLS = (1, 2)
 # 0.0639 at W 8 butterfly, unroll 2, in the particles' order (unroll 1
 # 0.0661, transposed 0.0649, cell-major 0.0672) against the particle-list
 # kernel's 0.0652 at its default, W 8 butterfly (0.0638 at W 8
-# transposed). Unroll 4 lost to both unrolls on every state.
+# transposed). Unroll 4 lost to both unrolls on every state. With the pack
+# writing only what a walk reads (the same card and timing, both ladder
+# passes): surface 0.0411 / 0.0409 at W 8 transposed, U 1, on DFSPH's
+# state at K 22 (best W 16 transposed, 0.0406 / 0.0404) and 0.0466 / 0.0468
+# on PBD's (the best), surface_pressure 0.0531 / 0.0530 (the best), and
+# xsph_colorgrad (PBD's, K 18) 0.0522 / 0.0524 at W 8 transposed, U 1
+# (butterfly 0.0520 / 0.0528, W 16 0.0558-0.0568, U 2 0.0581-0.0628)
+# against the particle-list kernel's best, 0.0557 / 0.0560 at W 8
+# transposed.
 RECORD_DEFAULTS = {"surface": (8, "transpose", 1),
-                   "surface_pressure": (8, "butterfly", 2)}
+                   "surface_pressure": (8, "butterfly", 2),
+                   "xsph_colorgrad": (8, "transpose", 1)}
 
+# launches per pass instance, per particle-list instance (particle_<name>),
+# per record instance's pack and walk (pack_<name>, record_<name>) and per
+# fluid-only instance of the prototype's bodies (flat_<body>: the tiled
+# kernel; untiled_<body>: column_pass_kernel); bumped once per successful
+# launch
 LAUNCHES = {name: 0 for name in PASS_IDS}
 LAUNCHES.update({f"particle_{name}": 0 for name in PARTICLE_PASSES})
 LAUNCHES.update({f"{kind}_{name}": 0 for kind in ("pack", "record")
@@ -418,16 +443,22 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
 
 class Records(NamedTuple):
     """The cell-packed records of one pass operand, slot s of cell c at
-    row c*K + s (boundary c*Kb + s)."""
+    row c*K + s (boundary c*Kb + s). Only the records a walk reads hold
+    values (``walked``); the pack kernel leaves the others unwritten."""
     geo: torch.Tensor             # (G*K, 4) [x, y, z, m]
-    side: torch.Tensor            # (G*K,) |cg|^2, or (G*K, 2) with p/rho^2
+    side: torch.Tensor            # (G*K,) or (G*K, SIDE_WIDTH[pass]): its J
     bgeo: Optional[torch.Tensor]  # (G*Kb, 4) the boundary's, or None
 
 
 def _side_plain(name: str, fl: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
-    """The slots' j side as the plain pass bodies form it (ops/passes.py
-    _surface_terms, _surface_pressure_terms): (1, K, G) |cg|^2, and for
-    surface_pressure (2, K, G) with p / max(eps, rho^2)."""
+    """The slots' j side (the kernel's P::J) as the plain pass bodies form
+    it (ops/passes.py): (SIDE_WIDTH[name], K, G). surface: |cg|^2;
+    surface_pressure: |cg|^2 and p / max(eps, rho^2); xsph_colorgrad: vel3
+    and m / rho0. The kernel divides by __fdiv_rn; torch on a card
+    multiplies by the reciprocal of a Python scalar, which is the same
+    quotient at the configs' rho0 of 1."""
+    if name == "xsph_colorgrad":
+        return torch.stack([fl[4], fl[5], fl[6], fl[3] / cfg.rho0])
     row = 4 if name == "surface" else 6
     c2 = fl[row] * fl[row] + fl[row + 1] * fl[row + 1] \
         + fl[row + 2] * fl[row + 2]
@@ -442,26 +473,59 @@ def _cell_major(x: torch.Tensor) -> torch.Tensor:
     return x.permute(2, 1, 0).reshape(-1, x.shape[0]).contiguous()
 
 
+def walked(x0: torch.Tensor):
+    """The records a walk reads of a grid whose row 0 is ``x0`` (K, G) ->
+    (real, first padding), (G*K,) bool in record order: every slot that
+    holds a particle, and each cell's first padding slot (slot 0 or the
+    slot after a real one), where every walk of the cell stops (ranks fill
+    a cell from slot 0). A cell full to K has no padding slot."""
+    real = x0 < POS_PAD / 2
+    before = torch.cat([torch.ones_like(real[:1]), real[:-1]])
+    return (real.T.reshape(-1).contiguous(),
+            (before & ~real).T.reshape(-1).contiguous())
+
+
+def _records_plain(x: torch.Tensor, side: Optional[torch.Tensor]):
+    """The records the pack kernel writes of grid x (rows, K, G): [x, y,
+    z, m] and the j side ``side`` (width, K, G) at a real slot, [x, 0, 0,
+    0] at a cell's first padding slot; every other record UNWRITTEN ->
+    (geo, side or None)."""
+    real, first = walked(x[0])
+    geo = torch.full((real.shape[0], 4), UNWRITTEN, dtype=x.dtype,
+                     device=x.device)
+    rows = _cell_major(x[:4])
+    geo[real] = rows[real]
+    geo[first, 0] = rows[first, 0]
+    geo[first, 1:] = 0.0
+    if side is None:
+        return geo, None
+    j = _cell_major(side)
+    j[~real] = UNWRITTEN
+    return geo, (j[:, 0].contiguous() if j.shape[1] == 1 else j)
+
+
 def pack_records_plain(name: str, fl: torch.Tensor,
                        bd: Optional[torch.Tensor], cfg: SimConfig) -> Records:
-    """The records of pass ``name`` (one of RECORD_IDS) in torch ops: what
-    the pack kernel writes, bitwise on a card (its |cg|^2 is rounded as
-    here, never contracted)."""
-    side = _cell_major(_side_plain(name, fl, cfg))
-    return Records(_cell_major(fl[:4]),
-                   side[:, 0].contiguous() if name == "surface" else side,
-                   None if bd is None else _cell_major(bd))
+    """The records of pass ``name`` (one of RECORD_IDS) in torch ops: on the
+    records ``walked`` names, what the pack kernel writes, bitwise on a card
+    (|cg|^2 rounded as here, never contracted; m / rho0 as
+    ``_side_plain`` forms it); UNWRITTEN in every other record, which the
+    kernel does not write."""
+    geo, side = _records_plain(fl, _side_plain(name, fl, cfg))
+    return Records(geo, side, None if bd is None else _records_plain(bd,
+                                                                     None)[0])
 
 
 def pack_records(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
                  dims: DenseDims, dims_b: Optional[DenseDims],
                  cfg: SimConfig) -> Records:
     """The cell-packed records of pass ``name`` (one of RECORD_IDS) from its
-    operand ``fl`` (Fi, K, G) and, for surface_pressure, the boundary
-    window ``bd`` (4, Kb, G), every (cell, slot) of the ghosted grid: on
-    the CPU ``pack_records_plain``; on a card the pack kernel, one launch
-    on the current stream into buffers from ``torch.empty`` (no sync, so a
-    CUDA graph can hold it), counted as ``pack_<name>``."""
+    operand ``fl`` (Fi, K, G) and, for a pass with a boundary term, the
+    boundary window ``bd`` (4, Kb, G), the records of the ghosted grid that
+    a walk reads (``walked``): on the CPU ``pack_records_plain``; on a card
+    the pack kernel, one launch on the current stream into buffers from
+    ``torch.empty`` (no sync, so a CUDA graph can hold it), the records no
+    walk reads left unwritten, counted as ``pack_<name>``."""
     fn = "pack_records"
     if name not in RECORD_IDS:
         raise ValueError(f"{fn}: pass {name!r} has no record kernel; one of "
@@ -482,8 +546,8 @@ def _pack(name, fl, bd_ptr, dims, kb, consts, stream) -> Records:
     """The pack kernel on checked operands."""
     n = dims.g * dims.k
     geo = torch.empty((n, 4), dtype=torch.float32, device=fl.device)
-    side = torch.empty((n,) if name == "surface" else (n, 2),
-                       dtype=torch.float32, device=fl.device)
+    side = torch.empty(_side_shape(name, n), dtype=torch.float32,
+                       device=fl.device)
     bgeo = None if bd_ptr is None else torch.empty(
         (dims.g * kb, 4), dtype=torch.float32, device=fl.device)
     err = _library().pack_records_launch(
@@ -498,14 +562,18 @@ def _pack(name, fl, bd_ptr, dims, kb, consts, stream) -> Records:
     return Records(geo, side, bgeo)
 
 
+def _side_shape(name: str, n: int) -> tuple:
+    """The shape of pass ``name``'s j-side records for n slots."""
+    return (n,) if SIDE_WIDTH[name] == 1 else (n, SIDE_WIDTH[name])
+
+
 def _check_records(fn: str, name: str, recs: Records, fl: torch.Tensor,
                    dims: DenseDims, dims_b: Optional[DenseDims]) -> None:
     """Check records handed to the walk against pass ``name``'s grids: the
     walk indexes them by the grids' K, Kb and G, so a pack of another pass,
     K or window would send it out of bounds."""
     n = dims.g * dims.k
-    want = {"geo": (n, 4), "side": (n,) if name == "surface" else (n, 2),
-            "bgeo": None}
+    want = {"geo": (n, 4), "side": _side_shape(name, n), "bgeo": None}
     if PASSES[name].has_bd:
         want["bgeo"] = (dims.g * (dims_b.k if dims_b is not None else 0), 4)
     for what, shape in want.items():
@@ -541,9 +609,14 @@ def record_pass_cuda(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
     them in), then the walk, a group of ``lanes`` lanes per particle of
     ``islots`` reduced by ``reduction`` as ``particle_pass_cuda`` takes
     them, loading ``unroll`` (one of UNROLLS; default the pass's in
-    RECORD_DEFAULTS) slots' records a batch. Returns
-    (n_out, K, G), zeroed by one memset before the walk, which writes only
-    the listed slots; the walk is counted as ``record_<name>``."""
+    RECORD_DEFAULTS) slots' records a batch. Every entry of ``islots``
+    must be a slot that holds a particle or the trash slot K*G, as the
+    steps' lists are (``BoxIndex.slots`` and ``.work``,
+    ``halo.slab_slots``): the walk takes its i side from the listed slot's
+    record, and the pack leaves the records of padding slots past a
+    cell's first unwritten. Returns (n_out, K, G), zeroed by one memset
+    before the walk, which writes only the listed slots; the walk is
+    counted as ``record_<name>``."""
     fn = "record_pass_cuda"
     if name not in RECORD_IDS:
         raise ValueError(f"{fn}: pass {name!r} has no record kernel; one of "

@@ -6,9 +6,11 @@ surface and xsph, and the scene build's density (at each group width and
 reduction the pass takes; the wrapper refuses the others; divergence and
 density_colorgrad_visc also on cells full to K and on empty ones, and on a
 2x2 block's window), the cell-packed record kernel and its pack that run
-surface and surface_pressure on the steps (at each width, reduction and
-unroll, in any order of the slot list, on full and empty cells and on a
-2x2 block's window, bitwise the particle-list kernel), and the brick-tiled
+the passes of ``column_pass_cuda.RECORD_IDS`` on the steps (at each width,
+reduction and unroll, in any order of the slot list, on full and empty
+cells and on a 2x2 block's window, bitwise the particle-list kernel; the
+pack bitwise its plain version on the records a walk reads), and the
+brick-tiled
 fluid-only variant, on the card.
 Every Simulation on the card launches the particle-list density once, for
 its scene, and the column kernel never.
@@ -297,6 +299,15 @@ def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
         assert torch.equal(a, b)
 
 
+def _kernels(*names):
+    """The launch counters of passes ``names`` on a path: the record
+    kernel's pack and walk for ``cc.RECORD_IDS``, else the particle-list
+    kernel."""
+    return tuple(k for n in names for k in (
+        (f"pack_{n}", f"record_{n}") if n in cc.RECORD_IDS
+        else (f"particle_{n}",)))
+
+
 def _scene_built_once():
     """The Simulation's constructor built its scene once: the particle-list
     density launched once, the column kernel's density never (nor any
@@ -329,16 +340,17 @@ def test_simulation_runs_through_the_kernel(dev):
     """The same frames on the card and on the CPU agree at the one-step
     bars after 3 frames, and the card's frames all launched the kernels:
     density_colorgrad_visc the particle-list kernel, surface_pressure the
-    record kernel and its pack."""
+    record kernel and its pack where ``cc.RECORD_IDS`` has it."""
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
                        device=dev)
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
     _scene_built_once()
-    assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
-        "particle_density": 1, "particle_density_colorgrad_visc": frames,
-        "pack_surface_pressure": frames, "record_surface_pressure": frames}
+    assert {k: n for k, n in cc.LAUNCHES.items() if n} == dict(
+        {k: frames for k in _kernels("density_colorgrad_visc",
+                                     "surface_pressure")},
+        particle_density=1)
     cpu = T.Simulation(solver="wcsph", cfg=CFG, fluid_pos=_block(),
                        device="cpu")
     cpu.run(3)
@@ -415,17 +427,17 @@ def _dfsph_step_agrees(gpu, cfg):
 
 def test_dfsph_simulation_runs_through_the_kernel(dev):
     """Every pass of the card's DFSPH frames launched the particle-list
-    kernel, surface the record kernel and its pack; then one step from the
-    state they reached agrees on the card
+    kernel, or for ``cc.RECORD_IDS`` (surface) the record kernel and its
+    pack; then one step from the state they
+    reached agrees on the card
     and on the CPU at the one-step bars, with equal iteration counts."""
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="dfsph", cfg=CFG, fluid_pos=_block(),
                        device=dev)
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
-    _dfsph_frames_launched(("particle_density_alpha_colorgrad",
-                            "particle_viscosity", "pack_surface",
-                            "record_surface"), frames)
+    _dfsph_frames_launched(_kernels("density_alpha_colorgrad", "viscosity",
+                                    "surface"), frames)
     _dfsph_step_agrees(gpu, CFG)
 
 
@@ -495,12 +507,11 @@ def _pbd_frames_agree(cfg, per_frame, dev):
 
 def test_pbd_simulation_runs_through_the_kernel(dev):
     """Every pass of the card's PBD frames launched the particle-list
-    kernel, the two projection passes once per projection iteration,
-    xsph_colorgrad once per frame, and surface the record kernel and its
-    pack once per frame; one step from the state they reached agrees with
-    the CPU's."""
-    _pbd_frames_agree(CFG, ("particle_xsph_colorgrad", "pack_surface",
-                            "record_surface"), dev)
+    kernel, the two projection passes once per projection iteration, and
+    xsph_colorgrad and surface once per frame, for ``cc.RECORD_IDS`` the
+    record kernel and its pack; one step from the state they reached
+    agrees with the CPU's."""
+    _pbd_frames_agree(CFG, _kernels("xsph_colorgrad", "surface"), dev)
 
 
 def test_surface_off_pbd_simulation_runs_through_the_kernel(dev):
@@ -807,11 +818,25 @@ def _order(islots, dims, order):
     return islots[torch.sort(key, stable=True).indices].contiguous()
 
 
+def _walked_records(recs, fl, bd):
+    """The records of ``recs`` that a walk reads (``cc.walked``): geo at
+    the real slots and each cell's first padding slot, the j side at the
+    real slots, the boundary's geo likewise -> a tuple of tensors."""
+    real, first = cc.walked(fl[0])
+    out = (recs.geo[real | first], recs.side[real])
+    if bd is not None:
+        breal, bfirst = cc.walked(bd[0])
+        out += (recs.bgeo[breal | bfirst],)
+    return out
+
+
 @pytest.mark.parametrize("name", list(cc.RECORD_IDS))
 def test_pack_kernel_is_bitwise_its_plain_version(operands, name):
-    """The pack kernel writes exactly pack_records_plain's records (|cg|^2
-    is rounded as the torch ops round it, never contracted into an fma),
-    twice the same, one launch counted per call and no walk."""
+    """On every record a walk reads, the pack kernel writes exactly
+    pack_records_plain's (|cg|^2 is rounded as the torch ops round it,
+    never contracted into an fma; m / rho0, which the kernel divides and
+    torch multiplies by the reciprocal, at this config's rho0 of 1), twice
+    the same, one launch counted per call and no walk."""
     _, fl, bd, dims, dims_b, _ = operands[name]
     n0 = dict(cc.LAUNCHES)
     got = cc.pack_records(name, fl, bd, dims, dims_b, CFG)
@@ -820,18 +845,22 @@ def test_pack_kernel_is_bitwise_its_plain_version(operands, name):
     assert cc.LAUNCHES[f"pack_{name}"] == n0[f"pack_{name}"] + 2
     assert cc.LAUNCHES[f"record_{name}"] == n0[f"record_{name}"]
     plain = cc.pack_records_plain(name, fl, bd, CFG)
-    for a, b, c in zip(got, again, plain):
-        if c is None:
-            assert a is None and b is None
-            continue
-        assert a.is_cuda and torch.equal(a, b) and torch.equal(a, c)
+    assert all(t is None or t.is_cuda for t in got)
+    assert tuple(got.side.shape) == tuple(plain.side.shape)
+    for a, b, c in zip(*(_walked_records(r, fl, bd)
+                         for r in (got, again, plain))):
+        assert a.numel() > 0 and bool(torch.isfinite(c).all())
+        assert torch.equal(a, b) and torch.equal(a, c)
     assert (got.bgeo is None) == (not pp.PASSES[name].has_bd)
 
 
+# (pass, lanes, reduction) of every record pass at each variant it takes
+RECORD_VARIANTS = [(name, lanes, red) for name in cc.RECORD_IDS
+                   for lanes, red in cc.variants(name)]
+
+
 @pytest.mark.parametrize("order", ["step", "cell_major", "shuffled"])
-@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
-@pytest.mark.parametrize("lanes", cc.LANES)
-@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+@pytest.mark.parametrize("name, lanes, reduction", RECORD_VARIANTS)
 def test_record_kernel_is_bitwise_the_particle_kernel(operands, name, lanes,
                                                       reduction, order):
     """At every unroll, the record kernel on the step's operand and slots
@@ -909,11 +938,12 @@ def test_record_kernel_on_full_and_empty_cells(dev, name, unroll):
 @pytest.fixture(scope="module")
 def record_window_operands(dev):
     """For each record pass: the whole box's operands from one step of its
-    solver (surface: DFSPH; surface_pressure: WCSPH) after 3 frames of the
-    block, and the BoxIndex, full boundary grid and dims that
-    ops/box.slab_window cuts a block's window from."""
+    solver (surface: DFSPH; surface_pressure: WCSPH; xsph_colorgrad: PBD)
+    after 3 frames of the block, and the BoxIndex, full boundary grid and
+    dims that ops/box.slab_window cuts a block's window from."""
     got = {}
-    for name, solver in (("surface", "dfsph"), ("surface_pressure", "wcsph")):
+    for name, solver in (("surface", "dfsph"), ("surface_pressure", "wcsph"),
+                         ("xsph_colorgrad", "pbd")):
         sim = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
                            device=dev)
         sim.run(3)
@@ -932,9 +962,7 @@ def record_window_operands(dev):
     return got
 
 
-@pytest.mark.parametrize("reduction", cc.REDUCTIONS)
-@pytest.mark.parametrize("lanes", cc.LANES)
-@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+@pytest.mark.parametrize("name, lanes, reduction", RECORD_VARIANTS)
 def test_record_kernel_on_a_2x2_window(record_window_operands, name, lanes,
                                        reduction):
     """On each block of a 2x2 mesh, the window ops/box.slab_window cuts

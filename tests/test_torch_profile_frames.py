@@ -56,6 +56,9 @@ torch.set_num_threads(2)
      "long, (anonymous namespace)::Consts)", "pack_surface_pressure"),
     ("void (anonymous namespace)::pack_kernel<(anonymous "
      "namespace)::SurfacePass>(...)", "pack_surface"),
+    ("void (anonymous namespace)::record_pass_kernel<(anonymous "
+     "namespace)::XsphColorgradPass, 8, true, 1>(...)",
+     "record_xsph_colorgrad"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
     ("Memset (Device)", "other"),
 ])

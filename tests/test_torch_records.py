@@ -1,16 +1,21 @@
-"""The cell-packed records of surface and surface_pressure, on the CPU.
+"""The cell-packed records of the record passes, on the CPU.
 
 On a card the record kernel (``column_pass_cuda.record_pass_cuda``)
 walks records that its pack writes from the pass's operand: slot s of cell
-c at record c*K + s, as ``{x, y, z, m}`` and the slot's j side (|cg|^2,
-and for surface_pressure p / max(eps, rho^2)), the boundary window's
-``{x, y, z, m}`` at c*Kb + s. The pack kernel is held bitwise to
-``pack_records_plain`` on the card (tests/test_torch_cuda.py); here that
-plain version is held to the layout and to the plain pass bodies'
+c at record c*K + s, as ``{x, y, z, m}`` and the slot's j side (|cg|^2;
+|cg|^2 and p / max(eps, rho^2) for surface_pressure; vel3 and m / rho0
+for xsph_colorgrad), the boundary window's ``{x, y, z, m}`` at c*Kb + s.
+The pack writes only the records a walk reads: the real slots, and each
+cell's first padding slot as ``{POS_PAD, 0, 0, 0}``. The pack kernel is held bitwise to
+``pack_records_plain`` on those records on the card
+(tests/test_torch_cuda.py); here that plain version is held to the layout,
+to the records it leaves unwritten and to the plain pass bodies'
 arithmetic, on the dam's operand and on a 2x2 block's window whose ghost
-faces are stale until an exchange refreshes them; and the plain surface and
-surface_pressure passes, which the kernel is held to, to the JAX package's.
+faces are stale until an exchange refreshes them; and the plain passes,
+which the kernel is held to, to the JAX package's.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +28,9 @@ from cpp_fluid_particles_tpu.ops import dense as jdense
 from cpp_fluid_particles_tpu.ops import pallas_passes as jpp
 
 import cpp_fluid_particles_tpu_torch as T
+from cpp_fluid_particles_tpu_torch.ops import box as tbox
 from cpp_fluid_particles_tpu_torch.ops import column_pass_cuda as tcc
+from cpp_fluid_particles_tpu_torch.ops import dense as tdense
 from cpp_fluid_particles_tpu_torch.ops import passes as tpp
 from cpp_fluid_particles_tpu_torch.ops.dense import DenseDims
 from cpp_fluid_particles_tpu_torch.ops.grid import POS_PAD
@@ -36,6 +43,8 @@ TCFG = T.dam_break_config(mode="parity")
 JCFG = J.dam_break_config(mode="parity")
 K, KB, BOX = 12, 7, (20, 24, 20)      # holds the dam at frame 0
 NAMES = tuple(tcc.RECORD_IDS)
+# what the plain pack holds in a record no walk reads, as int32 bits
+UNWRITTEN_BITS = torch.tensor(tcc.UNWRITTEN).view(torch.int32)
 
 
 def _t(a):
@@ -45,10 +54,10 @@ def _t(a):
 @pytest.fixture(scope="module")
 def dam():
     """The dam's box operands, filled by the JAX package: every pass row
-    [pos3, mass, rho, p, cg3] (rho, p and cg random, seeded; p negative
-    for some slots, as the EOS gives below rho0) and the boundary window
-    [pos3, mass] (masses random) -> (fl (9, K, G), bd (4, Kb, G), dims,
-    dims_b) as numpy arrays and port DenseDims."""
+    [pos3, mass, rho, p, cg3, vel3] (rho, p, cg and vel random, seeded; p
+    negative for some slots, as the EOS gives below rho0) and the boundary
+    window [pos3, mass] (masses random) -> (fl (12, K, G), bd (4, Kb, G),
+    dims, dims_b) as numpy arrays and port DenseDims."""
     rng = np.random.default_rng(19)
     pos = J.dam_break_positions(JCFG)
     n = pos.shape[0]
@@ -68,6 +77,9 @@ def dam():
     bidx = jdense.build_dense_index(jnp.asarray(bpos), JCFG, dims_b)
     assert int(bidx.overflow) == 0
     bmass = rng.uniform(0.5, 1.5, bpos.shape[0]).astype(np.float32) * JCFG.m0
+    vel = rng.normal(0.0, 0.5, (3, n)).astype(np.float32)
+    fl = jnp.concatenate([fl, jbox.fill_box(idx, list(vel), [0.0] * 3, bdims,
+                                            mode="scatter")])
     bd = jdense.fill_dense(bidx, [bpos[:, 0], bpos[:, 1], bpos[:, 2], bmass],
                            [jdense.POS_PAD] * 3 + [0.0], dims_b)
     bd = jbox.slice_boundary_box(bd, dims, bdims, KB, idx.origin)
@@ -77,9 +89,11 @@ def dam():
 
 
 def _rows(name, fl):
-    """The pass's operand rows of the stacked [pos3, mass, rho, p, cg3]."""
-    return fl if name == "surface_pressure" else np.concatenate(
-        [fl[:4], fl[6:9]])
+    """The pass's operand rows of the stacked [pos3, mass, rho, p, cg3,
+    vel3]."""
+    return {"surface_pressure": fl[:9],
+            "surface": np.concatenate([fl[:4], fl[6:9]]),
+            "xsph_colorgrad": np.concatenate([fl[:4], fl[9:12]])}[name]
 
 
 def _operands(name, dam):
@@ -93,45 +107,77 @@ def _side_of_bodies(name, f, cfg):
     """The j side as the plain pass bodies write it (ops/passes.py
     _surface_terms: ``j[4] * j[4] + j[5] * j[5] + j[6] * j[6]``;
     _surface_pressure_terms: ``j[6] * j[6] + j[7] * j[7] + j[8] * j[8]``
-    and ``over``: ``f[5] / torch.clamp(f[4] * f[4], min=eps)``)."""
+    and ``over``: ``f[5] / torch.clamp(f[4] * f[4], min=eps)``;
+    _colorgrad_terms: ``_jb(j[3]) / rho_ref``; _xsph_dv: ``j[4 + c]``)."""
     if name == "surface":
         return [f[4] * f[4] + f[5] * f[5] + f[6] * f[6]]
+    if name == "xsph_colorgrad":
+        return [f[4], f[5], f[6], f[3] / cfg.rho0]
     return [f[6] * f[6] + f[7] * f[7] + f[8] * f[8],
             f[5] / torch.clamp(f[4] * f[4], min=cfg.epsilon)]
 
 
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _occupancy(x0):
+    """(K, G) row 0 -> (real, first padding) slots: a slot holds a particle
+    iff its x < POS_PAD / 2, and ranks fill a cell from slot 0, so a cell's
+    first padding slot is the slot at its occupancy, where there is one."""
+    real = x0 < POS_PAD / 2
+    occ = real.sum(0)
+    assert torch.equal(real, torch.arange(x0.shape[0])[:, None] < occ)
+    first = torch.arange(x0.shape[0])[:, None] == occ
+    return real, first
+
+
+def _grid_records(x, geo, k, g):
+    """The geo records of grid x (rows, K, G): a real slot's record c*K + s
+    is [x, y, z, m] of slot s of cell c; the first padding slot's [its x,
+    POS_PAD, 0, 0, 0]; every other record UNWRITTEN in all four words; so
+    exactly the records a walk reads hold values."""
+    assert geo.shape == (g * k, 4) and geo.is_contiguous()
+    real, first = _occupancy(x[0])
+    cells = geo.reshape(g, k, 4).permute(2, 1, 0)      # (4, K, G)
+    for r in range(4):
+        assert torch.equal(cells[r][real], x[r][real])
+    assert bool((cells[0][first] == POS_PAD).all())
+    assert not bool(cells[1:, first].any())
+    rest = ~(real | first)
+    assert bool(rest.any()) and bool(first.any())
+    assert bool((_bits(cells[:, rest]) == UNWRITTEN_BITS).all())
+    wreal, wfirst = tcc.walked(x[0])
+    assert torch.equal(wreal, real.T.reshape(-1))
+    assert torch.equal(wfirst, first.T.reshape(-1))
+    return real
+
+
 def _holds_the_layout(name, fl, bd, dims, dims_b, recs):
-    """Record c*K + s of ``recs`` holds slot s of cell c of fl: [x, y, z, m]
-    and the bodies' j side, padding slots and ghost cells included
-    (bitwise); the boundary's at c*Kb + s."""
+    """Record c*K + s of ``recs`` holds slot s of cell c of fl where a walk
+    reads it (``_grid_records``), and at a real slot the bodies' j side,
+    ghost cells included (bitwise); the j side of every other slot
+    UNWRITTEN; the boundary's at c*Kb + s likewise."""
     k, g = dims.k, dims.g
-    assert recs.geo.shape == (g * k, 4) and recs.geo.is_contiguous()
-    geo = recs.geo.reshape(g, k, 4)
-    assert torch.equal(geo.permute(2, 1, 0), fl[:4])
+    real = _grid_records(fl, recs.geo, k, g)
     side = _side_of_bodies(name, fl, TCFG)
-    if name == "surface":
-        assert recs.side.shape == (g * k,)
-        assert torch.equal(recs.side.reshape(g, k).T, side[0])
-    else:
-        assert recs.side.shape == (g * k, 2)
-        got = recs.side.reshape(g, k, 2)
-        for j in range(2):
-            assert torch.equal(got[..., j].T, side[j])
+    width = tcc.SIDE_WIDTH[name]
+    assert len(side) == width
+    want = (g * k,) if width == 1 else (g * k, width)
+    assert tuple(recs.side.shape) == want and recs.side.is_contiguous()
+    got = recs.side.reshape(g, k, width).permute(2, 1, 0)
+    for j in range(width):
+        assert torch.equal(got[j][real], side[j][real])
+        assert bool((_bits(got[j][~real]) == UNWRITTEN_BITS).all())
     # one record spelled out: the last slot of the fullest interior cell
     c = int(torch.argmax((fl[0] < POS_PAD / 2).sum(0)))
     s = int((fl[0, :, c] < POS_PAD / 2).sum()) - 1
     assert s >= 1
     assert torch.equal(recs.geo[c * k + s], fl[:4, s, c])
-    # a padding slot keeps its POS_PAD position, so a walk stops there
-    pad = fl[0] >= POS_PAD / 2
-    assert bool(pad.any())
-    assert bool((geo[..., 0].T[pad] == POS_PAD).all())
     if bd is None:
         assert recs.bgeo is None
     else:
-        assert recs.bgeo.shape == (g * dims_b.k, 4)
-        assert torch.equal(recs.bgeo.reshape(g, dims_b.k, 4).permute(2, 1, 0),
-                           bd)
+        _grid_records(bd, recs.bgeo, dims_b.k, g)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -142,7 +188,7 @@ def test_pack_puts_each_slot_at_its_record_on_the_dam(dam, name):
     assert tcc.LAUNCHES == before      # the CPU runs the plain version
     _holds_the_layout(name, fl, bd, dims, dims_b, recs)
     plain = tcc.pack_records_plain(name, fl, bd, TCFG)
-    assert all(a is b is None or torch.equal(a, b)
+    assert all(a is b is None or torch.equal(_bits(a), _bits(b))
                for a, b in zip(recs, plain))
 
 
@@ -194,17 +240,17 @@ def test_pack_of_a_2x2_window_with_stale_ghost_faces(dam, name):
         assert not torch.equal(stale, lfl)
         recs = tcc.pack_records(name, stale, lbd, ldims, ldims_b, TCFG)
         _holds_the_layout(name, stale, lbd, ldims, ldims_b, recs)
-        moved = (recs.geo.reshape(ldims.g, K, 4)
-                 != lfl[:4].permute(2, 1, 0)).any(-1).any(-1)
-        assert bool(moved.any()) and not bool(moved[~face].any())
         fresh = tcc.pack_records(name, lfl, lbd, ldims, ldims_b, TCFG)
+        moved = (_bits(recs.geo) != _bits(fresh.geo)).reshape(
+            ldims.g, -1).any(-1)
+        assert bool(moved.any()) and not bool(moved[~face].any())
         for got, want, k in zip(fresh, whole, (K, K, KB)):
             if want is None:
                 assert got is None
                 continue
             cells = want.reshape(dims.gx, dims.gy, dims.gz, k, -1)
             cut = cells[slab.x0:slab.x1 + 2, :, slab.z0:slab.z1 + 2]
-            assert torch.equal(got.reshape(cut.shape), cut)
+            assert torch.equal(_bits(got.reshape(cut.shape)), _bits(cut))
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -216,12 +262,12 @@ def test_plain_pass_matches_jax_on_the_dam(dam, name):
     fl, bd, dims, dims_b = dam
     jfl = jnp.asarray(_rows(name, fl))
     jdims = jdense.DenseDims(*BOX, K)
-    if name == "surface_pressure":
-        want = jpp.surface_pressure_pass(jfl, jnp.asarray(bd), None, jdims,
-                                         jdense.DenseDims(*BOX, KB), JCFG,
-                                         engine="xla")
-    else:
+    if name == "surface":
         want = jpp.surface_pass(jfl, None, jdims, JCFG, engine="xla")
+    else:
+        want = getattr(jpp, f"{name}_pass")(
+            jfl, jnp.asarray(bd), None, jdims, jdense.DenseDims(*BOX, KB),
+            JCFG, engine="xla")
     got = tpp.column_pass_plain(name, *_operands(name, dam), TCFG).numpy()
     want = np.asarray(want).reshape(got.shape)
     assert np.isfinite(got).all() and np.abs(got).max() > 0
@@ -265,7 +311,9 @@ def test_record_wrappers_refuse_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="not a CUDA device"):
         tcc.record_pass_cuda("surface_pressure", fl, bd, islots, d, d, TCFG)
     assert tcc.LAUNCHES == before
-    assert set(tcc.RECORD_IDS) == {"surface", "surface_pressure"}
+    assert set(tcc.RECORD_IDS) == {"surface", "surface_pressure",
+                                   "xsph_colorgrad"}
+    assert set(tcc.SIDE_WIDTH) == set(tcc.RECORD_IDS)
     assert set(tcc.RECORD_IDS) <= set(tpp.PARTICLE_PASSES)
     assert all(tcc.RECORD_IDS[n] == tcc.PASS_IDS[n] for n in tcc.RECORD_IDS)
     assert set(tcc.UNROLLS) == {1, 2}
@@ -316,3 +364,71 @@ def test_record_pass_refuses_records_that_do_not_fit(case):
     with pytest.raises(ValueError, match="not a CUDA device"):
         tcc.record_pass_cuda(name, *args, TCFG, records=good)
     assert tcc.LAUNCHES == before
+
+
+def _cases(source, fn):
+    """The pass ids of the outer switch of extern "C" function ``fn`` in
+    csrc/column_pass.cu: its ``case N: return run(...)`` or ``case N:
+    return launch_pack<...>`` lines."""
+    body = source[source.index(f'extern "C" int {fn}('):]
+    body = body[:body.index('\nextern "C"')] if '\nextern "C"' in body \
+        else body
+    return sorted(int(m) for m in re.findall(
+        r"case (\d+):\s*return (?:run\(|launch_pack<)", body))
+
+
+def test_launch_switches_name_every_pass_id():
+    """The C entry points dispatch exactly the ids the wrappers send: the
+    particle-list kernel every PARTICLE_PASSES id, the pack and the record
+    kernel every RECORD_IDS id (a card rejects any other id as
+    cudaErrorInvalidValue, which only a launch there would show)."""
+    source = tcc.SOURCE.read_text()
+    assert _cases(source, "particle_pass_launch") == sorted(
+        tcc.PASS_IDS[n] for n in tpp.PARTICLE_PASSES)
+    for fn in ("pack_records_launch", "record_pass_launch"):
+        assert _cases(source, fn) == sorted(tcc.RECORD_IDS.values()), fn
+
+
+def _names_real_slots(lst, x0, trash):
+    """Every entry of slot list ``lst`` is the trash slot or a slot of the
+    grid whose row 0 (K, G) ``x0`` holds a particle -> the trash count."""
+    flat = x0.reshape(-1)
+    assert bool(((lst >= 0) & (lst <= trash)).all())
+    assert trash == flat.shape[0]
+    listed = lst[lst != trash]
+    assert bool((flat[listed] < POS_PAD / 2).all())
+    assert listed.unique().shape == listed.shape
+    return int((lst == trash).sum())
+
+
+@pytest.mark.parametrize("k", [K, 3])
+def test_the_steps_slot_lists_name_only_real_slots(k):
+    """The record kernel takes its i side from the record of each listed
+    slot, and the pack writes no record past a cell's first padding slot:
+    so every slot list a step hands it (``BoxIndex.slots`` and ``.work``
+    on one device, ``slab_slots`` of both on each block of a 2x2 mesh)
+    names only slots that hold a particle, or the trash slot K*G. At K 3
+    the dam overflows its cells, and the dropped particles take the trash
+    slot."""
+    pos = torch.as_tensor(T.dam_break_positions(TCFG))
+    box = DenseDims(*BOX, k)
+    idx = tbox.build_box_index(pos, TCFG, tdense.dims_for(TCFG, k), box)
+    assert int(idx.box_overflow) == 0
+    assert (int(idx.overflow) > 0) == (k == 3)
+    fields = [pos[:, 0], pos[:, 1], pos[:, 2]]
+    x0 = tbox.fill_box(idx, fields, [POS_PAD] * 3, box)[0]
+    for lst in (idx.slots, idx.work):
+        assert _names_real_slots(lst, x0, k * box.g) == int(idx.overflow)
+    assert torch.equal(idx.work.sort().values, idx.slots.sort().values)
+    owned = 0
+    for r in range(4):
+        slab = _block(r, box)
+        ldims = slab.dims(box)
+        islots = halo.slab_slots(idx.slots, box, slab)
+        lx0 = tbox.fill_box(idx._replace(slots=islots), fields,
+                            [POS_PAD] * 3, ldims)[0]
+        trash = _names_real_slots(islots, lx0, k * ldims.g)
+        work = halo.slab_slots(idx.work, box, slab)
+        assert _names_real_slots(work, lx0, k * ldims.g) == trash
+        owned += islots.shape[0] - trash
+    assert owned == int(idx.valid.sum())
