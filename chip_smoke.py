@@ -8,9 +8,9 @@ particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
 surface_pressure, density_colorgrad_visc, xsph_colorgrad,
 density_alpha_colorgrad, density_visc, pressure_force, density_alpha,
 viscosity, surface, xsph and the scene build's density, and the
-cell-packed record kernel and its pack that run surface, surface_pressure
-and xsph_colorgrad on the main path (so no path launches the column
-kernel),
+cell-packed record kernel and its pack that run surface, surface_pressure,
+xsph_colorgrad and viscosity on the main path (so no path launches the
+column kernel),
 against the plain torch executor on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
@@ -49,8 +49,9 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               against the plain executor and column_pass_kernel at the
               same bar, two launches bitwise (and whether the transpose
               reduction is bitwise equal to the butterfly at the same
-              width). surface, surface_pressure and xsph_colorgrad also
-              through the record kernel: its pack bitwise equal to
+              width). The passes of ``RECORD_IDS`` (surface,
+              surface_pressure, xsph_colorgrad, viscosity) also through
+              the record kernel: its pack bitwise equal to
               pack_records_plain on the records a walk reads, the walk at
               each variant and unroll against the plain executor at the
               bar and bitwise equal to the particle-list kernel at the
@@ -68,8 +69,9 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               every instance is 0), ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
               particle_stiffness_accel >= 5 x the frames run,
-              particle_density_alpha_colorgrad == particle_viscosity ==
-              pack_surface == record_surface == the frames run), plus
+              particle_density_alpha_colorgrad == pack_viscosity ==
+              record_viscosity == pack_surface == record_surface == the
+              frames run), plus
               iteration bounds,
               the mean iterations and the host syncs per frame
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
@@ -84,9 +86,10 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               off, a short run each: the surface-off instances' launches
               (WCSPH particle_density_visc == particle_pressure_force ==
               the frames run; DFSPH particle_density_alpha ==
-              particle_viscosity == the frames run and the divergence
-              identity as in 5b; PBD as in 5c with particle_xsph == the
-              frames run in place of xsph_colorgrad and surface)
+              pack_viscosity == record_viscosity == the frames run and the
+              divergence identity as in 5b; PBD as in 5c with
+              particle_xsph == the frames run in place of xsph_colorgrad
+              and surface)
   6. timing   kernel vs plain executor per pass at the shapes of its
               solver's 300-frame state (WCSPH's for density_visc and
               pressure_force; density_alpha on DFSPH's and xsph on PBD's,
@@ -102,8 +105,8 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               ``BoxIndex.slots``, in the particles'), then the same
               backwards, column kernel (best of two each), every
               rung timed by CUDA events around 50 calls and by a CUDA graph
-              of 50 calls (the device's time alone); surface (on DFSPH's
-              state and on PBD's), surface_pressure and xsph_colorgrad add
+              of 50 calls (the device's time alone); the passes of
+              ``RECORD_IDS`` (surface on DFSPH's state and on PBD's) add
               the record kernel's rungs, its pack included: each variant
               at each unroll, the default on the other order, then the
               pack alone and the walk alone, a line with the record
@@ -245,8 +248,9 @@ PAIR_FLOPS = {"density": (10, 10), "density_colorgrad_visc": (46, 30),
               "xsph": (20, 0), "color_gradient": (28, 28),
               "density_colorgrad": (30, 30)}
 # operations per real slot of a record pass's j side (csrc/column_pass.cu
-# P::side): |cg|^2 5; and p / max(eps, rho^2) 3; m / rho0 1
-SIDE_FLOPS = {"surface": 5, "surface_pressure": 8, "xsph_colorgrad": 1}
+# P::side): |cg|^2 5; and p / max(eps, rho^2) 3; m / rho0 1; vel3 copied 0
+SIDE_FLOPS = {"surface": 5, "surface_pressure": 8, "xsph_colorgrad": 1,
+              "viscosity": 0}
 # instances that no step runs, in either package: held in phases 3 and 6
 # on the PBD path's own [pos3, mass] operands, never launched by a path
 OFF_PATH = {name: "no step runs it; held on the PBD path's [pos3, mass] "
@@ -1932,7 +1936,7 @@ def path_phase(cfp, ds, cc, torch, cfg, solver, phase, dt, card):
         log(phase, slice_line(st, card))
     elif solver == "dfsph":
         # per frame run: one density_alpha_colorgrad, viscosity and
-        # surface through the particle-list kernel; divergence ==
+        # surface, each through its path's kernel; divergence ==
         # stiffness_accel (the divergence warm start is on; the
         # particle-list kernel runs both), at least 5 (1 + 1 + >= 1
         # divergence iterations and 1 + 1 + >= 2 density iterations of
@@ -1940,7 +1944,7 @@ def path_phase(cfp, ds, cc, torch, cfg, solver, phase, dt, card):
         expect_launches(st, dict(launched("surface", frames_run),
                                  **launched("density_alpha_colorgrad",
                                             frames_run),
-                                 particle_viscosity=frames_run,
+                                 **launched("viscosity", frames_run),
                                  particle_divergence=(5 * frames_run, None),
                                  particle_stiffness_accel=(5 * frames_run,
                                                            None)))
@@ -2014,10 +2018,10 @@ def off_phase(cfp, ds, cc, torch, off, solver, card):
         expect_launches(st, {"particle_density_visc": n,
                              "particle_pressure_force": n})
     elif solver == "dfsph":
-        expect_launches(st, {"particle_density_alpha": n,
-                             "particle_viscosity": n,
-                             "particle_divergence": (5 * n, None),
-                             "particle_stiffness_accel": (5 * n, None)})
+        expect_launches(st, dict(launched("viscosity", n),
+                                 particle_density_alpha=n,
+                                 particle_divergence=(5 * n, None),
+                                 particle_stiffness_accel=(5 * n, None)))
         divergence_is_stiffness_accel(st)
     else:
         tail = pbd_checks(st, off, off=True)

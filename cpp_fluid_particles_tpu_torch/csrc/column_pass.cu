@@ -51,16 +51,16 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
-// particle_pass_kernel (below) has fourteen instances and runs eleven on
+// particle_pass_kernel (below) has fourteen instances and runs ten on
 // the main path: pbd_lambda, stiffness_accel, divergence,
 // density_colorgrad_visc, density_alpha_colorgrad, the surface-off
-// density_visc, pressure_force and density_alpha, the fluid-only
-// viscosity and (PBD with surface effects off) xsph, and the scene build's
-// density over the boundary grid. A group of lanes per particle of the
-// slot list splits that particle's 27-cell walk, and the group's sums are
-// reduced by an xor butterfly or, for passes with many sums, a transpose
-// reduction. record_pass_kernel (below) runs the other three,
-// surface_pressure, the fluid-only surface and xsph_colorgrad, in the same
+// density_visc, pressure_force and density_alpha, (PBD with surface
+// effects off) the fluid-only xsph, and the scene build's density over the
+// boundary grid. A group of lanes per particle of the slot list splits
+// that particle's 27-cell walk, and the group's sums are reduced by an xor
+// butterfly or, for passes with many sums, a transpose reduction.
+// record_pass_kernel (below) runs the other four, surface_pressure,
+// xsph_colorgrad and the fluid-only surface and viscosity, in the same
 // groups over a cell-packed copy of the operand that pack_kernel writes
 // once per call; their particle-list instances stay as its bitwise
 // yardstick. No path
@@ -452,30 +452,50 @@ struct StiffnessAccelPass {
   }
 };
 
-// Mueller viscosity sum over v_j - v_i into acc[0..2]
-__device__ __forceinline__ void visc(float* acc, const PosVel& i,
-                                     const float* fl, int64_t tj, int64_t kg,
+// Mueller viscosity sum m_j lap (v_j - v_i) into acc[0..2]; vj = the j
+// velocity, {vx, vy, vz, 0}
+__device__ __forceinline__ void visc(float* acc, const PosVel& i, float4 vj,
                                      float mj, float r, const Consts& c) {
   const float lap = w_visc_laplacian(r, c) / c.rho0;
-  acc[0] += mj * (lap * (fl[4 * kg + tj] - i.vx));
-  acc[1] += mj * (lap * (fl[5 * kg + tj] - i.vy));
-  acc[2] += mj * (lap * (fl[6 * kg + tj] - i.vz));
+  acc[0] += mj * (lap * (vj.x - i.vx));
+  acc[1] += mj * (lap * (vj.y - i.vy));
+  acc[2] += mj * (lap * (vj.z - i.vz));
 }
 
-// Mueller viscosity (src/BasicSPHSolver.cu:183-225; pallas_passes.py:929),
-// fluid only: fl = [pos3, mass, vel3]. Outputs [dvx, dvy, dvz].
-struct ViscosityPass {
-  static constexpr int kOut = 3;
-  static constexpr bool kBoundary = false;
+// The record interface of a pass whose j side is the slot's velocity
+// alone (viscosity): J = {vx, vy, vz, 0}, copied from the rows with no
+// arithmetic, so the record kernel's walk takes it in one 16-byte load;
+// the i side takes its velocity from its own slot's J. density_visc's
+// functor loads its j velocity through side too.
+struct VelocitySide {
   using I = PosVel;
+  using J = float4;
+  __device__ static J side(const float* f, int64_t t, int64_t kg,
+                           const Consts&) {
+    return make_float4(f[4 * kg + t], f[5 * kg + t], f[6 * kg + t], 0.f);
+  }
+  __device__ static I make_i(float x, float y, float z, J j, const Consts&) {
+    return {x, y, z, j.x, j.y, j.z};
+  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts&) {
     return load_pos_vel(fl, t, kg);
   }
+};
+
+// Mueller viscosity (src/BasicSPHSolver.cu:183-225; pallas_passes.py:929),
+// fluid only: fl = [pos3, mass, vel3]. Outputs [dvx, dvy, dvz].
+struct ViscosityPass : VelocitySide {
+  static constexpr int kOut = 3;
+  static constexpr bool kBoundary = false;
+  __device__ static void terms(float* acc, const I& i, float mj, J j, float,
+                               float, float, float r, const Consts& c) {
+    visc(acc, i, j, mj, r, c);
+  }
   __device__ static void fluid(float* acc, const I& i, const float* fl,
-                               int64_t tj, int64_t kg, float, float, float,
-                               float r, const Consts& c) {
-    visc(acc, i, fl, tj, kg, fl[3 * kg + tj], r, c);
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    terms(acc, i, fl[3 * kg + tj], side(fl, tj, kg, c), dx, dy, dz, r, c);
   }
 };
 
@@ -521,21 +541,22 @@ struct SurfacePass {
 
 // rho + Mueller viscosity (pallas_passes.py:1284), the surface-off WCSPH
 // traversal 1: fl = [pos3, mass, vel3]. Outputs [rho, dvx, dvy, dvz]; the
-// boundary contributes to rho only.
-struct DensityViscPass {
+// boundary contributes to rho only. It has no record instance (it lost
+// through the records; see the record kernel's note), but its fluid term
+// loads the j velocity as viscosity's does, one float4 (side) before the
+// sums: its particle-list kernel ran 8% faster that way than with each row
+// loaded inside visc (0.0451-0.0460 against 0.0492-0.0503 ms at W 8
+// transposed on one frozen WCSPH state; PERF.md section 6).
+struct DensityViscPass : VelocitySide {
   static constexpr int kOut = 4;
   static constexpr bool kBoundary = true;
-  using I = PosVel;
-  __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
-                             const Consts&) {
-    return load_pos_vel(fl, t, kg);
-  }
   __device__ static void fluid(float* acc, const I& i, const float* fl,
                                int64_t tj, int64_t kg, float, float, float,
                                float r, const Consts& c) {
     const float mj = fl[3 * kg + tj];
+    const J vj = side(fl, tj, kg, c);
     acc[0] += mj * w_cubic(r, c);
-    visc(acc + 1, i, fl, tj, kg, mj, r, c);
+    visc(acc + 1, i, vj, mj, r, c);
   }
   __device__ static void bdry(float* acc, const I&, const float* bd,
                               int64_t tj, int64_t kbg, float, float, float,
@@ -1114,37 +1135,43 @@ cudaError_t launch_lanes(int lanes, int reduction, A... a) {
 }
 
 // --- the cell-packed record kernel (SurfacePass, SurfacePressurePass,
-// XsphColorgradPass) ---
+// XsphColorgradPass, ViscosityPass) ---
 //
 // Replaces the same TPU kernel, pallas_passes.py:107 `column_pass`, for
 // surface (:1013) and surface_pressure (:1316), the second traversal of
-// the PBD, DFSPH and WCSPH frames, and for xsph_colorgrad (:1377), PBD's
-// once-a-frame pass, in place of particle_pass_kernel on those
-// instances. It computes what particle_pass_kernel computes: the same slot
-// list, groups of W lanes, offsets in m-order, slots in rank order, float
-// operations (the functors' terms and bdry_terms) and reductions, so its
-// output is bitwise that kernel's at the same (W, reduction).
+// the PBD, DFSPH and WCSPH frames, and for xsph_colorgrad (:1377) and
+// viscosity (:929), PBD's and DFSPH's once-a-frame passes, in place of
+// particle_pass_kernel on those instances. It computes what
+// particle_pass_kernel computes: the same slot list, groups of W lanes,
+// offsets in m-order, slots in rank order, float operations (the
+// functors' terms and bdry_terms) and reductions, so its output is
+// bitwise that kernel's at the same (W, reduction).
 //
 // What it changes is where the walk's loads come from. particle_pass_kernel
 // reads the operand's planes (row r of slot s of cell c at r*K*G + s*G + c):
 // per candidate x, y and z from three planes, three lines, the padding test
 // on x first; per pair in support mass and the functor's j rows (|cg|^2's
 // three for surface, rho and p too for surface_pressure, vel3 for
-// xsph_colorgrad), up to six more lines, and the j side's arithmetic
-// (|cg|^2, p / max(eps, rho^2), m / rho0) again for every i, some 30-40
-// times per particle. Consecutive slots of a cell are G floats apart.
+// xsph_colorgrad and viscosity), up to six more lines, and the j side's
+// arithmetic (|cg|^2, p / max(eps, rho^2), m / rho0) again for every i,
+// some 30-40 times per particle. Consecutive slots of a cell are G floats
+// apart.
 // Where the functor reads only the mass, which the walk's row-0 test
 // already brings in, the records buy less than their pack costs:
 // density_alpha_colorgrad took 0.0512 ms through them against the
 // particle-list kernel's 0.0485, and 1.268 against 1.235 at 1M (PERF.md
-// section 6), so it has no record instance.
+// section 6), so it has no record instance; nor has the surface-off
+// density_visc, whose walk through them only tied its particle-list
+// kernel's best (0.0456 against 0.0457 ms), so that the pack (0.0042) made
+// it lose.
 //
 // pack_kernel, one launch per pass call on the operand as the executor
 // gets it (after a mesh's ghost exchange), over every (cell, slot) of the
 // grid, ghost cells included, writes the records the walk reads, at c*K +
 // s: for a real slot geo = {x, y, z, m} and side = the pass's J (P::side:
-// |cg|^2, {|cg|^2, p / max(eps, rho^2)} or {vx, vy, vz, m / rho0}); for
-// a cell's first padding slot, where every walk of the cell stops, geo =
+// |cg|^2, {|cg|^2, p / max(eps, rho^2)}, {vx, vy, vz, m / rho0} or {vx,
+// vy, vz, 0}); for a cell's first padding slot, where every walk of the
+// cell stops, geo =
 // {x, 0, 0, 0} with its POS_PAD x; and the boundary window's the same way
 // at c*Kb + s. It writes no other record (the
 // buffers come from torch.empty), and no walk reads one: a walk stops at
@@ -1629,13 +1656,15 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
 }
 
 // The cell-packed records of pass ids 2 (surface_pressure: geo and side
-// (float2) from fl = [pos3, mass, rho, p, cg3], bgeo from bd), 7 (surface:
-// geo and side (float) from fl = [pos3, mass, cg3]; bd and bgeo null, kb
-// 0) and 12 (xsph_colorgrad: side (float4) from fl = [pos3, mass, vel3],
-// bgeo from bd) of column_pass_launch, each record at c*K + s (boundary
-// c*Kb + s) of buffers the caller allocates; only the records a walk reads
-// are written (pack_kernel). Returns a cudaError_t; any other pass id, or
-// K + Kb over 65535, is cudaErrorInvalidValue.
+// (float2) from fl = [pos3, mass, rho, p, cg3], bgeo from bd), 6
+// (viscosity: side (float4) from fl = [pos3, mass, vel3]; bd and bgeo
+// null, kb 0), 7 (surface: geo and side (float) from fl = [pos3, mass,
+// cg3]; bd and bgeo null, kb 0) and 12 (xsph_colorgrad: side (float4)
+// from fl = [pos3, mass, vel3], bgeo from bd) of column_pass_launch, each
+// record at c*K + s (boundary c*Kb + s) of buffers the caller allocates;
+// only the records a walk reads are written (pack_kernel). Returns a
+// cudaError_t; any other pass id, or K + Kb over 65535, is
+// cudaErrorInvalidValue.
 extern "C" int pack_records_launch(int pass_id, const float* fl,
                                    const float* bd, void* geo, void* side,
                                    void* bgeo, int k, int kb, int gx, int gy,
@@ -1651,6 +1680,9 @@ extern "C" int pack_records_launch(int pass_id, const float* fl,
     case 2:
       return launch_pack<SurfacePressurePass>(fl, bd, geo, side, bgeo, k, kb,
                                               g, c, s);
+    case 6:
+      return launch_pack<ViscosityPass>(fl, nullptr, geo, side, nullptr, k,
+                                        0, g, c, s);
     case 7:
       return launch_pack<SurfacePass>(fl, nullptr, geo, side, nullptr, k, 0,
                                       g, c, s);
@@ -1662,12 +1694,12 @@ extern "C" int pack_records_launch(int pass_id, const float* fl,
   }
 }
 
-// The record kernel on pass ids 2 (surface_pressure), 7 (surface) and 12
-// (xsph_colorgrad) over pack_records_launch's records, W = lanes in {8,
-// 16, 32}, reduction 0 or 1 as particle_pass_launch, U = unroll in {1, 2}
-// slots a batch, over the n particles of islots (plane slots as
-// particle_pass_launch's). out must be zeroed by the caller. Returns a
-// cudaError_t; any other pass id, width, reduction or unroll is
+// The record kernel on pass ids 2 (surface_pressure), 6 (viscosity), 7
+// (surface) and 12 (xsph_colorgrad) over pack_records_launch's records, W
+// = lanes in {8, 16, 32}, reduction 0 or 1 as particle_pass_launch, U =
+// unroll in {1, 2} slots a batch, over the n particles of islots (plane
+// slots as particle_pass_launch's). out must be zeroed by the caller.
+// Returns a cudaError_t; any other pass id, width, reduction or unroll is
 // cudaErrorInvalidValue.
 extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
                                   int unroll, const void* geo,
@@ -1702,6 +1734,8 @@ extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
   switch (pass_id) {
     case 2:
       return run(SurfacePressurePass{});
+    case 6:
+      return run(ViscosityPass{});
     case 7:
       return run(SurfacePass{});
     case 12:

@@ -46,12 +46,17 @@ import torch
 from ..config import BENCH_DT, SimConfig, dam_break_config
 from ..ops.dense import DenseDims
 
-# (solver, pass): the passes given a record kernel (density_alpha_colorgrad
-# tried it and lost), surface on both solvers that run it, each on the
-# state of a solver that runs it
+# (solver, pass): the passes that tried the record kernel (it lost
+# density_alpha_colorgrad and density_visc, which run the particle-list
+# kernel), surface on both solvers that run it, each on the state of a
+# solver that runs it
 CASES = (("wcsph", "surface_pressure"), ("dfsph", "surface"),
          ("pbd", "surface"), ("pbd", "xsph_colorgrad"),
-         ("dfsph", "density_alpha_colorgrad"))
+         ("dfsph", "density_alpha_colorgrad"), ("dfsph", "viscosity"),
+         ("wcsph", "density_visc"))
+# passes that a step runs only with surface effects off: captured from a
+# surface-off step on the state of the dam's (surface-on) run
+SURFACE_OFF = ("density_visc",)
 CHUNK = 25
 
 
@@ -61,11 +66,15 @@ class _Stop(Exception):
 
 def capture(sim, name: str, dt: float) -> dict:
     """The operands of pass ``name``'s first call in one step of ``sim``
-    from its state, every pass before it run as the step runs it; the
-    state is left as it was -> {name, fl, bd, islots, dims, dims_b, cfg}."""
+    from its state (with surface tension and air pressure 0 for a pass of
+    SURFACE_OFF), every pass before it run as the step runs it; the state
+    is left as it was -> {name, fl, bd, islots, dims, dims_b, cfg}."""
     from ..models.dense_step import DENSE_STEPS
     from ..ops.passes import column_pass
     full, full_b = sim._dims()
+    cfg = sim.cfg
+    if name in SURFACE_OFF:
+        cfg = cfg.replace(surface_tension=0.0, air_pressure=0.0)
     got = {}
 
     def first(n, fl, bd, dims, dims_b, cfg, islots=None):
@@ -75,8 +84,8 @@ def capture(sim, name: str, dt: float) -> dict:
             raise _Stop
         return column_pass(n, fl, bd, dims, dims_b, cfg, islots=islots)
     try:
-        DENSE_STEPS[sim.solver_name](sim.state, sim.carry, sim.scene,
-                                     sim.cfg, dt, full, full_b, sim.box,
+        DENSE_STEPS[sim.solver_name](sim.state, sim.carry, sim.scene, cfg,
+                                     dt, full, full_b, sim.box,
                                      executor=first)
     except _Stop:
         pass

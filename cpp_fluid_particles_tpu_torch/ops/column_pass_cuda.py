@@ -16,8 +16,9 @@ density_alpha, the fluid-only viscosity, surface and xsph, and the scene
 build's density) through the particle-list kernel, a group of ``LANES``
 lanes per particle of a slot list whose sums one of ``REDUCTIONS``
 combines, at the (width, reduction) pairs ``variants`` gives for the pass's
-sum count. ``record_pass_cuda`` runs surface, surface_pressure and
-xsph_colorgrad (``RECORD_IDS``) through the cell-packed record kernel:
+sum count. ``record_pass_cuda`` runs surface, surface_pressure,
+xsph_colorgrad and viscosity (``RECORD_IDS``) through the cell-packed
+record kernel:
 ``pack_records`` (the pack kernel on a card, ``pack_records_plain`` on the
 CPU) writes the records of the operand's (cell, slot)s that a walk reads
 (``walked``), and the walk reads them in the particle-list kernel's groups
@@ -92,27 +93,33 @@ LANES = (32, 8, 16)
 # passes whose default width is not LANES[0]: surface_pressure, 6 sums
 # that each group's butterfly reduces, took 0.0754 ms at W 8 against 0.0841
 # at W 16 and 0.0865 at W 32 on the full dam at K 22, in both runs of each
-# width in one call; density_visc (4 sums) on the WCSPH dam at K 22 took
-# 0.0608 ms at W 16 (transpose; butterfly 0.0611) against 0.0613 / 0.0624
-# at W 8 and 0.0660 / 0.0671 at W 32 (transpose / butterfly); on DFSPH's
-# state at K 16, where it never runs, W 8 and 32 led by 2-3%; the
-# surface-off pressure_force (3 sums, the WCSPH dam at K 22) took 0.0618
-# and 0.0610 ms at W 8 (transpose) in two calls, against 0.0619-0.0623 at
-# W 16 and 0.0625-0.0634 at W 32, where it alone does not spill (PERF.md,
-# kernel table). With the slot list in cell-major order (BoxIndex.work),
-# the four particles of a warp at W 8 mostly share a cell and so read the
-# same neighbour slots: divergence (DFSPH's 300-frame state, K 16) took
-# 0.0470 ms at W 8 against 0.0493 at W 32 and 0.0496 at W 16, and 1.149
-# against 1.799 at W 32 on the 1M recipe's state; density_colorgrad_visc
+# width in one call; the surface-off pressure_force (3 sums, the WCSPH dam
+# at K 22) took 0.0618 and 0.0610 ms at W 8 (transpose) in two calls,
+# against 0.0619-0.0623 at W 16 and 0.0625-0.0634 at W 32, where it alone
+# does not spill (PERF.md, kernel table). With the slot list in
+# cell-major order (BoxIndex.work), the four particles of a warp at W 8
+# mostly share a cell and so read the same neighbour slots: divergence
+# (DFSPH's 300-frame state, K 16) took 0.0470 ms at W 8 against 0.0493 at
+# W 32 and 0.0496 at W 16, and 1.149 against 1.799 at W 32 on the 1M
+# recipe's state; density_colorgrad_visc
 # (WCSPH's, K 22) 0.0611 at W 8 (butterfly) against 0.0622 transposed and
 # 0.0747 at its former W 32 transposed (CUDA-graph ms, best of two, one
 # call; PERF.md section 6); density_alpha_colorgrad (DFSPH's, K 18) 0.0526
 # at W 16 transposed against 0.0553 at its former W 32 transposed (W 8,
 # butterfly only: 0.0558), and 1.414 against 1.929 on the 1M recipe's
-# state (W 8 there 1.232)
-PASS_LANES = {"surface_pressure": 8, "density_visc": 16,
+# state (W 8 there 1.232); in both ladder passes of one call (NVIDIA H100
+# 80GB HBM3, 700 W; CUDA-graph ms), density_visc (4 sums, WCSPH's
+# surface-off step from its 300-frame state, K 22) 0.0457 / 0.0455 at W 8
+# transposed against 0.0517 / 0.0515 at its former W 16 transposed (W 8
+# butterfly 0.0527 / 0.0511, W 32 0.0570-0.0586), and viscosity (3 sums,
+# DFSPH's, K 16) 0.0420 / 0.0416 at W 8 transposed against 0.0451 / 0.0466
+# at its former W 32 butterfly (W 8 butterfly 0.0417 / 0.0420), the
+# particle-list kernel being viscosity's yardstick (it runs the record
+# kernel)
+PASS_LANES = {"surface_pressure": 8, "density_visc": 8,
               "pressure_force": 8, "divergence": 8,
-              "density_colorgrad_visc": 8, "density_alpha_colorgrad": 16}
+              "density_colorgrad_visc": 8, "density_alpha_colorgrad": 16,
+              "viscosity": 8}
 
 # how the particle-list kernel reduces a group's sums, as its template
 # argument kTranspose: "butterfly", xor adds of every sum at every step
@@ -126,14 +133,14 @@ REDUCTIONS = ("butterfly", "transpose")
 # took 0.0734 ms transposed at W 32 against the butterfly's 0.0758 (its
 # best butterfly, W 8: 0.0747); for surface_pressure (6 sums) the transpose
 # was no faster at any width (W 8 0.0765 against 0.0755; PERF.md, kernel
-# table). The fluid-only surface (3 sums, K 16) took 0.0605 ms
-# transposed at W 32 against the butterfly's
-# 0.0632 (W 8: 0.0665 / 0.0674, W 16: 0.0680 / 0.0682); for viscosity (3
-# sums, K 16) the two tied at W 32 (0.0599 / 0.0598), so it keeps the
-# butterfly. density_alpha_colorgrad (9 sums, K 16; the transpose only at
-# W 16 and 32) took 0.0625 transposed at W 32 against the butterfly's
+# table). The fluid-only surface (3 sums, K 16) took 0.0605 ms transposed
+# at W 32 against the butterfly's 0.0632 (W 8: 0.0665 / 0.0674, W 16:
+# 0.0680 / 0.0682); viscosity (3 sums) takes it at its W 8 (see
+# PASS_LANES). density_alpha_colorgrad (9 sums, K 16; the transpose only
+# at W 16 and 32) took 0.0625 transposed at W 32 against the butterfly's
 # 0.0655 (W 16: 0.0661 / 0.0683, butterfly W 8 0.0654); density_visc
-# (4 sums) the transpose by a hair at its W 16 (0.0608 / 0.0611). The
+# (4 sums) 0.0457 / 0.0455 transposed at its W 8 against the butterfly's
+# 0.0527 / 0.0511 (one call, both ladder passes). The
 # surface-off density_alpha (5 sums, DFSPH's state at K 16) took 0.0565 ms
 # transposed at W 32 against the butterfly's 0.0581 (W 8: 0.0598 / 0.0599,
 # W 16: 0.0609 / 0.0614, transpose / butterfly), and pressure_force (3
@@ -152,18 +159,24 @@ PASS_REDUCTION = {"xsph_colorgrad": "transpose", "surface": "transpose",
                   "density_alpha_colorgrad": "transpose",
                   "density_visc": "transpose", "density_alpha": "transpose",
                   "pressure_force": "transpose", "xsph": "transpose",
-                  "density": "transpose"}
+                  "density": "transpose", "viscosity": "transpose"}
 
 # pass name -> its id in pack_records_launch and record_pass_launch
-# (csrc/column_pass.cu): the passes the cell-packed record kernel serves
-# (density_alpha_colorgrad, whose functor reads only the mass, lost to its
-# particle-list kernel through the records: 0.0512 against 0.0485 ms on
-# DFSPH's 300-frame state, 1.268 against 1.235 at 1M; PERF.md section 6)
-RECORD_IDS = {"surface_pressure": 2, "surface": 7, "xsph_colorgrad": 12}
+# (csrc/column_pass.cu): the passes the cell-packed record kernel serves.
+# Two lost to their particle-list kernel through the records (CUDA-graph
+# ms, pack included, against the particle-list kernel's best, both ladder
+# passes; PERF.md section 6): density_alpha_colorgrad, whose functor reads
+# only the mass, 0.0512 against 0.0485 on DFSPH's 300-frame state and
+# 1.268 against 1.235 at 1M; the surface-off density_visc 0.0489 /
+# 0.0490 against 0.0457 / 0.0455 at W 8 transposed on WCSPH's: its walk
+# alone tied (0.0456), and the pack added 0.0042
+RECORD_IDS = {"surface_pressure": 2, "viscosity": 6, "surface": 7,
+              "xsph_colorgrad": 12}
 
 # floats of a record pass's j side, P::J in csrc/column_pass.cu: |cg|^2;
-# |cg|^2 and p / max(eps, rho^2); vel3 and m / rho0
-SIDE_WIDTH = {"surface": 1, "surface_pressure": 2, "xsph_colorgrad": 4}
+# |cg|^2 and p / max(eps, rho^2); vel3 and m / rho0; vel3 and 0
+SIDE_WIDTH = {"surface": 1, "surface_pressure": 2, "xsph_colorgrad": 4,
+              "viscosity": 4}
 
 # what pack_records_plain puts in a record that no walk reads, and the pack
 # kernel does not write
@@ -192,10 +205,14 @@ UNROLLS = (1, 2)
 # xsph_colorgrad (PBD's, K 18) 0.0522 / 0.0524 at W 8 transposed, U 1
 # (butterfly 0.0520 / 0.0528, W 16 0.0558-0.0568, U 2 0.0581-0.0628)
 # against the particle-list kernel's best, 0.0557 / 0.0560 at W 8
+# transposed. viscosity (DFSPH's, K 16) 0.0376 / 0.0377 at W 8 transposed,
+# U 1 (butterfly 0.0384 / 0.0384, U 2 0.0386-0.0390, W 16 0.0400-0.0418)
+# against the particle-list kernel's best, 0.0420 / 0.0416 at W 8
 # transposed.
 RECORD_DEFAULTS = {"surface": (8, "transpose", 1),
                    "surface_pressure": (8, "butterfly", 2),
-                   "xsph_colorgrad": (8, "transpose", 1)}
+                   "xsph_colorgrad": (8, "transpose", 1),
+                   "viscosity": (8, "transpose", 1)}
 
 # launches per pass instance, per particle-list instance (particle_<name>),
 # per record instance's pack and walk (pack_<name>, record_<name>) and per
@@ -454,11 +471,16 @@ def _side_plain(name: str, fl: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
     """The slots' j side (the kernel's P::J) as the plain pass bodies form
     it (ops/passes.py): (SIDE_WIDTH[name], K, G). surface: |cg|^2;
     surface_pressure: |cg|^2 and p / max(eps, rho^2); xsph_colorgrad: vel3
-    and m / rho0. The kernel divides by __fdiv_rn; torch on a card
-    multiplies by the reciprocal of a Python scalar, which is the same
-    quotient at the configs' rho0 of 1."""
+    and m / rho0; viscosity: vel3 and 0. m / rho0 divides by a 0-dim
+    tensor on fl's device, a correctly rounded division on every device,
+    as the kernel's __fdiv_rn: torch on a card multiplies by the
+    reciprocal of a Python scalar divisor instead, which rounds otherwise
+    at a rho0 such as 1.3 (the CPU divides either way)."""
+    if name == "viscosity":
+        return torch.stack([fl[4], fl[5], fl[6], torch.zeros_like(fl[4])])
     if name == "xsph_colorgrad":
-        return torch.stack([fl[4], fl[5], fl[6], fl[3] / cfg.rho0])
+        rho0 = torch.tensor(cfg.rho0, dtype=fl.dtype, device=fl.device)
+        return torch.stack([fl[4], fl[5], fl[6], fl[3] / rho0])
     row = 4 if name == "surface" else 6
     c2 = fl[row] * fl[row] + fl[row + 1] * fl[row + 1] \
         + fl[row + 2] * fl[row + 2]

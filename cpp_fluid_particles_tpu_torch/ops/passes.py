@@ -33,10 +33,10 @@ density_alpha_colorgrad, density_visc, pressure_force, density_alpha, the
 fluid-only viscosity, surface and xsph, and density) take the
 particle-list kernel (``column_pass_cuda.particle_pass_cuda``), which
 needs ``islots``, but for ``column_pass_cuda.RECORD_IDS`` (surface,
-surface_pressure and xsph_colorgrad), which take the cell-packed record
-kernel (``column_pass_cuda.record_pass_cuda``) over the same list; only
-color_gradient and density_colorgrad, which nothing runs, take the column
-kernel.
+surface_pressure, xsph_colorgrad and viscosity), which take the
+cell-packed record kernel (``column_pass_cuda.record_pass_cuda``) over the
+same list; only color_gradient and density_colorgrad, which nothing runs,
+take the column kernel.
 Outputs are zero on ghost cells and on empty i slots, up to the sign of
 zero.
 """

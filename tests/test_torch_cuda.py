@@ -9,8 +9,8 @@ density_colorgrad_visc also on cells full to K and on empty ones, and on a
 the passes of ``column_pass_cuda.RECORD_IDS`` on the steps (at each width,
 reduction and unroll, in any order of the slot list, on full and empty
 cells and on a 2x2 block's window, bitwise the particle-list kernel; the
-pack bitwise its plain version on the records a walk reads), and the
-brick-tiled
+pack bitwise its plain version on the records a walk reads; both also at
+a rho0 that is not a power of two), and the brick-tiled
 fluid-only variant, on the card.
 Every Simulation on the card launches the particle-list density once, for
 its scene, and the column kernel never.
@@ -443,8 +443,9 @@ def test_dfsph_simulation_runs_through_the_kernel(dev):
 
 def test_surface_off_dfsph_simulation_runs_through_the_kernel(dev):
     """With surface effects off, the card's DFSPH frames launch
-    density_alpha and viscosity through the particle-list kernel once a
-    frame each, the Jacobi passes as with surface effects on, and the
+    density_alpha and viscosity once a frame each (through the
+    particle-list kernel, or for ``cc.RECORD_IDS`` the record kernel and
+    its pack), the Jacobi passes as with surface effects on, and the
     column kernel never; one step from the state
     they reached agrees with the CPU's at the one-step bars, with equal
     iteration counts."""
@@ -454,8 +455,7 @@ def test_surface_off_dfsph_simulation_runs_through_the_kernel(dev):
                        device=dev)
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
-    _dfsph_frames_launched(("particle_density_alpha", "particle_viscosity"),
-                           frames)
+    _dfsph_frames_launched(_kernels("density_alpha", "viscosity"), frames)
     _dfsph_step_agrees(gpu, off)
 
 
@@ -799,7 +799,7 @@ def test_graph_timing_leaves_the_launch_counts(operands):
 
 
 # ----------------------------------------------------------------------
-# the cell-packed record kernel (surface, surface_pressure) and its pack
+# the cell-packed record kernel (``cc.RECORD_IDS``) and its pack
 # ----------------------------------------------------------------------
 
 def _order(islots, dims, order):
@@ -938,12 +938,13 @@ def test_record_kernel_on_full_and_empty_cells(dev, name, unroll):
 @pytest.fixture(scope="module")
 def record_window_operands(dev):
     """For each record pass: the whole box's operands from one step of its
-    solver (surface: DFSPH; surface_pressure: WCSPH; xsph_colorgrad: PBD)
-    after 3 frames of the block, and the BoxIndex, full boundary grid and
-    dims that ops/box.slab_window cuts a block's window from."""
+    solver (surface and viscosity: DFSPH; surface_pressure: WCSPH;
+    xsph_colorgrad: PBD) after 3 frames of the block, and the BoxIndex,
+    full boundary grid and dims that ops/box.slab_window cuts a block's
+    window from."""
     got = {}
     for name, solver in (("surface", "dfsph"), ("surface_pressure", "wcsph"),
-                         ("xsph_colorgrad", "pbd")):
+                         ("xsph_colorgrad", "pbd"), ("viscosity", "dfsph")):
         sim = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
                            device=dev)
         sim.run(3)
@@ -1078,3 +1079,36 @@ def test_record_kernel_replays_from_a_cuda_graph(operands, name):
     assert time_graph_ms(lambda: cc.record_pass_cuda(
         name, fl, bd, islots, dims, dims_b, CFG), 5) > 0
     assert cc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+def test_pack_and_record_kernel_at_another_rho0(operands, name):
+    """At rho0 1.3, not a power of two, so that m / rho0 (the pack's j side
+    of xsph_colorgrad) and lap / rho0 round: the pack kernel is bitwise
+    pack_records_plain on the records a walk reads (the plain pack divides
+    by a tensor, as the kernel's __fdiv_rn; torch on a card would multiply
+    by the reciprocal of a Python scalar), and the record kernel is bitwise
+    the particle-list kernel at every variant and unroll, within BAR of the
+    plain executor at that rho0."""
+    cfg = CFG.replace(rho0=1.3)
+    _, fl, bd, dims, dims_b, islots = operands[name]
+    got = cc.pack_records(name, fl, bd, dims, dims_b, cfg)
+    plain = cc.pack_records_plain(name, fl, bd, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(_walked_records(got, fl, bd),
+                    _walked_records(plain, fl, bd)):
+        assert a.numel() > 0 and bool(torch.isfinite(b).all())
+        assert torch.equal(a, b)
+    want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
+    base = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
+    assert not torch.equal(want, base)
+    scale = float(want.abs().max())
+    for lanes, red in cc.variants(name):
+        part = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, cfg,
+                                     lanes=lanes, reduction=red)
+        torch.testing.assert_close(part, want, rtol=BAR, atol=BAR * scale)
+        for unroll in cc.UNROLLS:
+            rec = cc.record_pass_cuda(name, fl, bd, islots, dims, dims_b,
+                                      cfg, lanes=lanes, reduction=red,
+                                      unroll=unroll)
+            assert torch.equal(rec, part), (lanes, red, unroll)

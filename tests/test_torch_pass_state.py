@@ -27,7 +27,10 @@ def test_capture_round_trips_the_steps_operands(tmp_path, solver, name):
     case = ps.capture(sim, name, dt)
     assert torch.equal(sim.state.pos, before)
     dims = case["dims"]
-    assert case["name"] == name and case["cfg"] == sim.cfg
+    # a surface-off pass is captured from a surface-off step
+    cfg = (sim.cfg.replace(surface_tension=0.0, air_pressure=0.0)
+           if name in ps.SURFACE_OFF else sim.cfg)
+    assert case["name"] == name and case["cfg"] == cfg
     assert tuple(case["fl"].shape) == (pp.PASSES[name].fi, dims.k, dims.g)
     assert (case["bd"] is not None) == pp.PASSES[name].has_bd
     idx = bx.build_box_index(sim.state.pos, sim.cfg, sim._dims()[0], dims)

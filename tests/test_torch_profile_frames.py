@@ -59,6 +59,12 @@ torch.set_num_threads(2)
     ("void (anonymous namespace)::record_pass_kernel<(anonymous "
      "namespace)::XsphColorgradPass, 8, true, 1>(...)",
      "record_xsph_colorgrad"),
+    ("void (anonymous namespace)::record_pass_kernel<(anonymous "
+     "namespace)::ViscosityPass, 8, true, 1>(...)", "record_viscosity"),
+    ("void (anonymous namespace)::pack_kernel<(anonymous "
+     "namespace)::DensityViscPass>(float const*, float const*, float4*, "
+     "float4*, float4*, int, int, long, (anonymous namespace)::Consts)",
+     "pack_density_visc"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
     ("Memset (Device)", "other"),
 ])

@@ -4,7 +4,8 @@ On a card the record kernel (``column_pass_cuda.record_pass_cuda``)
 walks records that its pack writes from the pass's operand: slot s of cell
 c at record c*K + s, as ``{x, y, z, m}`` and the slot's j side (|cg|^2;
 |cg|^2 and p / max(eps, rho^2) for surface_pressure; vel3 and m / rho0
-for xsph_colorgrad), the boundary window's ``{x, y, z, m}`` at c*Kb + s.
+for xsph_colorgrad; vel3 and 0 for viscosity), the boundary window's
+``{x, y, z, m}`` at c*Kb + s.
 The pack writes only the records a walk reads: the real slots, and each
 cell's first padding slot as ``{POS_PAD, 0, 0, 0}``. The pack kernel is held bitwise to
 ``pack_records_plain`` on those records on the card
@@ -12,7 +13,8 @@ cell's first padding slot as ``{POS_PAD, 0, 0, 0}``. The pack kernel is held bit
 to the records it leaves unwritten and to the plain pass bodies'
 arithmetic, on the dam's operand and on a 2x2 block's window whose ghost
 faces are stale until an exchange refreshes them; and the plain passes,
-which the kernel is held to, to the JAX package's.
+which the kernel is held to, to the JAX package's, at the dam's rho0 and
+at a rho0 that is not a power of two.
 """
 
 import re
@@ -43,6 +45,9 @@ TCFG = T.dam_break_config(mode="parity")
 JCFG = J.dam_break_config(mode="parity")
 K, KB, BOX = 12, 7, (20, 24, 20)      # holds the dam at frame 0
 NAMES = tuple(tcc.RECORD_IDS)
+# a rest density that is not a power of two, so that m / rho0 and the
+# viscosity's lap / rho0 round
+RHO0 = 1.3
 # what the plain pack holds in a record no walk reads, as int32 bits
 UNWRITTEN_BITS = torch.tensor(tcc.UNWRITTEN).view(torch.int32)
 
@@ -93,7 +98,8 @@ def _rows(name, fl):
     vel3]."""
     return {"surface_pressure": fl[:9],
             "surface": np.concatenate([fl[:4], fl[6:9]]),
-            "xsph_colorgrad": np.concatenate([fl[:4], fl[9:12]])}[name]
+            "xsph_colorgrad": np.concatenate([fl[:4], fl[9:12]]),
+            "viscosity": np.concatenate([fl[:4], fl[9:12]])}[name]
 
 
 def _operands(name, dam):
@@ -108,11 +114,14 @@ def _side_of_bodies(name, f, cfg):
     _surface_terms: ``j[4] * j[4] + j[5] * j[5] + j[6] * j[6]``;
     _surface_pressure_terms: ``j[6] * j[6] + j[7] * j[7] + j[8] * j[8]``
     and ``over``: ``f[5] / torch.clamp(f[4] * f[4], min=eps)``;
-    _colorgrad_terms: ``_jb(j[3]) / rho_ref``; _xsph_dv: ``j[4 + c]``)."""
+    _colorgrad_terms: ``_jb(j[3]) / rho_ref``; _xsph_dv and
+    _viscosity_terms: ``j[4 + c]``)."""
     if name == "surface":
         return [f[4] * f[4] + f[5] * f[5] + f[6] * f[6]]
     if name == "xsph_colorgrad":
         return [f[4], f[5], f[6], f[3] / cfg.rho0]
+    if name == "viscosity":
+        return [f[4], f[5], f[6], torch.zeros_like(f[4])]
     return [f[6] * f[6] + f[7] * f[7] + f[8] * f[8],
             f[5] / torch.clamp(f[4] * f[4], min=cfg.epsilon)]
 
@@ -153,14 +162,14 @@ def _grid_records(x, geo, k, g):
     return real
 
 
-def _holds_the_layout(name, fl, bd, dims, dims_b, recs):
+def _holds_the_layout(name, fl, bd, dims, dims_b, recs, cfg=TCFG):
     """Record c*K + s of ``recs`` holds slot s of cell c of fl where a walk
-    reads it (``_grid_records``), and at a real slot the bodies' j side,
-    ghost cells included (bitwise); the j side of every other slot
+    reads it (``_grid_records``), and at a real slot the bodies' j side in
+    ``cfg``, ghost cells included (bitwise); the j side of every other slot
     UNWRITTEN; the boundary's at c*Kb + s likewise."""
     k, g = dims.k, dims.g
     real = _grid_records(fl, recs.geo, k, g)
-    side = _side_of_bodies(name, fl, TCFG)
+    side = _side_of_bodies(name, fl, cfg)
     width = tcc.SIDE_WIDTH[name]
     assert len(side) == width
     want = (g * k,) if width == 1 else (g * k, width)
@@ -253,26 +262,49 @@ def test_pack_of_a_2x2_window_with_stale_ghost_faces(dam, name):
             assert torch.equal(_bits(got.reshape(cut.shape)), _bits(cut))
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_plain_pass_matches_jax_on_the_dam(dam, name):
-    """The plain executor, which the record kernel is held to on the card,
-    against the JAX package's pass on the same operand (its sliding-box
-    executor, ``xla``), at the Pallas bar (tests/test_pallas_engine.py:
-    125-126)."""
+def _plain_matches_jax(dam, name, tcfg, jcfg):
+    """The plain executor in ``tcfg`` against the JAX package's pass in
+    ``jcfg`` on the same operand (its sliding-box executor, ``xla``), at
+    the Pallas bar (tests/test_pallas_engine.py:125-126)."""
     fl, bd, dims, dims_b = dam
     jfl = jnp.asarray(_rows(name, fl))
     jdims = jdense.DenseDims(*BOX, K)
-    if name == "surface":
-        want = jpp.surface_pass(jfl, None, jdims, JCFG, engine="xla")
+    jpass = getattr(jpp, f"{name}_pass")
+    if tpp.PASSES[name].has_bd:
+        want = jpass(jfl, jnp.asarray(bd), None, jdims,
+                     jdense.DenseDims(*BOX, KB), jcfg, engine="xla")
     else:
-        want = getattr(jpp, f"{name}_pass")(
-            jfl, jnp.asarray(bd), None, jdims, jdense.DenseDims(*BOX, KB),
-            JCFG, engine="xla")
-    got = tpp.column_pass_plain(name, *_operands(name, dam), TCFG).numpy()
+        want = jpass(jfl, None, jdims, jcfg, engine="xla")
+    got = tpp.column_pass_plain(name, *_operands(name, dam), tcfg).numpy()
     want = np.asarray(want).reshape(got.shape)
     assert np.isfinite(got).all() and np.abs(got).max() > 0
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5 * scale)
+    return got
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_pass_matches_jax_on_the_dam(dam, name):
+    """The plain executor, which the record kernel is held to on the card,
+    against the JAX package's pass on the same operand."""
+    _plain_matches_jax(dam, name, TCFG, JCFG)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_pass_and_pack_at_another_rho0(dam, name):
+    """At rho0 1.3, which divides m and lap with rounding, the plain
+    executor still matches the JAX package's pass, and differs from its
+    output at the dam's rho0 of 1 wherever rho0 enters the pass; the plain
+    pack still holds the layout and the bodies' j side bitwise (its m /
+    rho0, a division by a tensor, rounds as the bodies' division by the
+    Python scalar on the CPU)."""
+    tcfg, jcfg = TCFG.replace(rho0=RHO0), JCFG.replace(rho0=RHO0)
+    got = _plain_matches_jax(dam, name, tcfg, jcfg)
+    fl, bd, dims, dims_b = _operands(name, dam)
+    base = tpp.column_pass_plain(name, fl, bd, dims, dims_b, TCFG).numpy()
+    assert not np.array_equal(got, base)
+    recs = tcc.pack_records(name, fl, bd, dims, dims_b, tcfg)
+    _holds_the_layout(name, fl, bd, dims, dims_b, recs, tcfg)
 
 
 def test_record_wrappers_refuse_what_the_kernel_cannot_take():
@@ -312,7 +344,7 @@ def test_record_wrappers_refuse_what_the_kernel_cannot_take():
         tcc.record_pass_cuda("surface_pressure", fl, bd, islots, d, d, TCFG)
     assert tcc.LAUNCHES == before
     assert set(tcc.RECORD_IDS) == {"surface", "surface_pressure",
-                                   "xsph_colorgrad"}
+                                   "xsph_colorgrad", "viscosity"}
     assert set(tcc.SIDE_WIDTH) == set(tcc.RECORD_IDS)
     assert set(tcc.RECORD_IDS) <= set(tpp.PARTICLE_PASSES)
     assert all(tcc.RECORD_IDS[n] == tcc.PASS_IDS[n] for n in tcc.RECORD_IDS)
