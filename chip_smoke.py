@@ -7,10 +7,11 @@ with nvcc, holds each of the neighbor pass's sixteen instances, and the
 particle-list kernel that runs pbd_lambda, stiffness_accel, divergence,
 surface_pressure, density_colorgrad_visc, xsph_colorgrad,
 density_alpha_colorgrad, density_visc, pressure_force, density_alpha,
-viscosity, surface, xsph and the scene build's density, and the
+viscosity, surface, xsph and the scene build's density, the
 cell-packed record kernel and its pack that run surface, surface_pressure,
-xsph_colorgrad and viscosity on the main path (so no path launches the
-column kernel),
+xsph_colorgrad and viscosity on the main path, and the counted walk and
+its shared position pack that run pbd_lambda and stiffness_accel there
+(so no path launches the column kernel),
 against the plain torch executor on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
@@ -29,7 +30,9 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               registers and spills for every instance, the particle-list
               kernel's at each (group width, reduction) of
               ``variants(name)`` too, the record kernel's also at each
-              unroll of ``UNROLLS``, and the pack kernel's; for the six
+              unroll of ``unrolls(name)`` (the counted walk's, U 1, 2
+              and 4, for pbd_lambda and stiffness_accel), the pack
+              kernels' (``pack_positions``: the counted walk's); for the six
               fluid-only instances of phase 7 also their shared memory
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
               its path gives it, at frame 0 and after the path's run;
@@ -55,7 +58,11 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               pack_records_plain on the records a walk reads, the walk at
               each variant and unroll against the plain executor at the
               bar and bitwise equal to the particle-list kernel at the
-              same variant
+              same variant; the counted walk of ``COUNTED``
+              (pbd_lambda, stiffness_accel) also on a pack made before it
+              and at rho0 1.3, bitwise the particle-list kernel there, and
+              PBD's stiffness_accel on pbd_lambda's position pack bitwise
+              on its own
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps; for WCSPH and DFSPH also with
@@ -68,7 +75,8 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               on this and every later path the column kernel's count of
               every instance is 0), ms/frame from CUDA events
   5b. dfsph   the same for DFSPH at dt 0.004 (particle_divergence ==
-              particle_stiffness_accel >= 5 x the frames run,
+              record_stiffness_accel >= 5 x the frames run, pack_positions
+              == the frames run,
               particle_density_alpha_colorgrad == pack_viscosity ==
               record_viscosity == pack_surface == record_surface == the
               frames run), plus
@@ -76,8 +84,9 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               the mean iterations and the host syncs per frame
   5c. pbd     the same for PBD at dt 0.004 (the fixed 20-iteration
               projection with its exact all-lambda-zero exit):
-              particle_pbd_lambda == particle_stiffness_accel == the sum
-              of the frames' iterations, pack_xsph_colorgrad ==
+              record_pbd_lambda == record_stiffness_accel ==
+              pack_positions == the sum of the frames' iterations,
+              pack_xsph_colorgrad ==
               record_xsph_colorgrad == pack_surface == record_surface ==
               the frames run
   5d. pbd_default  ``Simulation(device="cuda")`` as constructed (PBD in
@@ -115,7 +124,17 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               the adoption rule's verdict (the record kernel keeps the
               pass only if its best rung beats the particle-list kernel's
               best rung in both passes by more than the gap between
-              them); then on the 1M recipe's one-device
+              them); pbd_lambda (PBD's state) and stiffness_accel
+              (DFSPH's and PBD's) ladder the counted walk alone at each
+              variant and unroll on a position pack made before the
+              timing, the pack alone and the default with its pack;
+              after all states the counted
+              walk's rule (``counted_adoptions``: on PBD's state the pack
+              and both walks per projection iteration, on DFSPH's the walk
+              and its share of a frame's pack, each at its best rung,
+              against the particle-list bests, in both passes by more
+              than their gap) prints one adoption line per pass and
+              solver; then on the 1M recipe's one-device
               state after its warm-up frame divergence once more, against
               plain, in cell-major order and in the particles', in turns,
               and density_alpha_colorgrad held as in phase 3 and laddered
@@ -250,7 +269,7 @@ PAIR_FLOPS = {"density": (10, 10), "density_colorgrad_visc": (46, 30),
 # operations per real slot of a record pass's j side (csrc/column_pass.cu
 # P::side): |cg|^2 5; and p / max(eps, rho^2) 3; m / rho0 1; vel3 copied 0
 SIDE_FLOPS = {"surface": 5, "surface_pressure": 8, "xsph_colorgrad": 1,
-              "viscosity": 0}
+              "viscosity": 0, "pbd_lambda": 0, "stiffness_accel": 0}
 # instances that no step runs, in either package: held in phases 3 and 6
 # on the PBD path's own [pos3, mass] operands, never launched by a path
 OFF_PATH = {name: "no step runs it; held on the PBD path's [pos3, mass] "
@@ -346,12 +365,29 @@ def capture(sim, ds, pp, dt):
 
 def launched(name, n):
     """The launch counts of ``n`` calls of pass ``name`` on its path: the
-    record kernel's pack and walk for the passes of its RECORD_IDS, else
-    the particle-list kernel's."""
-    from cpp_fluid_particles_tpu_torch.ops.column_pass_cuda import RECORD_IDS
+    record kernel's pack and walk for the passes of its RECORD_IDS (the
+    counted walk alone for COUNTED, whose shared position pack a path
+    counts apart: ``position_packs``), else the particle-list kernel's."""
+    from cpp_fluid_particles_tpu_torch.ops.column_pass_cuda import (
+        COUNTED, RECORD_IDS)
+    if name in COUNTED:
+        return {f"record_{name}": n}
     if name in RECORD_IDS:
         return {f"pack_{name}": n, f"record_{name}": n}
     return {f"particle_{name}": n}
+
+
+def walk_key(name):
+    """The launch counter of pass ``name``'s walk on its path."""
+    return [k for k in launched(name, 1) if not k.startswith("pack_")][0]
+
+
+def position_packs(names, n):
+    """The position packs of a path whose passes ``names`` share ``n`` of
+    them: ``{"pack_positions": n}`` where one of them is COUNTED, else
+    none."""
+    from cpp_fluid_particles_tpu_torch.ops.column_pass_cuda import COUNTED
+    return {"pack_positions": n} if set(names) & set(COUNTED) else {}
 
 
 def note_err(errs, key, max_abs, worst_rel):
@@ -415,43 +451,51 @@ def compare_passes(tag, calls, cfg, pp, cc, torch, errs):
         if name in cc.RECORD_IDS:
             compare_records(tag, name, fl, bd, dims, dims_b, islots, cfg,
                             want, outs, cc, torch, errs)
+    compare_shared_pack(tag, calls, cfg, cc, torch)
 
 
 def compare_records(tag, name, fl, bd, dims, dims_b, islots, cfg, want,
                     outs, cc, torch, errs):
     """The pack kernel bitwise against its plain version on the records a
-    walk reads (``cc.walked``; two packs bitwise equal there), then the
-    record kernel at each (group width, reduction) of ``cc.variants(name)``
-    and each unroll of ``cc.UNROLLS``: two launches bitwise, within the bar
-    of the plain executor ``want``, and bitwise equal to the particle-list
-    kernel's ``outs`` at the same variant (errors kept as
-    ``record_<name>``; the pack's as ``pack_<name>``)."""
+    walk reads (``cc.read_records``; two packs bitwise equal there), then
+    the record kernel at each (group width, reduction) of
+    ``cc.variants(name)`` and each unroll of ``cc.unrolls(name)``: two
+    launches bitwise, within the bar of the plain executor ``want``, and
+    bitwise equal to the particle-list kernel's ``outs`` at the same
+    variant (errors kept as ``record_<name>``; the pack's as
+    ``cc.pack_key(name)``). The counted walk of ``cc.COUNTED`` also on a
+    pack made before it (a reused pack bitwise a fresh one), and at rho0
+    1.3, bitwise the particle-list kernel there too."""
     from cpp_fluid_particles_tpu_torch.utils.check import row_errors
     packs = [cc.pack_records(name, fl, bd, dims, dims_b, cfg)
              for _ in range(2)]
     plain = cc.pack_records_plain(name, fl, bd, cfg)
     torch.cuda.synchronize()
-    real, first = cc.walked(fl[0])
-    read = [real | first, real]
-    if bd is not None:
-        read.append(torch.logical_or(*cc.walked(bd[0])))
-    for a, b, c, m in zip(*packs, plain, read):
-        a, b, c = a[m], b[m], c[m]
+    read = [cc.read_records(r, fl, bd) for r in packs + [plain]]
+    for a, b, c in zip(*read):
         if not (torch.equal(a, b) and torch.equal(a, c)
-                and bool(torch.isfinite(c).all())):
+                and bool(torch.isfinite(c.float()).all())):
             raise AssertionError(f"{tag} pack {name}: two packs differ or "
                                  "differ from pack_records_plain on the "
                                  "records a walk reads")
-    note_err(errs, f"pack_{name}", 0.0, 0.0)
+    note_err(errs, cc.pack_key(name), 0.0, 0.0)
     kb = dims_b.k if dims_b is not None else 0
+    counted = name in cc.COUNTED
+    real, first = cc.walked(fl[0])
+    n_read = int(real.sum()) if counted else int((real | first).sum())
     log("kernel", f"{tag} pack {name} K={dims.k} Kb={kb}: the records a "
-        f"walk reads ({int(read[0].sum())} of {dims.g * dims.k} fluid, "
-        + (f"{int(read[2].sum())} of {dims.g * kb} boundary"
-           if bd is not None else "no boundary")
+        f"walk reads ({n_read} of {dims.g * dims.k} fluid, "
+        + (f"{int(read[0][2 if not counted else 1].shape[0])} of "
+           f"{dims.g * kb} boundary" if bd is not None else "no boundary")
+        + (", each cell's count" if counted else "")
         + ") bitwise equal to pack_records_plain; bitwise_repeat=yes")
+    rho13 = cfg.replace(rho0=1.3)
     for lanes, red in cc.variants(name):
         errs_u = []
-        for unroll in cc.UNROLLS:
+        part13 = (cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b,
+                                        rho13, lanes=lanes, reduction=red)
+                  if counted else None)
+        for unroll in cc.unrolls(name):
             what = f"{tag} record {name} W={lanes} {red} U={unroll}"
             got = launch_twice(what, lambda: cc.record_pass_cuda(
                 name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
@@ -462,12 +506,51 @@ def compare_records(tag, name, fl, bd, dims, dims_b, islots, cfg, want,
                 raise AssertionError(f"{what}: not bitwise equal to the "
                                      "particle-list kernel at W="
                                      f"{lanes} {red}")
+            if counted:
+                reused = cc.record_pass_cuda(
+                    name, fl, bd, islots, dims, dims_b, cfg, lanes=lanes,
+                    reduction=red, unroll=unroll, records=packs[0])
+                at13 = cc.record_pass_cuda(
+                    name, fl, bd, islots, dims, dims_b, rho13, lanes=lanes,
+                    reduction=red, unroll=unroll, records=packs[1])
+                if not (torch.equal(reused, got)
+                        and torch.equal(at13, part13)):
+                    raise AssertionError(f"{what}: on a pack made before "
+                                         "it, or at rho0 1.3, not bitwise "
+                                         "the fresh walk and the "
+                                         "particle-list kernel")
             errs_u.append(f"U={unroll} {worst_rel:.3e}")
         log("kernel", f"{tag} record {name} W={lanes} {red} "
             f"N={islots.shape[0]} K={dims.k} Kb={kb}: vs plain "
             f"max_err/row_max {', '.join(errs_u)}; each unroll bitwise "
-            "equal to the particle-list kernel at this variant; "
-            "bitwise_repeat=yes")
+            "equal to the particle-list kernel at this variant"
+            + ("; on a pack made before it bitwise the fresh walk; at rho0 "
+               "1.3 bitwise the particle-list kernel" if counted else "")
+            + "; bitwise_repeat=yes")
+
+
+def compare_shared_pack(tag, calls, cfg, cc, torch):
+    """PBD's two passes of one projection iteration on one position pack:
+    stiffness_accel's walk on the pack of pbd_lambda's operand bitwise its
+    walk on its own operand's pack, at its default, as the step runs it."""
+    ops = {c[0]: c for c in calls}
+    if not set(cc.COUNTED) <= set(ops):
+        return
+    _, lfl, lbd, ldims, ldims_b, _ = ops["pbd_lambda"]
+    _, fl, bd, dims, dims_b, islots = ops["stiffness_accel"]
+    if not torch.equal(lfl, fl[:4]):
+        raise AssertionError(f"{tag}: the two passes' positions differ")
+    shared = cc.pack_records("pbd_lambda", lfl, lbd, ldims, ldims_b, cfg)
+    got = cc.record_pass_cuda("stiffness_accel", fl, bd, islots, dims,
+                              dims_b, cfg, records=shared)
+    own = cc.record_pass_cuda("stiffness_accel", fl, bd, islots, dims,
+                              dims_b, cfg)
+    torch.cuda.synchronize()
+    if not torch.equal(got, own):
+        raise AssertionError(f"{tag}: stiffness_accel on pbd_lambda's pack "
+                             "differs from it on its own")
+    log("kernel", f"{tag} stiffness_accel on pbd_lambda's position pack "
+        "bitwise equal to it on its own operand's pack")
 
 
 def scene_mass_vs_plain(sim, ds, pp, torch, errs):
@@ -658,14 +741,17 @@ def drop_columns(st):
 
 def pbd_checks(st, cfg, off=False):
     """PBD launch identities over every frame run (the warm-up and retries
-    included), all through the particle-list kernel: pbd_lambda ==
-    stiffness_accel == the sum of the frames' iterations, one XSPH
-    traversal per frame (xsph_colorgrad and surface, or xsph with surface
-    effects off); iterations in [1, pbd_max_iter]. Adds the mean iterations
-    and host syncs per frame run after the constructor."""
+    included), each pass through its path's kernel: pbd_lambda ==
+    stiffness_accel == their shared position pack == the sum of the
+    frames' iterations, one XSPH traversal per frame (xsph_colorgrad and
+    surface, or xsph with surface effects off); iterations in [1,
+    pbd_max_iter]. Adds the mean iterations and host syncs per frame run
+    after the constructor."""
     it, frames_run = st["pbd_iters"], st["rerun_frames"]
     n = sum(it)
-    want = {"particle_pbd_lambda": n, "particle_stiffness_accel": n}
+    projection = ("pbd_lambda", "stiffness_accel")
+    want = dict(launched(projection[0], n), **launched(projection[1], n),
+                **position_packs(projection, n))
     want.update({"particle_xsph": frames_run} if off else
                 dict(launched("surface", frames_run),
                      **launched("xsph_colorgrad", frames_run)))
@@ -701,14 +787,27 @@ def expect_launches(stats, want):
 
 
 def divergence_is_stiffness_accel(stats):
-    """DFSPH runs stiffness_accel once for every divergence pass, both
-    through the particle-list kernel."""
-    la = stats["launches"]
-    if la["particle_divergence"] != la["particle_stiffness_accel"]:
+    """DFSPH runs stiffness_accel once for every divergence pass, each
+    through its path's kernel."""
+    la, sa = stats["launches"], walk_key("stiffness_accel")
+    if la["particle_divergence"] != la[sa]:
         raise AssertionError(f"particle_divergence "
-                             f"{la['particle_divergence']} != "
-                             f"particle_stiffness_accel "
-                             f"{la['particle_stiffness_accel']}")
+                             f"{la['particle_divergence']} != {sa} {la[sa]}")
+
+
+def dfsph_launches(frames_run, per_frame):
+    """DFSPH's launch identities over ``frames_run`` frames: the passes
+    ``per_frame`` once a frame each, divergence and stiffness_accel at
+    least 5 a frame (1 + 1 + >= 1 divergence iterations and 1 + 1 + >= 2
+    density iterations of each), and one position pack a frame for every
+    stiffness_accel of the frame where its walk is counted."""
+    want = {}
+    for name in per_frame:
+        want.update(launched(name, frames_run))
+    want.update({"particle_divergence": (5 * frames_run, None),
+                 walk_key("stiffness_accel"): (5 * frames_run, None)},
+                **position_packs(("stiffness_accel",), frames_run))
+    return want
 
 
 def slice_line(stats, card):
@@ -759,14 +858,16 @@ def ptxas_entry(ptxas, kernel, name, fluid_only, lanes=None,
     """The one ptxas entry of ``kernel`` on pass ``name``'s functor,
     wrapped in FluidOnly or not, at group width ``lanes`` and reduction
     (``transpose``, the template's bool) for the particle-list kernel, and
-    also at ``unroll`` for the record kernel -> (registers, spill bytes,
+    also at ``unroll`` for the record kernel; name None: a kernel that is
+    no template on a pass (count_pack_kernel) -> (registers, spill bytes,
     smem)."""
-    f = functor(name)
+    f = "" if name is None else functor(name)
     tail = None if lanes is None else f"ELi{lanes}ELb{int(transpose)}E"
     if unroll is not None:
         tail += f"Li{unroll}E"
     hits = [v for k, v in ptxas.items()
-            if f"{len(kernel)}{kernel}" in k and f"{len(f)}{f}" in k
+            if f"{len(kernel)}{kernel}" in k
+            and (name is None or f"{len(f)}{f}" in k)
             and ("9FluidOnly" in k) == fluid_only
             and (tail is None or tail in k)]
     if len(hits) != 1:
@@ -861,25 +962,39 @@ def record_rung(lanes, red, unroll, order=None, walk=False):
 
 def record_rungs(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
     """The record kernel's rungs of pass ``name``: at each (group width,
-    reduction) of ``cc.variants(name)`` and each unroll of ``cc.UNROLLS``,
-    each with the pack included, on ``islots``; the default on ``alt``'s
-    list where given; the pack alone; the walk alone at the default ->
-    [(key, fn)]."""
+    reduction) of ``cc.variants(name)`` and each unroll of
+    ``cc.unrolls(name)``, each with the pack included, on ``islots``; the
+    default on ``alt``'s list where given; the pack alone; the walk alone
+    at the default -> [(key, fn)]. For ``cc.COUNTED``, whose pack one
+    projection iteration or one DFSPH frame shares among its walks, the
+    rungs are the walk alone, on records packed before the timing, at each
+    variant and unroll, the default on ``alt``'s list, the pack alone, and the default with
+    the pack included."""
     lanes, red, unroll = cc.RECORD_DEFAULTS[name]
 
     def record(lanes, red, unroll, lst, recs=None):
         return lambda: cc.record_pass_cuda(
             name, fl, bd, lst, dims, dims_b, cfg, lanes=lanes, reduction=red,
             unroll=unroll, records=recs)
+    recs = cc.pack_records(name, fl, bd, dims, dims_b, cfg)
+    pack = ("pack", lambda: cc.pack_records(name, fl, bd, dims, dims_b,
+                                            cfg))
+    grid = [(w, r, u) for u in cc.unrolls(name) for r in cc.REDUCTIONS
+            for w in sorted(cc.LANES) if (w, r) in cc.variants(name)]
+    if name in cc.COUNTED:
+        out = [(record_rung(w, r, u, walk=True), record(w, r, u, islots, recs))
+               for w, r, u in grid]
+        if alt is not None:
+            out.append((record_rung(lanes, red, unroll, alt[0], walk=True),
+                        record(lanes, red, unroll, alt[1], recs)))
+        return out + [pack, (record_rung(lanes, red, unroll),
+                             record(lanes, red, unroll, islots))]
     out = [(record_rung(w, r, u), record(w, r, u, islots))
-           for u in cc.UNROLLS for r in cc.REDUCTIONS
-           for w in sorted(cc.LANES) if (w, r) in cc.variants(name)]
+           for w, r, u in grid]
     if alt is not None:
         out.append((record_rung(lanes, red, unroll, alt[0]),
                     record(lanes, red, unroll, alt[1])))
-    recs = cc.pack_records(name, fl, bd, dims, dims_b, cfg)
-    out.append(("pack", lambda: cc.pack_records(name, fl, bd, dims, dims_b,
-                                                cfg)))
+    out.append(pack)
     out.append((record_rung(lanes, red, unroll, walk=True),
                 record(lanes, red, unroll, islots, recs)))
     return out
@@ -925,6 +1040,109 @@ def adoption_line(tkey, ad, card):
             f"faster in both: "
             f"{'yes' if ad['particle_best_beats_its_default'] else 'no'} | "
             f"{card}")
+
+
+def best_rung(graph, keys):
+    """The rung of ``keys`` with the least graph ms in either ladder pass
+    -> (key, its two passes' graph ms)."""
+    k = min(keys, key=lambda key: min(graph[key]))
+    return k, graph[k]
+
+
+def counted_bests(name, graph, cc):
+    """The counted walk's best rung (the walk alone, at each variant and
+    unroll), the particle-list kernel's best rung
+    and default, and the pack alone, each with its two passes' graph ms ->
+    a record."""
+    wk, wt = best_rung(graph, [record_rung(w, r, u, walk=True)
+                               for w, r in cc.variants(name)
+                               for u in cc.unrolls(name)])
+    pk, pt = best_rung(graph, [rung(w, r) for w, r in cc.variants(name)])
+    dk = rung(cc.default_lanes(name), cc.default_reduction(name))
+    return {"walk_best": wk, "walk_best_graph_ms": wt, "particle_best": pk,
+            "particle_best_graph_ms": pt, "particle_default": dk,
+            "particle_default_graph_ms": graph[dk],
+            "pack_graph_ms": graph["pack"]}
+
+
+def counted_line(tkey, t, graph, cc, card):
+    """The line of a counted pass's ladder: the best rungs and the pack."""
+    b = t["bests"]
+
+    def ms(v):
+        return "/".join(f"{x:.4f}" for x in v)
+    return (f"{tkey} counted walk: best {b['walk_best']} "
+            f"{ms(b['walk_best_graph_ms'])}, pack alone "
+            f"{ms(b['pack_graph_ms'])}, default with its pack "
+            f"{record_rung(*cc.RECORD_DEFAULTS[tkey.split('@')[0]])} "
+            f"{t['record_graph_ms']:.4f}; particle-list best "
+            f"{b['particle_best']} {ms(b['particle_best_graph_ms'])}, its "
+            f"default {b['particle_default']} "
+            f"{ms(b['particle_default_graph_ms'])} graph ms per ladder "
+            f"pass; pack {t['pack']['graph_ms']:.4f} ms, bound "
+            f"{t['pack']['bound_ms']:.4f} by {t['pack']['bound_by']} "
+            f"({t['pack']['bytes']} B; est. {t['pack']['modelled_bytes']} B "
+            f"moved, not measured) | {card}")
+
+
+def counted_adoptions(times, paths, cc, card):
+    """The rule that keeps the counted walk of ``cc.COUNTED`` on a path,
+    from phase 6's graph ms (two ladder passes), each kernel at its best
+    rung: on PBD's state, per projection iteration, the pack + the
+    pbd_lambda walk + the stiffness_accel walk against the two passes'
+    particle-list bests; on DFSPH's state, the stiffness_accel walk + the
+    pack over the stiffness_accel calls a pack serves in a DFSPH frame
+    (the path's launch counts) against the particle-list best. The walk
+    keeps a solver's passes only if it wins in both ladder passes by more
+    than the gap between them (the larger of the two sums' pass-to-pass
+    spreads) -> {solver: record}, each logged as one line per pass."""
+    out = {}
+    pbd = (times.get("pbd_lambda"), times.get("stiffness_accel@pbd"))
+    if all(t is not None and "bests" in t for t in pbd):
+        bl, bs = pbd[0]["bests"], pbd[1]["bests"]
+        rec = [bl["pack_graph_ms"][i] + bl["walk_best_graph_ms"][i]
+               + bs["walk_best_graph_ms"][i] for i in range(2)]
+        part = [bl["particle_best_graph_ms"][i]
+                + bs["particle_best_graph_ms"][i] for i in range(2)]
+        out["pbd"] = {"passes": list(cc.COUNTED), "counted_ms": rec,
+                      "particle_ms": part, "per": "projection iteration",
+                      "terms": {"pack": bl["pack_graph_ms"],
+                                "pbd_lambda": bl, "stiffness_accel": bs}}
+    sa = times.get("stiffness_accel")
+    la = paths.get("dfsph", {}).get("launches", {})
+    if sa is not None and "bests" in sa and la.get("pack_positions"):
+        b = sa["bests"]
+        calls = la["record_stiffness_accel"] / la["pack_positions"]
+        rec = [b["walk_best_graph_ms"][i] + b["pack_graph_ms"][i] / calls
+               for i in range(2)]
+        out["dfsph"] = {"passes": ["stiffness_accel"], "counted_ms": rec,
+                        "particle_ms": list(b["particle_best_graph_ms"]),
+                        "per": f"call ({calls:.2f} calls a pack)",
+                        "terms": {"pack": b["pack_graph_ms"],
+                                  "stiffness_accel": b}}
+    for solver, a in out.items():
+        rec, part = a["counted_ms"], a["particle_ms"]
+        a["gap_ms"] = gap = max(abs(rec[0] - rec[1]), abs(part[0] - part[1]))
+        a["counted_keeps_the_passes"] = all(
+            x < y - gap for x, y in zip(rec, part))
+        for name in a["passes"]:
+            b = a["terms"][name]
+            log("timing", f"{name} ({solver.upper()}) adoption: counted walk "
+                f"best {b['walk_best']} "
+                + "/".join(f"{x:.4f}" for x in b["walk_best_graph_ms"])
+                + f", particle-list best {b['particle_best']} "
+                + "/".join(f"{x:.4f}" for x in b["particle_best_graph_ms"])
+                + f" (its default {b['particle_default']} "
+                + "/".join(f"{x:.4f}" for x in b["particle_default_graph_ms"])
+                + "); per " + a["per"] + ", pack and walks "
+                + "/".join(f"{x:.4f}" for x in rec) + " against "
+                + "/".join(f"{x:.4f}" for x in part)
+                + f" graph ms per ladder pass, gap {gap:.4f}: the counted "
+                f"walk keeps the pass: "
+                f"{'yes' if a['counted_keeps_the_passes'] else 'no'} | "
+                f"{card}")
+        del a["terms"]
+    return out
 
 
 def time_ladder(name, fl, bd, islots, alt, dims, dims_b, cfg, cc):
@@ -1030,7 +1248,12 @@ def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None,
                  ladder=runs, ladder_graph=graph)
         if alt is not None:
             t["other_order_graph_ms"] = gbest[rung(lanes, red, alt[0])]
-        if name in cc.RECORD_IDS:
+        if name in cc.COUNTED:
+            t.update(record_times(name, fl, bd, dims, dims_b, cfg, alt, best,
+                                  gbest, cc))
+            t["bests"] = counted_bests(name, graph, cc)
+            log("timing", counted_line(tkey, t, graph, cc, card))
+        elif name in cc.RECORD_IDS:
             t.update(record_times(name, fl, bd, dims, dims_b, cfg, alt, best,
                                   gbest, cc))
             key = record_rung(t["record_lanes"], t["record_reduction"],
@@ -1083,8 +1306,18 @@ def record_times(name, fl, bd, dims, dims_b, cfg, alt, best, gbest, cc):
     key = record_rung(lanes, red, unroll)
     plain = [time_ms(lambda: cc.pack_records_plain(name, fl, bd, cfg), 5)
              for _ in range(2)]
+    counted = name in cc.COUNTED
+    if counted:
+        # the position pack reads rows 0-3 alone, writes the real slots'
+        # records and a 4-byte count per cell, and probes no padding slot
+        # into a record
+        fl = fl[:4]
     real, probes = occupancy(fl)
-    written = 16 * (real + probes) + 4 * cc.SIDE_WIDTH[name] * real
+    cells = fl.shape[2]
+
+    def records(real, probes):
+        return 16 * real + (4 * cells if counted else 16 * probes)
+    written = records(real, probes) + 4 * cc.SIDE_WIDTH[name] * real
     nbytes = operand_bytes(fl) + written
     # an estimate from the access pattern, not a measurement: row 0 of
     # every slot, the other rows of the real slots, the records a walk reads
@@ -1092,14 +1325,15 @@ def record_times(name, fl, bd, dims, dims_b, cfg, alt, best, gbest, cc):
         + written
     if bd is not None:
         breal, bprobes = occupancy(bd)
-        nbytes += operand_bytes(bd) + 16 * (breal + bprobes)
+        nbytes += operand_bytes(bd) + records(breal, bprobes)
         moved += 4 * (bd.shape[1] * bd.shape[2] + (bd.shape[0] - 1) * breal) \
-            + 16 * (breal + bprobes)
+            + records(breal, bprobes)
     flops = SIDE_FLOPS[name] * real
     t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
     rec = {"record_lanes": lanes, "record_reduction": red,
            "record_unroll": unroll, "record_ms": best[key],
            "record_graph_ms": gbest[key],
+           "walk_ms": best[record_rung(lanes, red, unroll, walk=True)],
            "walk_graph_ms": gbest[record_rung(lanes, red, unroll,
                                               walk=True)],
            "pack": {"ms": best["pack"], "graph_ms": gbest["pack"],
@@ -1110,7 +1344,7 @@ def record_times(name, fl, bd, dims, dims_b, cfg, alt, best, gbest, cc):
                     else "bytes"}}
     if alt is not None:
         rec["record_other_order_graph_ms"] = gbest[
-            record_rung(lanes, red, unroll, alt[0])]
+            record_rung(lanes, red, unroll, alt[0], walk=counted)]
     return rec
 
 
@@ -1523,8 +1757,9 @@ def mesh_launches(res, tag, ref=None):
     as in the single-device run ``ref`` where given; no column kernel."""
     m = res["meta"]
     solver = m["case"].split(":")[0].split("-")[0]
-    missing = [k for name in MESH_PASSES[solver]
-               for k in launched(name, 1) if not m["launches"].get(k)]
+    want = [k for name in MESH_PASSES[solver] for k in launched(name, 1)]
+    want += list(position_packs(MESH_PASSES[solver], 1))
+    missing = [k for k in want if not m["launches"].get(k)]
     column = {k: v for k, v in m["launches"].items()
               if not k.startswith(("particle_", "pack_", "record_")) and v}
     if missing or column:
@@ -1682,7 +1917,30 @@ def kernel_row(name, paths, owner, errs, times, pp, cc):
             row["order"] = t["order"]
         if "other_order_graph_ms" in t:
             row["other_order_graph_ms"] = t["other_order_graph_ms"]
-    if name in cc.RECORD_IDS:
+    if name in cc.COUNTED:
+        # the path's kernel is the counted walk, its pack a row of its own
+        # (it serves several walks); the particle-list kernel's best beside
+        key = f"record_{name}"
+        b = t["bests"]
+        row.update(max_abs_err=errs[key]["max_abs_err"], ms=t["walk_ms"],
+                   graph_ms=t["walk_graph_ms"],
+                   record_graph_ms=t["record_graph_ms"],
+                   particle_ms=t["particle_ms"],
+                   particle_graph_ms=t["graph_ms"],
+                   particle_best=b["particle_best"],
+                   particle_best_graph_ms=min(b["particle_best_graph_ms"]),
+                   walk_best=b["walk_best"],
+                   walk_best_graph_ms=min(b["walk_best_graph_ms"]),
+                   pack_graph_ms=t["pack"]["graph_ms"],
+                   lanes=t["record_lanes"], reduction=t["record_reduction"],
+                   unroll=t["record_unroll"],
+                   record_keeps_the_pass=t.get("counted_keeps_the_pass"),
+                   note="ms and graph_ms: the walk alone at its default on "
+                        "a position pack made before it; the pack is the "
+                        "pack_positions row")
+        if "record_other_order_graph_ms" in t:
+            row["other_order_graph_ms"] = t["record_other_order_graph_ms"]
+    elif name in cc.RECORD_IDS:
         # the path's kernel is the record kernel, its pack included; the
         # particle-list kernel's default beside it
         key = f"record_{name}"
@@ -1709,20 +1967,26 @@ def kernel_row(name, paths, owner, errs, times, pp, cc):
     return row
 
 
-def pack_row(name, paths, owner, errs, times):
+def pack_row(name, paths, owner, errs, times, cc):
     """The kernels-table row of pass ``name``'s pack kernel, which its path
-    launches once per call of the record kernel."""
-    pk = times[name]["pack"]
-    return {"name": f"pack_{name}", "route": "cuda", "source": KERNEL_SRC,
+    launches once per call of the record kernel; for ``cc.COUNTED`` the
+    position pack (``pack_positions``), timed on ``name``'s state, which
+    its path launches once per projection iteration (PBD) or frame
+    (DFSPH)."""
+    pk, key = times[name]["pack"], cc.pack_key(name)
+    return {"name": key, "route": "cuda", "source": KERNEL_SRC,
             "replaces": TPU_KERNEL,
-            "launches": paths[owner.get(name, "dfsph")]["launches"][
-                f"pack_{name}"],
-            "max_abs_err": errs[f"pack_{name}"]["max_abs_err"],
+            "launches": paths[owner.get(name, "dfsph")]["launches"][key],
+            "max_abs_err": errs[key]["max_abs_err"],
             "ms": pk["ms"], "graph_ms": pk["graph_ms"],
             "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
             "bound_by": pk["bound_by"], "library_ms": None,
-            "note": f"the records {name}'s record kernel walks, packed once "
-                    "per call"}
+            "note": (f"the position pack that {' and '.join(cc.COUNTED)} "
+                     "walk, packed once per PBD projection iteration and "
+                     f"once per DFSPH frame; timed on {name}'s state"
+                     if name in cc.COUNTED else
+                     f"the records {name}'s record kernel walks, packed "
+                     "once per call")}
 
 
 def main(argv) -> int:
@@ -1766,16 +2030,21 @@ def main(argv) -> int:
             regs[f"particle_{name}_W{lanes}_{red}"] = {
                 "registers": r, "spill_bytes": sp}
     for name in cc.RECORD_IDS:
-        r, sp, _ = ptxas_entry(ptxas, "pack_kernel", name, False)
-        regs[f"pack_{name}"] = {"registers": r, "spill_bytes": sp}
+        counted = name in cc.COUNTED
+        if not counted:
+            r, sp, _ = ptxas_entry(ptxas, "pack_kernel", name, False)
+            regs[f"pack_{name}"] = {"registers": r, "spill_bytes": sp}
         for lanes, red in sorted(cc.variants(name),
                                  key=lambda v: (v[1], v[0])):
-            for unroll in cc.UNROLLS:
-                r, sp, _ = ptxas_entry(ptxas, "record_pass_kernel", name,
-                                       False, lanes, red == "transpose",
-                                       unroll)
+            for unroll in cc.unrolls(name):
+                r, sp, _ = ptxas_entry(
+                    ptxas, "counted_pass_kernel" if counted
+                    else "record_pass_kernel", name, False, lanes,
+                    red == "transpose", unroll)
                 regs[f"record_{name}_W{lanes}_{red}_U{unroll}"] = {
                     "registers": r, "spill_bytes": sp}
+    r, sp, _ = ptxas_entry(ptxas, "count_pack_kernel", None, False)
+    regs["pack_positions"] = {"registers": r, "spill_bytes": sp}
     flat_regs = {}
     for body, name in pp.FLAT_BODIES.items():
         rows = pp.PASSES[name].fi
@@ -1857,6 +2126,17 @@ def main(argv) -> int:
         if st is not None:
             paths[f"{solver}_surface_off"] = st
 
+    # 6: the counted walk's adoption rule over the PBD and DFSPH ladders
+    adopted = record["counted_adoption"] = guard(
+        "counted adoption (phase 6)", functools.partial(
+            counted_adoptions, times, paths, cc, card)) or {}
+    for solver, a in adopted.items():
+        for name in a["passes"]:
+            tkey = name if solver == "dfsph" or name == "pbd_lambda" \
+                else f"{name}@{solver}"
+            times[tkey]["counted_keeps_the_pass"] = \
+                a["counted_keeps_the_passes"]
+
     # 7. flat: the prototype's entry point on the 150-frame WCSPH dam
     record["flat"] = flat = guard("flat (phase 7)", functools.partial(
         flat_phase, cfg, cc, pp, torch, card))
@@ -1885,11 +2165,12 @@ def main(argv) -> int:
              "pressure_force": "wcsph_surface_off",
              "density_alpha": "dfsph_surface_off", "pbd_lambda": "pbd",
              "xsph_colorgrad": "pbd", "xsph": "pbd_surface_off"}
+    packs = {cc.pack_key(n): n for n in cc.RECORD_IDS}
     table = {"kernels": [kernel_row(name, paths, owner, errs, times, pp,
                                     cc)
                          for name in cc.PASS_IDS]
-        + [pack_row(name, paths, owner, errs, times)
-           for name in cc.RECORD_IDS]
+        + [pack_row(name, paths, owner, errs, times, cc)
+           for name in packs.values()]
         + [{"name": f"flat_{body}", "route": "cuda", "source": KERNEL_SRC,
             "replaces": FLAT_TPU_KERNEL, "launches": rec["launches"],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -1937,17 +2218,10 @@ def path_phase(cfp, ds, cc, torch, cfg, solver, phase, dt, card):
     elif solver == "dfsph":
         # per frame run: one density_alpha_colorgrad, viscosity and
         # surface, each through its path's kernel; divergence ==
-        # stiffness_accel (the divergence warm start is on; the
-        # particle-list kernel runs both), at least 5 (1 + 1 + >= 1
-        # divergence iterations and 1 + 1 + >= 2 density iterations of
-        # each); the column kernel launches nothing
-        expect_launches(st, dict(launched("surface", frames_run),
-                                 **launched("density_alpha_colorgrad",
-                                            frames_run),
-                                 **launched("viscosity", frames_run),
-                                 particle_divergence=(5 * frames_run, None),
-                                 particle_stiffness_accel=(5 * frames_run,
-                                                           None)))
+        # stiffness_accel (the divergence warm start is on), at least 5
+        # each, and one position pack; the column kernel launches nothing
+        expect_launches(st, dfsph_launches(
+            frames_run, ("surface", "density_alpha_colorgrad", "viscosity")))
         divergence_is_stiffness_accel(st)
         cap = cfg.dfsph_max_iter
         di, ni = st["divergence_iters"], st["density_iters"]
@@ -2018,10 +2292,8 @@ def off_phase(cfp, ds, cc, torch, off, solver, card):
         expect_launches(st, {"particle_density_visc": n,
                              "particle_pressure_force": n})
     elif solver == "dfsph":
-        expect_launches(st, dict(launched("viscosity", n),
-                                 particle_density_alpha=n,
-                                 particle_divergence=(5 * n, None),
-                                 particle_stiffness_accel=(5 * n, None)))
+        expect_launches(st, dfsph_launches(n, ("viscosity",
+                                               "density_alpha")))
         divergence_is_stiffness_accel(st)
     else:
         tail = pbd_checks(st, off, off=True)

@@ -51,19 +51,20 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
-// particle_pass_kernel (below) has fourteen instances and runs ten on
-// the main path: pbd_lambda, stiffness_accel, divergence,
-// density_colorgrad_visc, density_alpha_colorgrad, the surface-off
-// density_visc, pressure_force and density_alpha, (PBD with surface
-// effects off) the fluid-only xsph, and the scene build's density over the
-// boundary grid. A group of lanes per particle of the slot list splits
-// that particle's 27-cell walk, and the group's sums are reduced by an xor
-// butterfly or, for passes with many sums, a transpose reduction.
-// record_pass_kernel (below) runs the other four, surface_pressure,
-// xsph_colorgrad and the fluid-only surface and viscosity, in the same
-// groups over a cell-packed copy of the operand that pack_kernel writes
-// once per call; their particle-list instances stay as its bitwise
-// yardstick. No path
+// particle_pass_kernel (below) has fourteen instances and runs eight on
+// the main path: divergence, density_colorgrad_visc,
+// density_alpha_colorgrad, the surface-off density_visc, pressure_force
+// and density_alpha, (PBD with surface effects off) the fluid-only xsph,
+// and the scene build's density over the boundary grid. A group of lanes
+// per particle of the slot list splits that particle's 27-cell walk, and
+// the group's sums are reduced by an xor butterfly or, for passes with
+// many sums, a transpose reduction. record_pass_kernel (below) runs four
+// more, surface_pressure, xsph_colorgrad and the fluid-only surface and
+// viscosity, in the same groups over a cell-packed copy of the operand
+// that pack_kernel writes once per call, and counted_pass_kernel the last
+// two, pbd_lambda and stiffness_accel, over one position pack
+// (count_pack_kernel) that serves every pass on the same positions; their
+// particle-list instances stay as their bitwise yardstick. No path
 // launches column_pass_kernel any more: it runs only as the yardstick of
 // those fourteen (the note above the particle template says why it is
 // slower) and for color_gradient and density_colorgrad, which nothing
@@ -78,6 +79,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -422,33 +424,52 @@ struct DivergencePass {
 
 // Stiffness acceleration (src/DFSPHSolver.cu:118-136; pallas_passes.py:
 // 1124): fl = [pos3, mass, stiff]. sum_f m_j (s_i + s_j) gradW + sum_b m_b
-// s_i gradW.
+// s_i gradW. The counted record interface (kCounted; see
+// counted_pass_kernel): make_i takes x, y, z from a record and s_i from
+// the operand's plane f (row stride kg) at the particle's slot t; terms
+// takes m_j from a record and loads s_j from the plane at the pair's slot
+// tj after the support test, as fluid does; bdry_terms takes m_b.
 struct StiffnessAccelPass {
   static constexpr int kOut = 3;
   static constexpr bool kBoundary = true;
+  static constexpr bool kCounted = true;
   struct I {
     float x, y, z, s;
   };
+  __device__ static I make_i(float x, float y, float z, const float* f,
+                             int64_t t, int64_t kg) {
+    return {x, y, z, f[4 * kg + t]};
+  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts&) {
-    return {fl[t], fl[kg + t], fl[2 * kg + t], fl[4 * kg + t]};
+    return make_i(fl[t], fl[kg + t], fl[2 * kg + t], fl, t, kg);
   }
-  __device__ static void fluid(float* acc, const I& i, const float* fl,
-                               int64_t tj, int64_t kg, float dx, float dy,
-                               float dz, float r, const Consts& c) {
-    const float mj = fl[3 * kg + tj];
-    const float s = (i.s + fl[4 * kg + tj]) * grad_w_cubic_coef(r, c);
+  __device__ static void terms(float* acc, const I& i, float mj,
+                               const float* f, int64_t tj, int64_t kg,
+                               float dx, float dy, float dz, float r,
+                               const Consts& c) {
+    const float s = (i.s + f[4 * kg + tj]) * grad_w_cubic_coef(r, c);
     acc[0] += mj * (s * dx);
     acc[1] += mj * (s * dy);
     acc[2] += mj * (s * dz);
   }
-  __device__ static void bdry(float* acc, const I& i, const float* bd,
-                              int64_t tj, int64_t kbg, float dx, float dy,
-                              float dz, float r, const Consts& c) {
-    const float coefb = bd[3 * kbg + tj] * i.s * grad_w_cubic_coef(r, c);
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
+                               int64_t tj, int64_t kg, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    terms(acc, i, fl[3 * kg + tj], fl, tj, kg, dx, dy, dz, r, c);
+  }
+  __device__ static void bdry_terms(float* acc, const I& i, float mb,
+                                    float dx, float dy, float dz, float r,
+                                    const Consts& c) {
+    const float coefb = mb * i.s * grad_w_cubic_coef(r, c);
     acc[0] += coefb * dx;
     acc[1] += coefb * dy;
     acc[2] += coefb * dz;
+  }
+  __device__ static void bdry(float* acc, const I& i, const float* bd,
+                              int64_t tj, int64_t kbg, float dx, float dy,
+                              float dz, float r, const Consts& c) {
+    bdry_terms(acc, i, bd[3 * kbg + tj], dx, dy, dz, r, c);
   }
 };
 
@@ -601,24 +622,42 @@ struct PressureForcePass {
 // 1156-1198): fl = bd = [pos3, mass]. Outputs [rho, gsumx, gsumy, gsumz,
 // slam] with the gradient divided by rho0 once per pair. Fluid and boundary
 // take the same form, so the boundary adds to slam too (unlike alpha_bdry).
+// The counted record interface (kCounted; see counted_pass_kernel): the
+// pass reads nothing of j but its position and mass, so make_i and terms
+// ignore the operand's planes.
 struct PbdLambdaPass {
   static constexpr int kOut = 5;
   static constexpr bool kBoundary = true;
+  static constexpr bool kCounted = true;
   using I = Pos;
+  __device__ static I make_i(float x, float y, float z, const float*,
+                             int64_t, int64_t) {
+    return {x, y, z};
+  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts&) {
     return load_pos(fl, t, kg);
   }
-  __device__ static void fluid(float* acc, const I&, const float* fl,
+  __device__ static void terms(float* acc, const I&, float mj, const float*,
+                               int64_t, int64_t, float dx, float dy,
+                               float dz, float r, const Consts& c) {
+    alpha_fluid(acc, mj, w_cubic(r, c), grad_w_cubic_coef(r, c) / c.rho0,
+                dx, dy, dz);
+  }
+  __device__ static void fluid(float* acc, const I& i, const float* fl,
                                int64_t tj, int64_t kg, float dx, float dy,
                                float dz, float r, const Consts& c) {
-    alpha_fluid(acc, fl[3 * kg + tj], w_cubic(r, c),
-                grad_w_cubic_coef(r, c) / c.rho0, dx, dy, dz);
+    terms(acc, i, fl[3 * kg + tj], fl, tj, kg, dx, dy, dz, r, c);
+  }
+  __device__ static void bdry_terms(float* acc, const I& i, float mb,
+                                    float dx, float dy, float dz, float r,
+                                    const Consts& c) {
+    terms(acc, i, mb, nullptr, 0, 0, dx, dy, dz, r, c);
   }
   __device__ static void bdry(float* acc, const I& i, const float* bd,
                               int64_t tj, int64_t kbg, float dx, float dy,
                               float dz, float r, const Consts& c) {
-    fluid(acc, i, bd, tj, kbg, dx, dy, dz, r, c);
+    bdry_terms(acc, i, bd[3 * kbg + tj], dx, dy, dz, r, c);
   }
 };
 
@@ -865,8 +904,10 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 //
 // Replaces the same TPU kernel as column_pass_kernel, pallas_passes.py:107
 // `column_pass`, for fourteen instances: the PBD projection passes
-// pbd_lambda and stiffness_accel, the DFSPH Jacobi passes divergence and
-// stiffness_accel (each runs in every iteration of its solve), WCSPH's two
+// pbd_lambda and stiffness_accel and the DFSPH Jacobi pass stiffness_accel
+// (which the steps run through counted_pass_kernel, below, with these
+// instances as its yardstick), the DFSPH Jacobi pass divergence (each
+// runs in every iteration of its solve), WCSPH's two
 // traversals density_colorgrad_visc and surface_pressure, PBD's
 // xsph_colorgrad, DFSPH's density_alpha_colorgrad, WCSPH's surface-off
 // density_visc and pressure_force, DFSPH's surface-off density_alpha, and
@@ -1246,22 +1287,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <class P>
-cudaError_t launch_pack(const float* fl, const float* bd, void* geo,
-                        void* side, void* bgeo, int k, int kb, int64_t g,
-                        const Consts& c, cudaStream_t stream) {
-  const int slots = k + (P::kBoundary ? kb : 0);
-  if (g == 0 || slots == 0) return cudaSuccess;
-  if (slots > 65535) return cudaErrorInvalidValue;  // gridDim.y
-  const dim3 blocks(static_cast<unsigned>((g + kThreads - 1) / kThreads),
-                    static_cast<unsigned>(slots));
-  pack_kernel<P><<<blocks, kThreads, 0, stream>>>(
-      fl, bd, static_cast<float4*>(geo),
-      static_cast<typename P::J*>(side), static_cast<float4*>(bgeo), k, kb,
-      g, c);
-  return cudaGetLastError();
-}
-
 struct Pair {
   float dx, dy, dz, r;
 };
@@ -1387,6 +1412,257 @@ struct RecordsIn {
                            const Consts& c, cudaStream_t stream) {
       if (n == 0) return cudaSuccess;
       record_pass_kernel<P, W, kTranspose, U>
+          <<<group_blocks<W>(n), kThreads, 0, stream>>>(
+              rec, islots, out, n, k, kb, gx, gy, gz, c);
+      return cudaGetLastError();
+    }
+  };
+};
+
+// --- the counted record walk (PbdLambdaPass, StiffnessAccelPass) ---
+//
+// Replaces the same TPU kernel, pallas_passes.py:107 `column_pass`, for
+// pbd_lambda (:1185) and stiffness_accel (:1124), the two passes of every
+// PBD projection iteration and the correction pass of both DFSPH Jacobi
+// loops, in place of particle_pass_kernel on those instances. It computes
+// what particle_pass_kernel computes: the same slot list, groups of W
+// lanes, offsets l, l+W, ... in m-order, slots in rank order, fluid before
+// boundary per cell, float operations (the functors' terms and bdry_terms)
+// and reductions, so its output is bitwise that kernel's at the same (W,
+// reduction).
+//
+// Bound: as particle_pass_kernel's, the chain of dependent loads of each
+// lane's walk (the bound of PERF.md section 6, bytes and operations, is
+// unchanged; these kernels run 20-30x above it). In particle_pass_kernel
+// the chain is per slot: load the slot's x, test it against the padding,
+// only then load its y and z and the next slot's x, each G floats from the
+// last. Here count_pack_kernel, once per operand, writes each real slot's
+// {x, y, z, m} as one 16-byte record at c*K + s, so that a cell's slots are
+// consecutive, and each cell's count of real slots (ranks fill a cell from
+// slot 0, so the count is its first padding slot, or K). A lane reads the
+// cell's counts as it reaches the cell, then takes the cell's records U
+// at a time (U = 1, 2 or 4): all U loads issued before
+// any arithmetic, no padding test, no load past the cell's last real slot
+// and no record of a padding slot, which the pack does not write. The
+// loads of a batch do not wait on a test, and the batches do not wait on
+// each other: the only chain left is from a pair's support test to the
+// functor's own j load (stiffness_accel's s_j, from the operand's plane,
+// as particle_pass_kernel loads it). The walk indexes in 32 bits and is
+// held to 48 registers (kCountedBlocks): its first form, with 64-bit
+// indices and 50-62 registers, lost to particle_pass_kernel on every
+// state (pbd_lambda's walk 0.0562-0.0568 against 0.0492-0.0503 ms on one
+// frozen PBD state), where this one takes 0.0470-0.0474 at W 16 and the
+// 0.0444 / 0.0447 of its default on the 300-frame state (PERF.md section
+// 6). The pack holds positions and masses
+// only, so one pack serves every pass on the same positions: pbd_lambda
+// and stiffness_accel within a PBD projection iteration, and every
+// stiffness_accel of a DFSPH frame, whose positions stay fixed across the
+// Jacobi iterations (ops/passes.py SharedPack).
+
+// the counted records of one operand, each indexed c*K + s (boundary c*Kb
+// + s), and the operand's planes
+struct Counted {
+  const float4* geo;    // {x, y, z, m} of each real slot
+  const int* count;     // each cell's real slots
+  const float4* bgeo;   // the boundary's {x, y, z, m}
+  const int* bcount;    // each cell's real boundary slots
+  const float* fl;      // the operand (Fi, K, G): row 0, the i side,
+                        // P::terms's j
+};
+
+// whether P has the counted record interface (make_i from a record and the
+// planes, terms and bdry_terms over a record's mass)
+template <class P, class = void>
+struct counted : std::false_type {};
+template <class P>
+struct counted<P, std::void_t<decltype(P::kCounted)>>
+    : std::bool_constant<P::kCounted> {};
+
+// slot s of cell `cell` of grid f (K slots a cell, G cells): a real slot's
+// {x, y, z, m} at record cell*K + s, and the cell's count, written by the
+// thread of its first padding slot (slot 0, or the slot after a real one)
+// or, in a cell full to K, of slot K - 1. Thread (s, cell) reads row 0 of
+// slot s and, at a padding slot, of slot s - 1: both coalesce across the
+// warp's consecutive cells.
+__device__ __forceinline__ void count_slot(const float* __restrict__ f,
+                                           float4* __restrict__ geo,
+                                           int* __restrict__ count, int s,
+                                           int64_t cell, int k, int64_t g,
+                                           const Consts& c) {
+  const int64_t kg = k * g;
+  const int64_t t = s * g + cell;
+  const float x = f[t];
+  if (x < c.pos_guard) {
+    geo[cell * k + s] =
+        make_float4(x, f[kg + t], f[2 * kg + t], f[3 * kg + t]);
+    if (s == k - 1) count[cell] = k;
+  } else if (s == 0 || f[t - g] < c.pos_guard) {
+    count[cell] = s;
+  }
+}
+
+// the position pack of counted_pass_kernel: one thread per (slot, cell),
+// blockIdx.y the slot, the fluid's K and then the boundary's Kb, as
+// pack_kernel; fl and bd [pos3, mass, ...] (rows 0-3 read)
+__global__ void __launch_bounds__(kThreads)
+    count_pack_kernel(const float* __restrict__ fl,
+                      const float* __restrict__ bd, float4* __restrict__ geo,
+                      int* __restrict__ count, float4* __restrict__ bgeo,
+                      int* __restrict__ bcount, int k, int kb, int64_t g,
+                      Consts c) {
+  const int64_t cell =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= g) return;
+  const int s = static_cast<int>(blockIdx.y);
+  if (s < k)
+    count_slot(fl, geo, count, s, cell, k, g, c);
+  else
+    count_slot(bd, bgeo, bcount, s - k, cell, kb, g, c);
+}
+
+// One cell's n real records cr[0..n), U at a time: the fluid's through
+// P::terms (the pair's slot s*G in the planes fj, the operand offset to the
+// cell), the boundary's (kFluid false) through P::bdry_terms. 32-bit
+// indices (the launcher refuses K*G or Kb*G of 2^31 or more)
+template <class P, bool kFluid, int U>
+__device__ __forceinline__ void walk_counted(float* acc,
+                                             const typename P::I& iv,
+                                             const float4* __restrict__ cr,
+                                             const float* __restrict__ fj,
+                                             int n, int g, int kg,
+                                             const Consts& c) {
+  for (int s0 = 0; s0 < n; s0 += U) {
+    float4 rj[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      rj[u] = s0 + u < n ? cr[s0 + u] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s0 + u >= n) break;
+      Pair q;
+      if (!separation(iv, rj[u].x, rj[u].y, rj[u].z, c, &q)) continue;
+      if constexpr (kFluid)
+        P::terms(acc, iv, rj[u].w, fj, (s0 + u) * g, kg, q.dx, q.dy, q.dz,
+                 q.r, c);
+      else
+        P::bdry_terms(acc, iv, rj[u].w, q.dx, q.dy, q.dz, q.r, c);
+    }
+  }
+}
+
+// blocks of counted_pass_kernel resident on an SM at the least, which caps
+// its registers at 48 (some instances spill up to 24 bytes): uncapped, the
+// walk took 50-62 registers, 4 blocks an SM
+constexpr int kCountedBlocks = 5;
+
+// particle_pass_kernel's groups over the counted records: islots names
+// plane slots s*G + c (the trash value K*G for an invalid particle), the
+// i side comes from record c*K + s and the planes, each lane walks its
+// offsets' cells with walk_counted, each cell's counts read as the lane
+// reaches it, and the sums are reduced and stored as there. Whether t
+// holds a particle is read from the operand's row 0, as
+// particle_pass_kernel reads it, since the pack writes no record for a
+// padding slot: a listed padding slot stores nothing, and its record (never
+// written) is loaded but not used.
+template <class P, int W, bool kTranspose, int U>
+__global__ void __launch_bounds__(kThreads, kCountedBlocks)
+    counted_pass_kernel(Counted rec, const int64_t* __restrict__ islots,
+                        float* __restrict__ out, int n, int k, int kb, int gx,
+                        int gy, int gz, Consts c) {
+  static_assert(W == 8 || W == 16 || W == 32,
+                "a group is 8, 16 or 32 lanes of one warp");
+  static_assert(U == 1 || U == 2 || U == 4, "a batch is 1, 2 or 4 slots");
+  static_assert(P::kBoundary, "the counted passes have a boundary term");
+  constexpr int S = kTranspose ? pow2_at_least(P::kOut) : P::kOut;
+  static_assert(!kTranspose || S <= W,
+                "the transpose leaves each lane one sum: every sum needs a "
+                "lane to store it");
+  const int g = gx * gy * gz;
+  const int kg = k * g;
+  const int p = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) / W);
+  const int lane = static_cast<int>(threadIdx.x % W);
+  const int64_t ts = p < n ? islots[p] : kg;  // kg: the trash slot
+
+  // every test below reads only t, so it is uniform across the group
+  bool active = ts >= 0 && ts < kg;
+  const int t = active ? static_cast<int>(ts) : kg;
+  int cell = 0;
+  float4 gi = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int gyz = gy * gz;
+  if (active) {
+    cell = t % g;
+    const int x = cell / gyz;
+    const int y = (cell / gz) % gy;
+    const int z = cell % gz;
+    gi = rec.geo[cell * k + t / g];
+    active = x > 0 && x < gx - 1 && y > 0 && y < gy - 1 && z > 0 &&
+             z < gz - 1 && rec.fl[t] < c.pos_guard;
+  }
+
+  float acc[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) acc[j] = 0.f;
+
+  if (active) {
+    const typename P::I iv = P::make_i(gi.x, gi.y, gi.z, rec.fl, t, kg);
+    for (int o = lane; o < 27; o += W) {
+      const int cj =
+          cell + (o / 9 - 1) * gyz + ((o % 9) / 3 - 1) * gz + (o % 3 - 1);
+      const int nf = rec.count[cj], nb = rec.bcount[cj];
+      walk_counted<P, true, U>(acc, iv, rec.geo + cj * k, rec.fl + cj, nf,
+                               g, kg, c);
+      walk_counted<P, false, U>(acc, iv, rec.bgeo + cj * kb, nullptr, nb,
+                                g, 0, c);
+    }
+  }
+
+  reduce_store<P::kOut, W, kTranspose>(acc, lane, active, out,
+                                       static_cast<int64_t>(t),
+                                       static_cast<int64_t>(kg));
+}
+
+// the launcher of pass P's pack: pack_kernel<P> into geo, side and bgeo,
+// or for a pass with the counted interface count_pack_kernel into geo,
+// count, bgeo and bcount
+template <class P>
+cudaError_t launch_pack(const float* fl, const float* bd, void* geo,
+                        void* side, void* bgeo, int* count, int* bcount,
+                        int k, int kb, int64_t g, const Consts& c,
+                        cudaStream_t stream) {
+  const int slots = k + (P::kBoundary ? kb : 0);
+  if (g == 0 || slots == 0) return cudaSuccess;
+  if (slots > 65535) return cudaErrorInvalidValue;  // gridDim.y
+  const dim3 blocks(static_cast<unsigned>((g + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(slots));
+  if constexpr (counted<P>::value) {
+    count_pack_kernel<<<blocks, kThreads, 0, stream>>>(
+        fl, bd, static_cast<float4*>(geo), count, static_cast<float4*>(bgeo),
+        bcount, k, kb, g, c);
+  } else {
+    pack_kernel<P><<<blocks, kThreads, 0, stream>>>(
+        fl, bd, static_cast<float4*>(geo),
+        static_cast<typename P::J*>(side), static_cast<float4*>(bgeo), k,
+        kb, g, c);
+  }
+  return cudaGetLastError();
+}
+
+// the launchers of counted_pass_kernel<P, W, kTranspose, U>; its 32-bit
+// indices need K*G, Kb*G and the n * W threads under 2^31
+template <int U>
+struct CountedIn {
+  template <class P, int W, bool kTranspose>
+  struct L {
+    static cudaError_t run(Counted rec, const int64_t* islots, float* out,
+                           int n, int k, int kb, int gx, int gy, int gz,
+                           const Consts& c, cudaStream_t stream) {
+      if (n == 0) return cudaSuccess;
+      const int64_t g = static_cast<int64_t>(gx) * gy * gz;
+      constexpr int64_t kMax = int64_t{1} << 31;
+      if (k * g >= kMax || kb * g >= kMax ||
+          static_cast<int64_t>(n) * W >= kMax)
+        return cudaErrorInvalidValue;
+      counted_pass_kernel<P, W, kTranspose, U>
           <<<group_blocks<W>(n), kThreads, 0, stream>>>(
               rec, islots, out, n, k, kb, gx, gy, gz, c);
       return cudaGetLastError();
@@ -1662,13 +1938,18 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
 // cg3]; bd and bgeo null, kb 0) and 12 (xsph_colorgrad: side (float4)
 // from fl = [pos3, mass, vel3], bgeo from bd) of column_pass_launch, each
 // record at c*K + s (boundary c*Kb + s) of buffers the caller allocates;
-// only the records a walk reads are written (pack_kernel). Returns a
+// only the records a walk reads are written (pack_kernel; count and bcount
+// null). Pass ids 5 (stiffness_accel) and 11 (pbd_lambda) take one
+// position pack, the same for both (count_pack_kernel): geo and bgeo of
+// the real slots of rows 0-3 of fl and bd, and int32 count and bcount per
+// cell (side null); the caller zeroes bcount where Kb is 0. Returns a
 // cudaError_t; any other pass id, or K + Kb over 65535, is
 // cudaErrorInvalidValue.
 extern "C" int pack_records_launch(int pass_id, const float* fl,
                                    const float* bd, void* geo, void* side,
-                                   void* bgeo, int k, int kb, int gx, int gy,
-                                   int gz, const float* consts, int n_consts,
+                                   void* bgeo, int* count, int* bcount,
+                                   int k, int kb, int gx, int gy, int gz,
+                                   const float* consts, int n_consts,
                                    int device, void* stream) {
   Consts c;
   if (!read_consts(consts, n_consts, &c)) return cudaErrorInvalidValue;
@@ -1678,36 +1959,47 @@ extern "C" int pack_records_launch(int pass_id, const float* fl,
   const int64_t g = static_cast<int64_t>(gx) * gy * gz;
   switch (pass_id) {
     case 2:
-      return launch_pack<SurfacePressurePass>(fl, bd, geo, side, bgeo, k, kb,
-                                              g, c, s);
+      return launch_pack<SurfacePressurePass>(fl, bd, geo, side, bgeo,
+                                              nullptr, nullptr, k, kb, g, c,
+                                              s);
+    case 5:
+      return launch_pack<StiffnessAccelPass>(fl, bd, geo, nullptr, bgeo,
+                                             count, bcount, k, kb, g, c, s);
     case 6:
-      return launch_pack<ViscosityPass>(fl, nullptr, geo, side, nullptr, k,
-                                        0, g, c, s);
+      return launch_pack<ViscosityPass>(fl, nullptr, geo, side, nullptr,
+                                        nullptr, nullptr, k, 0, g, c, s);
     case 7:
-      return launch_pack<SurfacePass>(fl, nullptr, geo, side, nullptr, k, 0,
-                                      g, c, s);
+      return launch_pack<SurfacePass>(fl, nullptr, geo, side, nullptr,
+                                      nullptr, nullptr, k, 0, g, c, s);
+    case 11:
+      return launch_pack<PbdLambdaPass>(fl, bd, geo, nullptr, bgeo, count,
+                                        bcount, k, kb, g, c, s);
     case 12:
-      return launch_pack<XsphColorgradPass>(fl, bd, geo, side, bgeo, k, kb,
-                                            g, c, s);
+      return launch_pack<XsphColorgradPass>(fl, bd, geo, side, bgeo, nullptr,
+                                            nullptr, k, kb, g, c, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // The record kernel on pass ids 2 (surface_pressure), 6 (viscosity), 7
-// (surface) and 12 (xsph_colorgrad) over pack_records_launch's records, W
-// = lanes in {8, 16, 32}, reduction 0 or 1 as particle_pass_launch, U =
-// unroll in {1, 2} slots a batch, over the n particles of islots (plane
-// slots as particle_pass_launch's). out must be zeroed by the caller.
-// Returns a cudaError_t; any other pass id, width, reduction or unroll is
-// cudaErrorInvalidValue.
+// (surface) and 12 (xsph_colorgrad) over pack_records_launch's records
+// (count, bcount and fl null), U = unroll in {1, 2}, and the counted walk
+// (counted_pass_kernel) on pass ids 5 (stiffness_accel, whose i side and
+// s_j come from the operand fl = [pos3, mass, s]) and 11 (pbd_lambda, fl =
+// [pos3, mass]), whose row 0 says which i slots hold a particle, over their position pack (geo, count, bgeo,
+// bcount; side null), U in {1, 2, 4}; W = lanes in {8, 16, 32}, reduction
+// 0 or 1 as particle_pass_launch, over the n particles of islots (plane
+// slots as particle_pass_launch's). out must be zeroed by the caller. Returns a cudaError_t; any other pass
+// id, width, reduction or unroll is cudaErrorInvalidValue.
 extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
                                   int unroll, const void* geo,
                                   const void* side, const void* bgeo,
-                                  const int64_t* islots, float* out, int n,
-                                  int k, int kb, int gx, int gy, int gz,
-                                  const float* consts, int n_consts,
-                                  int device, void* stream) {
+                                  const int* count, const int* bcount,
+                                  const float* fl, const int64_t* islots,
+                                  float* out, int n, int k, int kb, int gx,
+                                  int gy, int gz, const float* consts,
+                                  int n_consts, int device, void* stream) {
   Consts c;
   if (!read_consts(consts, n_consts, &c) || n < 0)
     return cudaErrorInvalidValue;
@@ -1716,28 +2008,52 @@ extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto run = [&](auto pass) -> cudaError_t {
     using P = decltype(pass);
-    const Records<P> rec{static_cast<const float4*>(geo),
-                         static_cast<const typename P::J*>(side),
-                         static_cast<const float4*>(bgeo)};
-    const int kbp = P::kBoundary ? kb : 0;
-    switch (unroll) {
-      case 1:
-        return launch_lanes<RecordsIn<1>::L, P>(
-            lanes, reduction, rec, islots, out, n, k, kbp, gx, gy, gz, c, s);
-      case 2:
-        return launch_lanes<RecordsIn<2>::L, P>(
-            lanes, reduction, rec, islots, out, n, k, kbp, gx, gy, gz, c, s);
-      default:
-        return cudaErrorInvalidValue;
+    if constexpr (counted<P>::value) {
+      const Counted rec{static_cast<const float4*>(geo), count,
+                        static_cast<const float4*>(bgeo), bcount, fl};
+      switch (unroll) {
+        case 1:
+          return launch_lanes<CountedIn<1>::L, P>(
+              lanes, reduction, rec, islots, out, n, k, kb, gx, gy, gz, c, s);
+        case 2:
+          return launch_lanes<CountedIn<2>::L, P>(
+              lanes, reduction, rec, islots, out, n, k, kb, gx, gy, gz, c, s);
+        case 4:
+          return launch_lanes<CountedIn<4>::L, P>(
+              lanes, reduction, rec, islots, out, n, k, kb, gx, gy, gz, c, s);
+        default:
+          return cudaErrorInvalidValue;
+      }
+    } else {
+      const Records<P> rec{static_cast<const float4*>(geo),
+                           static_cast<const typename P::J*>(side),
+                           static_cast<const float4*>(bgeo)};
+      const int kbp = P::kBoundary ? kb : 0;
+      switch (unroll) {
+        case 1:
+          return launch_lanes<RecordsIn<1>::L, P>(
+              lanes, reduction, rec, islots, out, n, k, kbp, gx, gy, gz, c,
+              s);
+        case 2:
+          return launch_lanes<RecordsIn<2>::L, P>(
+              lanes, reduction, rec, islots, out, n, k, kbp, gx, gy, gz, c,
+              s);
+        default:
+          return cudaErrorInvalidValue;
+      }
     }
   };
   switch (pass_id) {
     case 2:
       return run(SurfacePressurePass{});
+    case 5:
+      return run(StiffnessAccelPass{});
     case 6:
       return run(ViscosityPass{});
     case 7:
       return run(SurfacePass{});
+    case 11:
+      return run(PbdLambdaPass{});
     case 12:
       return run(XsphColorgradPass{});
     default:

@@ -19,7 +19,8 @@ frame profiles do not compare; these operands do.
 kernels of the pass: the particle-list kernel (``particle_pass_cuda``) at
 its default and at each other (width, reduction) it takes, and, where the
 tree has it for the pass, the record kernel with its pack
-(``record_pass_cuda``) at its default and its pack alone. It holds each
+(``record_pass_cuda``) at its default, its pack alone and its walk alone
+on one pack made before the timing. It holds each
 kernel against the plain executor (max abs error) and the record kernel
 bitwise against the particle-list kernel at the same (width, reduction),
 then times them in
@@ -48,12 +49,15 @@ from ..ops.dense import DenseDims
 
 # (solver, pass): the passes that tried the record kernel (it lost
 # density_alpha_colorgrad and density_visc, which run the particle-list
-# kernel), surface on both solvers that run it, each on the state of a
-# solver that runs it
+# kernel), surface and stiffness_accel on both solvers that run them, each
+# on the state of a solver that runs it; PBD's pbd_lambda and
+# stiffness_accel from the same projection iteration, so that one position
+# pack serves both
 CASES = (("wcsph", "surface_pressure"), ("dfsph", "surface"),
          ("pbd", "surface"), ("pbd", "xsph_colorgrad"),
          ("dfsph", "density_alpha_colorgrad"), ("dfsph", "viscosity"),
-         ("wcsph", "density_visc"))
+         ("wcsph", "density_visc"), ("pbd", "pbd_lambda"),
+         ("pbd", "stiffness_accel"), ("dfsph", "stiffness_accel"))
 # passes that a step runs only with surface effects off: captured from a
 # surface-off step on the state of the dam's (surface-on) run
 SURFACE_OFF = ("density_visc",)
@@ -153,7 +157,8 @@ def time_case(case: dict, turns: int, reps: int) -> dict:
     kernel at its default; "particle <reduction> W<lanes>", the same at
     each other (width, reduction) it takes; "record", the record kernel at
     its default, pack included, held bitwise to the particle-list kernel
-    at the same (width, reduction); "pack", its pack alone."""
+    at the same (width, reduction); "pack", its pack alone; "walk", the
+    record kernel at its default on one pack made before the timing."""
     from ..ops import column_pass_cuda as cc
     from ..ops.passes import column_pass_plain
     from ..utils.check import time_graph_ms, time_ms
@@ -176,8 +181,14 @@ def time_case(case: dict, turns: int, reps: int) -> dict:
             name, fl, bd, islots, dims, dims_b, cfg)
         kernels["pack"] = lambda: cc.pack_records(name, fl, bd, dims, dims_b,
                                                   cfg)
+        recs = cc.pack_records(name, fl, bd, dims, dims_b, cfg)
+        kernels["walk"] = lambda: cc.record_pass_cuda(
+            name, fl, bd, islots, dims, dims_b, cfg, records=recs)
     want = column_pass_plain(name, fl, bd, dims, dims_b, cfg)
     outs = {k: fn() for k, fn in kernels.items() if k != "pack"}
+    if "walk" in outs and not torch.equal(outs["walk"], outs["record"]):
+        raise AssertionError(f"{name}: the walk on a pack made before it "
+                             "differs from the record kernel's")
     rec = {"pass": name, "K": dims.k, "listed": int(islots.shape[0]),
            "default": list(default),
            "max_abs_err": {k: float((o - want).abs().max())

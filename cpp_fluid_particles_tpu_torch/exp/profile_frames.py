@@ -74,14 +74,23 @@ def card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# kernel -> its group's prefix: the counted walk's with the record
+# kernel's, as the launch counters count them (record_<pass>)
+GROUPS = {"particle_pass_kernel": "particle", "column_pass_kernel": "column",
+          "record_pass_kernel": "record", "counted_pass_kernel": "record",
+          "pack_kernel": "pack"}
+
+
 def group(name: str) -> str:
-    """A device event's name -> its kernel group."""
-    for kernel in ("particle_pass_kernel", "column_pass_kernel",
-                   "record_pass_kernel", "pack_kernel"):
+    """A device event's name -> its kernel group; the position pack that
+    pbd_lambda and stiffness_accel share, ``pack_positions``."""
+    if "count_pack_kernel" in name:
+        return "pack_positions"
+    for kernel, prefix in GROUPS.items():
         if kernel in name:
             m = re.search(r"::(\w+Pass)\b", name)
             what = FUNCTORS.get(m.group(1), m.group(1)) if m else "?"
-            return f"{kernel.split('_')[0]}_{what}"
+            return f"{prefix}_{what}"
     return "other"
 
 

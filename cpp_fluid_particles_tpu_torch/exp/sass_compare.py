@@ -11,7 +11,7 @@ name. nvcc names the source's anonymous namespace after a hash that
 differs from build to build (``_GLOBAL__N__<hash>_14_column_pass_cu_...``),
 so the hash is cut from names and instructions alike. Prints per kernel
 template (``particle_pass_kernel``, ``record_pass_kernel``,
-``pack_kernel``, ...) how many entries are the same, changed, only in OLD
+``pack_kernel``, ``counted_pass_kernel``, ``count_pack_kernel``, ...) how many entries are the same, changed, only in OLD
 and only in NEW, then the changed entries by name, and writes the same as
 JSON to ``--out``. It needs the CUDA toolkit's ``cuobjdump`` (on the
 PATH or under /usr/local/cuda/bin).
@@ -28,7 +28,8 @@ import subprocess
 from pathlib import Path
 
 KERNELS = ("particle_pass_kernel", "record_pass_kernel", "pack_kernel",
-           "column_pass_kernel", "flat_pass_kernel")
+           "counted_pass_kernel", "count_pack_kernel", "column_pass_kernel",
+           "flat_pass_kernel")
 
 
 def cuobjdump() -> str:

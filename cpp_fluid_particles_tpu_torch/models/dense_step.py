@@ -499,9 +499,14 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
         return pp.divergence_pass((pm, v_d), bdx, dims, dims_b, cfg,
                                   executor, islots=lo.work)
 
+    # the positions stay fixed through the frame: one position pack serves
+    # every stiffness_accel of both solves on a card
+    pack = pp.SharedPack()
+
     def sa_pass(s_d):
         return pp.stiffness_accel_pass((pm, s_d[None]), bdx, dims, dims_b,
-                                       cfg, executor, islots=lo.work)
+                                       cfg, executor, islots=lo.work,
+                                       records=pack)
 
     # --- divergence solve (src/DFSPHSolver.cu:331-363) ---
     def div_error(v_d):
@@ -596,9 +601,11 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
     rho0 = _const(cfg.rho0, pos_d)
 
     def project_once(p_d):
+        # one position pack of p_d serves both passes on a card
+        pack = pp.SharedPack()
         lam5 = pp.pbd_lambda_pass(torch.cat([p_d, mass_d], 0), bdx, dims,
                                   dims_b, cfg, executor,
-                                  islots=lo.work)
+                                  islots=lo.work, records=pack)
         rho = lam5[0]
         lam = torch.where(
             rho > cfg.rho0,
@@ -613,8 +620,8 @@ def pbd_step(state: FluidState, carry: pbd_mod.PBDCarry,
             alive = alive & (_max(lo, rho) / rho0 - 1.0
                              > _f32(cfg.pbd_density_tolerance))
         dp = pp.stiffness_accel_pass((p_d, mass_d, lam[None]), bdx, dims,
-                                     dims_b, cfg, executor,
-                                     islots=lo.work) / rho0
+                                     dims_b, cfg, executor, islots=lo.work,
+                                     records=pack) / rho0
         return _clamp_pos_only(p_d + dp, cfg), rho, alive
 
     # --- projection (src/PBDSolver.cu:225-258), driven by the host: the

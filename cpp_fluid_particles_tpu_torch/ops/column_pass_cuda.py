@@ -18,11 +18,14 @@ lanes per particle of a slot list whose sums one of ``REDUCTIONS``
 combines, at the (width, reduction) pairs ``variants`` gives for the pass's
 sum count. ``record_pass_cuda`` runs surface, surface_pressure,
 xsph_colorgrad and viscosity (``RECORD_IDS``) through the cell-packed
-record kernel:
+record kernel, and pbd_lambda and stiffness_accel (``COUNTED``) through
+the counted record walk:
 ``pack_records`` (the pack kernel on a card, ``pack_records_plain`` on the
 CPU) writes the records of the operand's (cell, slot)s that a walk reads
-(``walked``), and the walk reads them in the particle-list kernel's groups
-and order, bitwise its output.
+(``walked``; for ``COUNTED`` one position pack with each cell's count of
+real slots, which serves every pass on the same positions), and the walk
+reads them in the particle-list kernel's groups and order, bitwise its
+output.
 ``passes.column_pass`` sends the fourteen passes to one of the two on a
 card (``RECORD_IDS`` to the record kernel), so no path launches
 ``column_pass_cuda``: it stays the yardstick, and the executor of
@@ -33,7 +36,8 @@ color_gradient and density_colorgrad, which nothing runs.
 through the untiled kernel as its yardstick.
 ``LAUNCHES`` counts the launches of each pass instance, of each
 particle-list instance (``particle_<name>``), of each record instance's
-pack and walk (``pack_<name>``, ``record_<name>``) and of each fluid-only
+pack and walk (``pack_key(name)``: ``pack_<name>``, or ``pack_positions``
+for the shared position pack; ``record_<name>``) and of each fluid-only
 instance of the prototype's bodies, tiled and untiled.
 """
 
@@ -115,11 +119,15 @@ LANES = (32, 8, 16)
 # DFSPH's, K 16) 0.0420 / 0.0416 at W 8 transposed against 0.0451 / 0.0466
 # at its former W 32 butterfly (W 8 butterfly 0.0417 / 0.0420), the
 # particle-list kernel being viscosity's yardstick (it runs the record
-# kernel)
+# kernel); the yardsticks of the counted walk, pbd_lambda and
+# stiffness_accel (PBD's 300-frame state, K 18, both ladder passes), 0.0497
+# / 0.0504 and 0.0434 / 0.0443 at W 8 butterfly against 0.0536 / 0.0539
+# and 0.0469 / 0.0463 at W 32 (on DFSPH's state stiffness_accel 0.0476 /
+# 0.0486 against 0.0479 / 0.0476)
 PASS_LANES = {"surface_pressure": 8, "density_visc": 8,
               "pressure_force": 8, "divergence": 8,
               "density_colorgrad_visc": 8, "density_alpha_colorgrad": 16,
-              "viscosity": 8}
+              "viscosity": 8, "pbd_lambda": 8, "stiffness_accel": 8}
 
 # how the particle-list kernel reduces a group's sums, as its template
 # argument kTranspose: "butterfly", xor adds of every sum at every step
@@ -170,13 +178,22 @@ PASS_REDUCTION = {"xsph_colorgrad": "transpose", "surface": "transpose",
 # 1.268 against 1.235 at 1M; the surface-off density_visc 0.0489 /
 # 0.0490 against 0.0457 / 0.0455 at W 8 transposed on WCSPH's: its walk
 # alone tied (0.0456), and the pack added 0.0042
-RECORD_IDS = {"surface_pressure": 2, "viscosity": 6, "surface": 7,
-              "xsph_colorgrad": 12}
+RECORD_IDS = {"surface_pressure": 2, "stiffness_accel": 5, "viscosity": 6,
+              "surface": 7, "pbd_lambda": 11, "xsph_colorgrad": 12}
+
+# the record passes whose walk is counted (csrc/column_pass.cu
+# counted_pass_kernel): their records are one position pack, {x, y, z, m}
+# of each real slot and each cell's count of real slots, with no j side,
+# the same for both passes, so that one pack serves every pass on the same
+# positions (ops/passes.py SharedPack); stiffness_accel reads its s from
+# the operand's own plane
+COUNTED = ("pbd_lambda", "stiffness_accel")
 
 # floats of a record pass's j side, P::J in csrc/column_pass.cu: |cg|^2;
-# |cg|^2 and p / max(eps, rho^2); vel3 and m / rho0; vel3 and 0
+# |cg|^2 and p / max(eps, rho^2); vel3 and m / rho0; vel3 and 0; none in
+# the position pack of COUNTED
 SIDE_WIDTH = {"surface": 1, "surface_pressure": 2, "xsph_colorgrad": 4,
-              "viscosity": 4}
+              "viscosity": 4, "pbd_lambda": 0, "stiffness_accel": 0}
 
 # what pack_records_plain puts in a record that no walk reads, and the pack
 # kernel does not write
@@ -186,6 +203,10 @@ UNWRITTEN = float("nan")
 # first for padding (batches of 4 lost to both on every dam state: PERF.md
 # section 6)
 UNROLLS = (1, 2)
+
+# slots a batch of the counted walk loads before any arithmetic: it knows
+# each cell's count, so a batch loads no slot past it and tests none
+COUNTED_UNROLLS = (1, 2, 4)
 
 # the record kernel's (lanes, reduction, unroll) per pass. On the 300-frame
 # dam states (NVIDIA H100 80GB HBM3, 700 W; CUDA graph, pack included,
@@ -208,21 +229,33 @@ UNROLLS = (1, 2)
 # transposed. viscosity (DFSPH's, K 16) 0.0376 / 0.0377 at W 8 transposed,
 # U 1 (butterfly 0.0384 / 0.0384, U 2 0.0386-0.0390, W 16 0.0400-0.0418)
 # against the particle-list kernel's best, 0.0420 / 0.0416 at W 8
-# transposed.
+# transposed. The counted walk alone (chip_smoke.py's ladder on the
+# 300-frame states, both passes): pbd_lambda (PBD, K 18) 0.0444 / 0.0447 at
+# W 8 butterfly, U 2 (transposed 0.0446 / 0.0445, U 4 0.0459 / 0.0466, W
+# 16 transposed U 2 0.0468 / 0.0471) against the particle-list kernel's
+# best, 0.0497 / 0.0504 at W 8 butterfly; stiffness_accel at W 8
+# butterfly, U 2, 0.0391 / 0.0386 on PBD's state (U 4 0.0382 / 0.0388)
+# and 0.0407 / 0.0405 on DFSPH's (K 16; U 4 0.0423 / 0.0405) against
+# 0.0434 / 0.0443 (W 8 butterfly) and 0.0471 / 0.0475 (W 32 transposed);
+# the shared position pack 0.0032-0.0034 a call.
 RECORD_DEFAULTS = {"surface": (8, "transpose", 1),
                    "surface_pressure": (8, "butterfly", 2),
                    "xsph_colorgrad": (8, "transpose", 1),
-                   "viscosity": (8, "transpose", 1)}
+                   "viscosity": (8, "transpose", 1),
+                   "pbd_lambda": (8, "butterfly", 2),
+                   "stiffness_accel": (8, "butterfly", 2)}
 
 # launches per pass instance, per particle-list instance (particle_<name>),
-# per record instance's pack and walk (pack_<name>, record_<name>) and per
-# fluid-only instance of the prototype's bodies (flat_<body>: the tiled
-# kernel; untiled_<body>: column_pass_kernel); bumped once per successful
-# launch
+# per record instance's pack and walk (pack_key(name), record_<name>) and
+# per fluid-only instance of the prototype's bodies (flat_<body>: the
+# tiled kernel; untiled_<body>: column_pass_kernel); bumped once per
+# successful launch
 LAUNCHES = {name: 0 for name in PASS_IDS}
 LAUNCHES.update({f"particle_{name}": 0 for name in PARTICLE_PASSES})
-LAUNCHES.update({f"{kind}_{name}": 0 for kind in ("pack", "record")
-                 for name in RECORD_IDS})
+LAUNCHES.update({f"record_{name}": 0 for name in RECORD_IDS})
+LAUNCHES.update({f"pack_{name}": 0 for name in RECORD_IDS
+                 if name not in COUNTED})
+LAUNCHES["pack_positions"] = 0
 LAUNCHES.update({f"{kind}_{body}": 0 for kind in ("flat", "untiled")
                  for body in FLAT_IDS})
 
@@ -237,6 +270,17 @@ def variants(name: str) -> tuple:
     padded = 1 << (PASSES[name].n_out - 1).bit_length()
     return tuple((lanes, red) for lanes in LANES for red in REDUCTIONS
                  if red == "butterfly" or padded <= lanes)
+
+
+def unrolls(name: str) -> tuple:
+    """The unrolls the record walk of pass ``name`` takes."""
+    return COUNTED_UNROLLS if name in COUNTED else UNROLLS
+
+
+def pack_key(name: str) -> str:
+    """The launch counter of the pack record pass ``name`` walks: the
+    shared position pack of COUNTED, or the pass's own."""
+    return "pack_positions" if name in COUNTED else f"pack_{name}"
 
 
 def default_lanes(name: str) -> int:
@@ -302,12 +346,12 @@ def _library() -> ctypes.CDLL:
                    ci, ci, vp]
     fn.restype = ci
     fn = lib.pack_records_launch
-    fn.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, ci,
-                   vp]
+    fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
+                   ci, ci, vp]
     fn.restype = ci
     fn = lib.record_pass_launch
-    fn.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                   ci, vp, ci, ci, vp]
+    fn.argtypes = [ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                   ci, ci, ci, ci, vp, ci, ci, vp]
     fn.restype = ci
     return lib
 
@@ -426,9 +470,10 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
     refused before anything runs. A fluid-only pass (``has_bd`` False)
     takes ``bd=None, dims_b=None``, and the kernel gets a null boundary
     pointer and Kb = 0; a boundary operand where a pass takes none, or
-    none where it takes one, is refused. Returns (n_out, K, G), zeroed by one
-    memset before the launch (it counts in the kernel's time): the kernel
-    writes only the listed slots. Counted as ``particle_<name>``."""
+    none where it takes one, is refused.
+    Returns (n_out, K, G), zeroed by one memset before the launch (it
+    counts in the kernel's time): the kernel writes only the listed slots.
+    Counted as ``particle_<name>``."""
     fn = "particle_pass_cuda"
     if name not in PARTICLE_PASSES:
         raise ValueError(f"{fn}: pass {name!r} has no particle-list kernel; "
@@ -461,10 +506,14 @@ def particle_pass_cuda(name: str, fl: torch.Tensor,
 class Records(NamedTuple):
     """The cell-packed records of one pass operand, slot s of cell c at
     row c*K + s (boundary c*Kb + s). Only the records a walk reads hold
-    values (``walked``); the pack kernel leaves the others unwritten."""
+    values (``walked``); the pack kernel leaves the others unwritten. The
+    position pack of COUNTED has no j side and counts each cell's real
+    slots."""
     geo: torch.Tensor             # (G*K, 4) [x, y, z, m]
-    side: torch.Tensor            # (G*K,) or (G*K, SIDE_WIDTH[pass]): its J
+    side: Optional[torch.Tensor]  # (G*K,) or (G*K, SIDE_WIDTH[pass]): its J
     bgeo: Optional[torch.Tensor]  # (G*Kb, 4) the boundary's, or None
+    count: Optional[torch.Tensor] = None   # (G,) int32: real slots (COUNTED)
+    bcount: Optional[torch.Tensor] = None  # (G,) int32: the boundary's
 
 
 def _side_plain(name: str, fl: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
@@ -500,25 +549,37 @@ def walked(x0: torch.Tensor):
     (real, first padding), (G*K,) bool in record order: every slot that
     holds a particle, and each cell's first padding slot (slot 0 or the
     slot after a real one), where every walk of the cell stops (ranks fill
-    a cell from slot 0). A cell full to K has no padding slot."""
+    a cell from slot 0). A cell full to K has no padding slot. The counted
+    walk reads the real slots alone."""
     real = x0 < POS_PAD / 2
     before = torch.cat([torch.ones_like(real[:1]), real[:-1]])
     return (real.T.reshape(-1).contiguous(),
             (before & ~real).T.reshape(-1).contiguous())
 
 
-def _records_plain(x: torch.Tensor, side: Optional[torch.Tensor]):
+def counts_plain(x0: torch.Tensor) -> torch.Tensor:
+    """Each cell's count of the grid whose row 0 is ``x0`` (K, G) -> (G,)
+    int32: its first padding slot, or K where it has none, as the pack
+    kernel finds it; the cell's real slots, since ranks fill a cell from
+    slot 0."""
+    real = (x0 < POS_PAD / 2).to(torch.int32)
+    return torch.cumprod(real, 0).sum(0, dtype=torch.int32)
+
+
+def _records_plain(x: torch.Tensor, side: Optional[torch.Tensor],
+                   probe: bool = True):
     """The records the pack kernel writes of grid x (rows, K, G): [x, y,
     z, m] and the j side ``side`` (width, K, G) at a real slot, [x, 0, 0,
-    0] at a cell's first padding slot; every other record UNWRITTEN ->
-    (geo, side or None)."""
+    0] at a cell's first padding slot where ``probe`` (the counted pack
+    writes none); every other record UNWRITTEN -> (geo, side or None)."""
     real, first = walked(x[0])
     geo = torch.full((real.shape[0], 4), UNWRITTEN, dtype=x.dtype,
                      device=x.device)
     rows = _cell_major(x[:4])
     geo[real] = rows[real]
-    geo[first, 0] = rows[first, 0]
-    geo[first, 1:] = 0.0
+    if probe:
+        geo[first, 0] = rows[first, 0]
+        geo[first, 1:] = 0.0
     if side is None:
         return geo, None
     j = _cell_major(side)
@@ -532,10 +593,35 @@ def pack_records_plain(name: str, fl: torch.Tensor,
     records ``walked`` names, what the pack kernel writes, bitwise on a card
     (|cg|^2 rounded as here, never contracted; m / rho0 as
     ``_side_plain`` forms it); UNWRITTEN in every other record, which the
-    kernel does not write."""
+    kernel does not write. For COUNTED the position pack: the real slots'
+    records alone and each cell's count (``counts_plain``), the
+    boundary's likewise."""
+    if name in COUNTED:
+        return Records(_records_plain(fl, None, False)[0], None,
+                       _records_plain(bd, None, False)[0], counts_plain(fl[0]),
+                       counts_plain(bd[0]))
     geo, side = _records_plain(fl, _side_plain(name, fl, cfg))
     return Records(geo, side, None if bd is None else _records_plain(bd,
                                                                      None)[0])
+
+
+def read_records(recs: Records, fl: torch.Tensor,
+                 bd: Optional[torch.Tensor]) -> tuple:
+    """What a walk reads of ``recs``, packed from ``fl`` and ``bd``: geo at
+    the real slots and (but for the counted pack) each cell's first padding
+    slot, the j side at the real slots, the boundary's geo likewise, and
+    the counts -> a tuple of tensors, to compare two packs by."""
+    real, first = walked(fl[0])
+    counted = recs.count is not None
+    out = (recs.geo[real if counted else real | first],)
+    if recs.side is not None:
+        out += (recs.side[real],)
+    if bd is not None:
+        breal, bfirst = walked(bd[0])
+        out += (recs.bgeo[breal if counted else breal | bfirst],)
+    if counted:
+        out += (recs.count, recs.bcount)
+    return out
 
 
 def pack_records(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
@@ -547,7 +633,9 @@ def pack_records(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
     a walk reads (``walked``): on the CPU ``pack_records_plain``; on a card
     the pack kernel, one launch on the current stream into buffers from
     ``torch.empty`` (no sync, so a CUDA graph can hold it), the records no
-    walk reads left unwritten, counted as ``pack_<name>``."""
+    walk reads left unwritten, counted as ``pack_key(name)``. For COUNTED
+    it is the position pack of rows 0-3 of ``fl`` and ``bd``, the same for
+    both passes."""
     fn = "pack_records"
     if name not in RECORD_IDS:
         raise ValueError(f"{fn}: pass {name!r} has no record kernel; one of "
@@ -567,26 +655,42 @@ def pack_records(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
 def _pack(name, fl, bd_ptr, dims, kb, consts, stream) -> Records:
     """The pack kernel on checked operands."""
     n = dims.g * dims.k
-    geo = torch.empty((n, 4), dtype=torch.float32, device=fl.device)
-    side = torch.empty(_side_shape(name, n), dtype=torch.float32,
-                       device=fl.device)
-    bgeo = None if bd_ptr is None else torch.empty(
-        (dims.g * kb, 4), dtype=torch.float32, device=fl.device)
+    counted = name in COUNTED
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=fl.device)
+    geo = empty((n, 4))
+    side = None if counted else empty(_side_shape(name, n))
+    bgeo = None if bd_ptr is None else empty((dims.g * kb, 4))
+    count = bcount = None
+    if counted:
+        count = empty((dims.g,), torch.int32)
+        # no thread of an empty window's boundary writes its counts
+        bcount = (empty((dims.g,), torch.int32) if kb else torch.zeros(
+            (dims.g,), dtype=torch.int32, device=fl.device))
     err = _library().pack_records_launch(
         RECORD_IDS[name], fl.data_ptr(), bd_ptr, geo.data_ptr(),
-        side.data_ptr(), None if bgeo is None else bgeo.data_ptr(), dims.k,
-        kb, dims.gx, dims.gy, dims.gz, consts, len(consts), fl.device.index,
+        _ptr(side), _ptr(bgeo), _ptr(count), _ptr(bcount), dims.k, kb,
+        dims.gx, dims.gy, dims.gz, consts, len(consts), fl.device.index,
         stream)
     if err != 0:
         raise RuntimeError(f"pack_records: packing {name} failed with CUDA "
                            f"error {err}")
-    LAUNCHES[f"pack_{name}"] += 1
-    return Records(geo, side, bgeo)
+    LAUNCHES[pack_key(name)] += 1
+    return Records(geo, side, bgeo, count, bcount)
 
 
-def _side_shape(name: str, n: int) -> tuple:
-    """The shape of pass ``name``'s j-side records for n slots."""
-    return (n,) if SIDE_WIDTH[name] == 1 else (n, SIDE_WIDTH[name])
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _side_shape(name: str, n: int):
+    """The shape of pass ``name``'s j-side records for n slots (None: the
+    position pack has none)."""
+    width = SIDE_WIDTH[name]
+    if width == 0:
+        return None
+    return (n,) if width == 1 else (n, width)
 
 
 def _check_records(fn: str, name: str, recs: Records, fl: torch.Tensor,
@@ -595,7 +699,10 @@ def _check_records(fn: str, name: str, recs: Records, fl: torch.Tensor,
     walk indexes them by the grids' K, Kb and G, so a pack of another pass,
     K or window would send it out of bounds."""
     n = dims.g * dims.k
-    want = {"geo": (n, 4), "side": _side_shape(name, n), "bgeo": None}
+    counted = name in COUNTED
+    want = {"geo": (n, 4), "side": _side_shape(name, n), "bgeo": None,
+            "count": (dims.g,) if counted else None,
+            "bcount": (dims.g,) if counted else None}
     if PASSES[name].has_bd:
         want["bgeo"] = (dims.g * (dims_b.k if dims_b is not None else 0), 4)
     for what, shape in want.items():
@@ -610,9 +717,10 @@ def _check_records(fn: str, name: str, recs: Records, fl: torch.Tensor,
             raise ValueError(f"{fn}: records.{what} has shape "
                              f"{tuple(t.shape)}, expected {shape} for {name}"
                              f" at K {dims.k}, G {dims.g}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
+        dtype = torch.int32 if what in ("count", "bcount") else torch.float32
+        if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{fn}: records.{what} is not contiguous "
-                             "float32")
+                             f"{str(dtype).split('.')[-1]}")
         if t.device != fl.device:
             raise ValueError(f"{fn}: records.{what} is on {t.device}, fl on "
                              f"{fl.device}")
@@ -626,19 +734,26 @@ def record_pass_cuda(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
                      unroll: Optional[int] = None,
                      records: Optional[Records] = None) -> torch.Tensor:
     """Pass ``name`` (one of RECORD_IDS) through the cell-packed record
-    kernel on the current stream of ``fl``'s device: ``pack_records`` of
-    ``fl`` and ``bd`` (unless ``records``, checked against the grids, hands
-    them in), then the walk, a group of ``lanes`` lanes per particle of
-    ``islots`` reduced by ``reduction`` as ``particle_pass_cuda`` takes
-    them, loading ``unroll`` (one of UNROLLS; default the pass's in
-    RECORD_DEFAULTS) slots' records a batch. Every entry of ``islots``
+    kernel, or for COUNTED the counted walk, on the current stream of
+    ``fl``'s device: ``pack_records`` of ``fl`` and ``bd`` (unless
+    ``records``, checked against the grids, hands them in: for COUNTED a
+    position pack of any operand with the same positions, masses and
+    boundary window), then the walk, a group of ``lanes`` lanes per
+    particle of ``islots`` reduced by ``reduction`` as
+    ``particle_pass_cuda`` takes them, loading ``unroll`` (one of
+    ``unrolls(name)``; default the pass's in RECORD_DEFAULTS) slots'
+    records a batch. The counted walk reads its i side's and its pairs'
+    other values (stiffness_accel's s) from ``fl`` itself, and tells by
+    ``fl``'s row 0, as the particle-list kernel does, whether a listed slot
+    holds a particle. Every entry of ``islots`` of a pass with its own pack
     must be a slot that holds a particle or the trash slot K*G, as the
     steps' lists are (``BoxIndex.slots`` and ``.work``,
-    ``halo.slab_slots``): the walk takes its i side from the listed slot's
-    record, and the pack leaves the records of padding slots past a
-    cell's first unwritten. Returns (n_out, K, G), zeroed by one memset
-    before the walk, which writes only the listed slots; the walk is
-    counted as ``record_<name>``."""
+    ``halo.slab_slots``): that walk takes its i side from the listed slot's
+    record, and the pack leaves the records of padding slots unwritten. The counted walk indexes in 32
+    bits: it refuses K*G, Kb*G or ``lanes`` threads per listed particle
+    that reach 2^31. Returns (n_out, K, G), zeroed by one memset before the
+    walk, which writes only the listed slots; the walk is counted as
+    ``record_<name>``."""
     fn = "record_pass_cuda"
     if name not in RECORD_IDS:
         raise ValueError(f"{fn}: pass {name!r} has no record kernel; one of "
@@ -646,8 +761,15 @@ def record_pass_cuda(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
     lanes, reduction = _group(fn, name, lanes, reduction, islots,
                               RECORD_DEFAULTS[name])
     unroll = RECORD_DEFAULTS[name][2] if unroll is None else unroll
-    if unroll not in UNROLLS:
-        raise ValueError(f"{fn}: unroll {unroll} is not one of {UNROLLS}")
+    if unroll not in unrolls(name):
+        raise ValueError(f"{fn}: unroll {unroll} is not one of "
+                         f"{unrolls(name)}")
+    if name in COUNTED and max(dims.k * dims.g, islots.shape[0] * lanes,
+                               (dims_b.k if dims_b else 0) * dims.g) >= 2**31:
+        raise ValueError(f"{fn}: the counted walk indexes in 32 bits: K*G "
+                         f"{dims.k * dims.g}, Kb*G and its {lanes} lanes for "
+                         f"each of {islots.shape[0]} particles must stay "
+                         "under 2^31")
     if records is not None:
         _check_records(fn, name, records, fl, dims, dims_b)
     bd_ptr, kb = _check_operands(fn, name, fl, bd, dims, dims_b)
@@ -665,10 +787,11 @@ def record_pass_cuda(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
         return out
     err = _library().record_pass_launch(
         RECORD_IDS[name], lanes, REDUCTIONS.index(reduction), unroll,
-        records.geo.data_ptr(), records.side.data_ptr(),
-        None if records.bgeo is None else records.bgeo.data_ptr(),
-        islots.data_ptr(), out.data_ptr(), n, dims.k, kb, dims.gx, dims.gy,
-        dims.gz, consts, len(consts), fl.device.index, stream)
+        records.geo.data_ptr(), _ptr(records.side), _ptr(records.bgeo),
+        _ptr(records.count), _ptr(records.bcount),
+        fl.data_ptr() if name in COUNTED else None, islots.data_ptr(),
+        out.data_ptr(), n, dims.k, kb, dims.gx, dims.gy, dims.gz, consts,
+        len(consts), fl.device.index, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launching {name} with {lanes} lanes, the "
                            f"{reduction} reduction and unroll {unroll} failed "

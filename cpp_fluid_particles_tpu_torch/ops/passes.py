@@ -33,10 +33,12 @@ density_alpha_colorgrad, density_visc, pressure_force, density_alpha, the
 fluid-only viscosity, surface and xsph, and density) take the
 particle-list kernel (``column_pass_cuda.particle_pass_cuda``), which
 needs ``islots``, but for ``column_pass_cuda.RECORD_IDS`` (surface,
-surface_pressure, xsph_colorgrad and viscosity), which take the
-cell-packed record kernel (``column_pass_cuda.record_pass_cuda``) over the
-same list; only color_gradient and density_colorgrad, which nothing runs,
-take the column kernel.
+surface_pressure, xsph_colorgrad and viscosity, and pbd_lambda and
+stiffness_accel, whose walk is counted), which take the cell-packed record
+kernel (``column_pass_cuda.record_pass_cuda``) over the same list; the
+counted passes share one position pack among the calls a ``SharedPack``
+is handed to; only color_gradient and density_colorgrad, which nothing
+runs, take the column kernel.
 Outputs are zero on ghost cells and on empty i slots, up to the sign of
 zero.
 """
@@ -562,21 +564,59 @@ def column_pass_plain(name: str, fl: torch.Tensor,
 Executor = Callable[..., torch.Tensor]
 
 
+class SharedPack:
+    """One position pack shared by the record passes of
+    ``column_pass_cuda.COUNTED`` that run on the same positions, masses and
+    boundary window: PBD's pbd_lambda and stiffness_accel within one
+    projection iteration, and every stiffness_accel of a DFSPH frame, whose
+    positions stay fixed across the Jacobi iterations. Empty until the
+    first such pass on a card packs its operand, after the mesh's exchange
+    (``column_pass``); every later pass handed this object walks that pack.
+    On the CPU it stays empty: the plain executor runs.
+
+    Nothing ties the pack to the positions it was made from: keep the
+    object in the scope where they are fixed, since a pass handed it after
+    the positions changed would walk the old ones. ``take`` refuses grids
+    other than those of the fill."""
+
+    __slots__ = ("records", "key")
+
+    def __init__(self):
+        self.records = None
+        self.key = None
+
+    def take(self, key, make):
+        """The pack: ``make()``'s at the first call, as made for ``key``
+        (the call's grids), and the same at every later call with that
+        key; another key is refused."""
+        if self.records is None:
+            self.records, self.key = make(), key
+        elif key != self.key:
+            raise ValueError(f"SharedPack: packed for {self.key}, handed "
+                             f"to a pass on {key}")
+        return self.records
+
+
 def column_pass(name: str, fl, bd, dims, dims_b, cfg,
                 executor: Optional[Executor] = None,
-                islots: Optional[torch.Tensor] = None) -> torch.Tensor:
+                islots: Optional[torch.Tensor] = None,
+                records: Optional[SharedPack] = None) -> torch.Tensor:
     """Run pass ``name``. ``fl`` is the stacked field grid or a tuple of
     field groups, stacked here (as the JAX package's ``_run`` does).
     executor=None dispatches by the device of ``fl``: the plain executor on
     the CPU, the CUDA kernel on a GPU, and for ``PARTICLE_PASSES`` the
     particle-list kernel over ``islots``, which a GPU then requires.
-    ``islots`` is handed on to an executor as a keyword.
+    ``islots`` is handed on to an executor as a keyword. ``records``: a
+    SharedPack for a pass of ``column_pass_cuda.COUNTED`` on a card, packed
+    here from this call's operand if it is empty, and walked; ignored by
+    the CPU and by a given executor.
 
     Under a block (``parallel.halo.slab_context``, which the solver steps
     enter under a mesh) ``fl``, ``bd`` and ``islots`` are the rank's
     window: the ghost cells a neighbour owns of a copy of ``fl`` are
-    refreshed (``halo.exchange``) before the executor runs, and a rank
-    that owns no cell runs nothing and returns zeros."""
+    refreshed (``halo.exchange``) before the executor runs (and before a
+    SharedPack is packed), and a rank that owns no cell runs nothing and
+    returns zeros."""
     slab = halo.current_slab()
     if isinstance(fl, tuple):
         fl = torch.cat(fl, 0)
@@ -600,9 +640,17 @@ def column_pass(name: str, fl, bd, dims, dims_b, cfg,
                     raise ValueError(f"{name} on {fl.device} runs the "
                                      "particle-list kernel, which needs "
                                      "islots")
-                run = (cc.record_pass_cuda if name in cc.RECORD_IDS
-                       else cc.particle_pass_cuda)
-                return run(name, fl, bd, islots, dims, dims_b, cfg)
+                if name not in cc.RECORD_IDS:
+                    return cc.particle_pass_cuda(name, fl, bd, islots, dims,
+                                                 dims_b, cfg)
+                recs = None
+                if records is not None and name in cc.COUNTED:
+                    recs = records.take(
+                        (dims, dims_b, fl.device),
+                        lambda: cc.pack_records(name, fl, bd, dims, dims_b,
+                                                cfg))
+                return cc.record_pass_cuda(name, fl, bd, islots, dims,
+                                           dims_b, cfg, records=recs)
             executor = cc.column_pass_cuda
         else:
             raise ValueError(f"no neighbor-pass executor for {fl.device}")
@@ -700,11 +748,12 @@ def divergence_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
 
 
 def stiffness_accel_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
-                         islots):
+                         islots, records=None):
     """fl: the field groups ([pos3, mass], stiff[None]); bd: [pos3, mass];
-    islots: the step's ``BoxIndex.work``. Returns (3, K, G)."""
+    islots: the step's ``BoxIndex.work``; records: a SharedPack of the
+    same positions, or None. Returns (3, K, G)."""
     return column_pass("stiffness_accel", fl, bd, dims, dims_b, cfg,
-                       executor, islots=islots)
+                       executor, islots=islots, records=records)
 
 
 def viscosity_pass(fl, dims, cfg, executor=None, *, islots):
@@ -722,11 +771,13 @@ def surface_pass(fl, dims, cfg, executor=None, *, islots):
                        islots=islots)
 
 
-def pbd_lambda_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
-    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.work``.
-    Returns (5, K, G): [rho, gsumx, gsumy, gsumz, slam]."""
+def pbd_lambda_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots,
+                    records=None):
+    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.work``;
+    records: a SharedPack of the same positions, or None. Returns (5, K,
+    G): [rho, gsumx, gsumy, gsumz, slam]."""
     return column_pass("pbd_lambda", fl, bd, dims, dims_b, cfg, executor,
-                       islots=islots)
+                       islots=islots, records=records)
 
 
 def xsph_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,

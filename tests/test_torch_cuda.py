@@ -10,7 +10,9 @@ the passes of ``column_pass_cuda.RECORD_IDS`` on the steps (at each width,
 reduction and unroll, in any order of the slot list, on full and empty
 cells and on a 2x2 block's window, bitwise the particle-list kernel; the
 pack bitwise its plain version on the records a walk reads; both also at
-a rho0 that is not a power of two), and the brick-tiled
+a rho0 that is not a power of two; the counted walk of pbd_lambda and
+stiffness_accel also on one position pack shared by both, bitwise a fresh
+pack's), and the brick-tiled
 fluid-only variant, on the card.
 Every Simulation on the card launches the particle-list density once, for
 its scene, and the column kernel never.
@@ -286,14 +288,14 @@ def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
                                          CFG, lanes=lanes, reduction=red,
                                          unroll=u)
                      for lanes, red in cc.variants(name)
-                     for u in cc.UNROLLS]
+                     for u in cc.unrolls(name)]
         torch.cuda.synchronize()
         return outs
     cut = run_all()
     _no_r2_cut(monkeypatch)
     uncut = run_all()
     n_var = len(cc.variants(name)) if name in pp.PARTICLE_PASSES else 0
-    n_rec = n_var * len(cc.UNROLLS) if name in cc.RECORD_IDS else 0
+    n_rec = n_var * len(cc.unrolls(name)) if name in cc.RECORD_IDS else 0
     assert len(cut) == 1 + n_var + n_rec
     for a, b in zip(cut, uncut):
         assert torch.equal(a, b)
@@ -301,11 +303,18 @@ def test_r2_cut_changes_no_bit(operands, monkeypatch, name):
 
 def _kernels(*names):
     """The launch counters of passes ``names`` on a path: the record
-    kernel's pack and walk for ``cc.RECORD_IDS``, else the particle-list
-    kernel."""
+    kernel's pack and walk for ``cc.RECORD_IDS`` (the walk alone for
+    ``cc.COUNTED``, whose shared position pack a path counts apart), else
+    the particle-list kernel."""
     return tuple(k for n in names for k in (
-        (f"pack_{n}", f"record_{n}") if n in cc.RECORD_IDS
+        (f"record_{n}",) if n in cc.COUNTED
+        else (f"pack_{n}", f"record_{n}") if n in cc.RECORD_IDS
         else (f"particle_{n}",)))
+
+
+def _walk(name):
+    """The launch counter of pass ``name``'s walk on a path."""
+    return _kernels(name)[-1]
 
 
 def _scene_built_once():
@@ -387,19 +396,22 @@ def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
 
 
 def _dfsph_frames_launched(per_frame, frames):
-    """The card's DFSPH frames launched ``per_frame`` (particle-list
-    instances, once a frame each) and divergence == stiffness_accel >= 5 a
-    frame, the particle-list density once for the scene, nothing else."""
+    """The card's DFSPH frames launched ``per_frame`` (launch counters,
+    once a frame each), divergence == stiffness_accel >= 5 a frame, one
+    position pack a frame where stiffness_accel's walk is counted, the
+    particle-list density once for the scene, nothing else."""
     _scene_built_once()
     la = cc.LAUNCHES
+    sa = _walk("stiffness_accel")
+    packs = ({"pack_positions": frames} if "stiffness_accel" in cc.COUNTED
+             else {})
     for name in per_frame:
         assert la[name] == frames, (name, la)
-    assert la["particle_divergence"] == la["particle_stiffness_accel"] \
-        >= 5 * frames
+    assert la["particle_divergence"] == la[sa] >= 5 * frames
     assert {k: n for k, n in la.items() if n} == dict(
         {name: frames for name in per_frame}, particle_density=1,
-        particle_divergence=la["particle_divergence"],
-        particle_stiffness_accel=la["particle_stiffness_accel"])
+        particle_divergence=la["particle_divergence"], **{sa: la[sa]},
+        **packs)
 
 
 def _dfsph_step_agrees(gpu, cfg):
@@ -461,11 +473,11 @@ def test_surface_off_dfsph_simulation_runs_through_the_kernel(dev):
 
 def _pbd_frames_agree(cfg, per_frame, dev):
     """Run the card's PBD block 3 frames in ``cfg``: the two projection
-    passes launched the particle-list kernel once per projection
-    iteration, ``per_frame`` (particle-list instances) once a frame, the
-    scene's density once, nothing else; then one step from the state they
-    reached agrees on the card and on the CPU at the one-step bars, with
-    equal iteration counts."""
+    passes launched their kernels once per projection iteration (the
+    counted walks sharing one position pack an iteration), ``per_frame``
+    (launch counters) once a frame, the scene's density once, nothing
+    else; then one step from the state they reached agrees on the card and
+    on the CPU at the one-step bars, with equal iteration counts."""
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="pbd", cfg=cfg, fluid_pos=_block(),
                        device=dev)
@@ -476,13 +488,15 @@ def _pbd_frames_agree(cfg, per_frame, dev):
     assert gpu.retries == 0
     _scene_built_once()
     la = cc.LAUNCHES
-    assert la["particle_pbd_lambda"] == la["particle_stiffness_accel"] \
-        == sum(iters)
+    projection = _kernels("pbd_lambda", "stiffness_accel")
+    if set(cc.COUNTED) & {"pbd_lambda", "stiffness_accel"}:
+        projection += ("pack_positions",)
+    assert all(la[k] == sum(iters) for k in projection), la
     for name in per_frame:
         assert la[name] == 4, (name, la)
     assert {k: n for k, n in la.items() if n} == dict(
         {name: 4 for name in per_frame}, particle_density=1,
-        particle_pbd_lambda=sum(iters), particle_stiffness_accel=sum(iters))
+        **{k: sum(iters) for k in projection})
 
     dims, dims_b = gpu._dims()
 
@@ -819,15 +833,11 @@ def _order(islots, dims, order):
 
 
 def _walked_records(recs, fl, bd):
-    """The records of ``recs`` that a walk reads (``cc.walked``): geo at
-    the real slots and each cell's first padding slot, the j side at the
-    real slots, the boundary's geo likewise -> a tuple of tensors."""
-    real, first = cc.walked(fl[0])
-    out = (recs.geo[real | first], recs.side[real])
-    if bd is not None:
-        breal, bfirst = cc.walked(bd[0])
-        out += (recs.bgeo[breal | bfirst],)
-    return out
+    """The records of ``recs`` that a walk reads (``cc.read_records``): geo
+    at the real slots and, but in the counted pack, each cell's first
+    padding slot, the j side at the real slots, the boundary's geo
+    likewise, and the counted pack's counts -> a tuple of tensors."""
+    return cc.read_records(recs, fl, bd)
 
 
 @pytest.mark.parametrize("name", list(cc.RECORD_IDS))
@@ -842,14 +852,17 @@ def test_pack_kernel_is_bitwise_its_plain_version(operands, name):
     got = cc.pack_records(name, fl, bd, dims, dims_b, CFG)
     again = cc.pack_records(name, fl, bd, dims, dims_b, CFG)
     torch.cuda.synchronize()
-    assert cc.LAUNCHES[f"pack_{name}"] == n0[f"pack_{name}"] + 2
+    key = cc.pack_key(name)
+    assert cc.LAUNCHES[key] == n0[key] + 2
     assert cc.LAUNCHES[f"record_{name}"] == n0[f"record_{name}"]
     plain = cc.pack_records_plain(name, fl, bd, CFG)
     assert all(t is None or t.is_cuda for t in got)
-    assert tuple(got.side.shape) == tuple(plain.side.shape)
+    assert all((a is None) == (b is None) and (a is None or (
+        a.shape == b.shape and a.dtype == b.dtype)) for a, b in zip(got,
+                                                                    plain))
     for a, b, c in zip(*(_walked_records(r, fl, bd)
                          for r in (got, again, plain))):
-        assert a.numel() > 0 and bool(torch.isfinite(c).all())
+        assert a.numel() > 0 and bool(torch.isfinite(c.float()).all())
         assert torch.equal(a, b) and torch.equal(a, c)
     assert (got.bgeo is None) == (not pp.PASSES[name].has_bd)
 
@@ -876,7 +889,8 @@ def test_record_kernel_is_bitwise_the_particle_kernel(operands, name, lanes,
                                  lanes=lanes, reduction=reduction)
     recs = cc.pack_records(name, fl, bd, dims, dims_b, CFG)
     scale = float(want.abs().max())
-    for unroll in cc.UNROLLS:
+    key = cc.pack_key(name)
+    for unroll in cc.unrolls(name):
         n0 = dict(cc.LAUNCHES)
         got = cc.record_pass_cuda(name, fl, bd, lst, dims, dims_b, CFG,
                                   lanes=lanes, reduction=reduction,
@@ -885,7 +899,7 @@ def test_record_kernel_is_bitwise_the_particle_kernel(operands, name, lanes,
                                     lanes=lanes, reduction=reduction,
                                     unroll=unroll, records=recs)
         torch.cuda.synchronize()
-        assert cc.LAUNCHES[f"pack_{name}"] == n0[f"pack_{name}"] + 1
+        assert cc.LAUNCHES[key] == n0[key] + 1
         assert cc.LAUNCHES[f"record_{name}"] == n0[f"record_{name}"] + 2
         assert torch.equal(got, again)
         assert bool(torch.isfinite(got).all()) and bool(got.any())
@@ -916,8 +930,8 @@ def test_record_kernel_writes_only_listed_slots(operands, name):
     assert not bool(empty.any())
 
 
-@pytest.mark.parametrize("unroll", cc.UNROLLS)
-@pytest.mark.parametrize("name", list(cc.RECORD_IDS))
+@pytest.mark.parametrize("name, unroll", [(name, u) for name in cc.RECORD_IDS
+                                          for u in cc.unrolls(name)])
 def test_record_kernel_on_full_and_empty_cells(dev, name, unroll):
     """Cells full to K (and Kb) hold no padding record to stop a batch of
     the walk, empty ones stop it at their first record, and the ghost ring
@@ -938,13 +952,15 @@ def test_record_kernel_on_full_and_empty_cells(dev, name, unroll):
 @pytest.fixture(scope="module")
 def record_window_operands(dev):
     """For each record pass: the whole box's operands from one step of its
-    solver (surface and viscosity: DFSPH; surface_pressure: WCSPH;
-    xsph_colorgrad: PBD) after 3 frames of the block, and the BoxIndex,
+    solver (surface, viscosity and stiffness_accel: DFSPH;
+    surface_pressure: WCSPH; xsph_colorgrad and pbd_lambda: PBD) after 3
+    frames of the block, and the BoxIndex,
     full boundary grid and dims that ops/box.slab_window cuts a block's
     window from."""
     got = {}
     for name, solver in (("surface", "dfsph"), ("surface_pressure", "wcsph"),
-                         ("xsph_colorgrad", "pbd"), ("viscosity", "dfsph")):
+                         ("xsph_colorgrad", "pbd"), ("viscosity", "dfsph"),
+                         ("pbd_lambda", "pbd"), ("stiffness_accel", "dfsph")):
         sim = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
                            device=dev)
         sim.run(3)
@@ -1055,7 +1071,8 @@ def test_record_wrappers_refuse_on_the_card(operands):
     with pytest.raises(ValueError, match="records.geo is on cpu"):
         cc.record_pass_cuda("surface_pressure", fl, bd, islots, dims,
                             dims_b, CFG,
-                            records=cc.Records(*(t.cpu() for t in recs)))
+                            records=cc.Records(*(None if t is None else
+                                                 t.cpu() for t in recs)))
     assert cc.LAUNCHES == before
 
 
@@ -1101,14 +1118,142 @@ def test_pack_and_record_kernel_at_another_rho0(operands, name):
         assert torch.equal(a, b)
     want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
     base = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
-    assert not torch.equal(want, base)
+    # stiffness_accel's terms do not read rho0
+    assert torch.equal(want, base) == (name == "stiffness_accel")
     scale = float(want.abs().max())
     for lanes, red in cc.variants(name):
         part = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, cfg,
                                      lanes=lanes, reduction=red)
         torch.testing.assert_close(part, want, rtol=BAR, atol=BAR * scale)
-        for unroll in cc.UNROLLS:
+        for unroll in cc.unrolls(name):
             rec = cc.record_pass_cuda(name, fl, bd, islots, dims, dims_b,
                                       cfg, lanes=lanes, reduction=red,
                                       unroll=unroll)
             assert torch.equal(rec, part), (lanes, red, unroll)
+
+
+# ----------------------------------------------------------------------
+# the counted walk (``cc.COUNTED``) over one shared position pack
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def projection_operands(dev):
+    """pbd_lambda's and stiffness_accel's operands of one projection
+    iteration of a PBD step after 3 frames of the block: the same
+    positions, masses and boundary window."""
+    sim = T.Simulation(solver="pbd", cfg=CFG, fluid_pos=_block(), device=dev)
+    sim.run(3)
+    calls = {}
+
+    def record(n, fl, bd, dims, dims_b, cfg, islots=None):
+        calls.setdefault(n, (fl, bd, dims, dims_b, islots))
+        return pp.column_pass_plain(n, fl, bd, dims, dims_b, cfg)
+    dims, dims_b = sim._dims()
+    ds.pbd_step(sim.state, sim.carry, sim.scene, CFG, CFG.dt, dims, dims_b,
+                sim.box, executor=record)
+    return calls["pbd_lambda"], calls["stiffness_accel"]
+
+
+@pytest.mark.parametrize("unroll", cc.COUNTED_UNROLLS)
+def test_one_position_pack_serves_both_projection_passes(projection_operands,
+                                                         unroll):
+    """The position pack of pbd_lambda's operand, handed to
+    stiffness_accel's walk, gives bitwise its walk on a fresh pack of its
+    own operand, and both walks bitwise their particle-list kernels at
+    every variant; the two packs are bitwise equal where a walk reads, and
+    a reused pack counts no pack launch."""
+    (lfl, lbd, ldims, ldims_b, lslots), (fl, bd, dims, dims_b, islots) = \
+        projection_operands
+    assert torch.equal(lfl, fl[:4]) and torch.equal(lbd, bd)
+    shared = cc.pack_records("pbd_lambda", lfl, lbd, ldims, ldims_b, CFG)
+    own = cc.pack_records("stiffness_accel", fl, bd, dims, dims_b, CFG)
+    for a, b in zip(cc.read_records(shared, lfl, lbd),
+                    cc.read_records(own, fl, bd)):
+        assert torch.equal(a, b)
+    for lanes, red in cc.variants("stiffness_accel"):
+        n0 = dict(cc.LAUNCHES)
+        got = cc.record_pass_cuda("stiffness_accel", fl, bd, islots, dims,
+                                  dims_b, CFG, lanes=lanes, reduction=red,
+                                  unroll=unroll, records=shared)
+        lam = cc.record_pass_cuda("pbd_lambda", lfl, lbd, lslots, ldims,
+                                  ldims_b, CFG, lanes=lanes, reduction=red,
+                                  unroll=unroll, records=shared)
+        assert cc.LAUNCHES["pack_positions"] == n0["pack_positions"]
+        fresh = cc.record_pass_cuda("stiffness_accel", fl, bd, islots, dims,
+                                    dims_b, CFG, lanes=lanes, reduction=red,
+                                    unroll=unroll)
+        torch.cuda.synchronize()
+        assert cc.LAUNCHES["pack_positions"] == n0["pack_positions"] + 1
+        assert torch.equal(got, fresh), (lanes, red)
+        assert torch.equal(got, cc.particle_pass_cuda(
+            "stiffness_accel", fl, bd, islots, dims, dims_b, CFG,
+            lanes=lanes, reduction=red))
+        assert torch.equal(lam, cc.particle_pass_cuda(
+            "pbd_lambda", lfl, lbd, lslots, ldims, ldims_b, CFG, lanes=lanes,
+            reduction=red))
+
+
+def test_shared_pack_is_packed_once_by_column_pass(projection_operands):
+    """passes.column_pass packs a SharedPack at the first counted pass that
+    takes it, and the second walks that pack: one pack launch, two walks,
+    each pass bitwise its walk on its own pack."""
+    (lfl, lbd, ldims, ldims_b, lslots), (fl, bd, dims, dims_b, islots) = \
+        projection_operands
+    pack = pp.SharedPack()
+    n0 = dict(cc.LAUNCHES)
+    lam = pp.pbd_lambda_pass(lfl, lbd, ldims, ldims_b, CFG, islots=lslots,
+                             records=pack)
+    sa = pp.stiffness_accel_pass(fl, bd, dims, dims_b, CFG, islots=islots,
+                                 records=pack)
+    torch.cuda.synchronize()
+    assert pack.records is not None
+    assert {k: cc.LAUNCHES[k] - n0[k] for k in cc.LAUNCHES
+            if cc.LAUNCHES[k] != n0[k]} == {
+        "pack_positions": 1, "record_pbd_lambda": 1,
+        "record_stiffness_accel": 1}
+    assert torch.equal(lam, cc.record_pass_cuda("pbd_lambda", lfl, lbd,
+                                                lslots, ldims, ldims_b, CFG))
+    assert torch.equal(sa, cc.record_pass_cuda("stiffness_accel", fl, bd,
+                                               islots, dims, dims_b, CFG))
+
+
+@pytest.mark.parametrize("unroll", cc.COUNTED_UNROLLS)
+def test_counted_stiffness_accel_is_exactly_zero_at_zero_lambda(
+        projection_operands, unroll):
+    """PBD's exact all-lambda-zero exit needs the counted walk to store +-0
+    where no pair contributes, at every variant."""
+    _, (fl, bd, dims, dims_b, islots) = projection_operands
+    zero = fl.clone()
+    zero[4] = 0.0
+    for lanes, red in cc.variants("stiffness_accel"):
+        out = cc.record_pass_cuda("stiffness_accel", zero, bd, islots, dims,
+                                  dims_b, CFG, lanes=lanes, reduction=red,
+                                  unroll=unroll)
+        assert not bool(out.any()), (lanes, red)
+
+
+@pytest.mark.parametrize("unroll", cc.COUNTED_UNROLLS)
+def test_counted_walk_stores_nothing_at_a_listed_padding_slot(
+        projection_operands, unroll):
+    """The counted pack writes no record for a padding slot; the walk tells
+    by its operand's row 0 whether a listed slot holds a particle, as the
+    particle-list kernel does: on a list of every slot (padding slots
+    included) over a pack whose unwritten records hold NaN, both counted
+    passes are bitwise the particle-list kernel at every variant."""
+    for fl, bd, dims, dims_b, _ in projection_operands:
+        name = "pbd_lambda" if fl.shape[0] == 4 else "stiffness_accel"
+        every = torch.arange(dims.k * dims.g, dtype=torch.int64,
+                             device=fl.device)
+        recs = cc.pack_records(name, fl, bd, dims, dims_b, CFG)
+        real = fl[0].t().reshape(-1) < POS_PAD / 2  # record order c*K + s
+        assert not bool(real.all())
+        poisoned = recs.geo.clone()
+        poisoned[~real] = float("nan")
+        recs = recs._replace(geo=poisoned)
+        for lanes, red in cc.variants(name):
+            got = cc.record_pass_cuda(name, fl, bd, every, dims, dims_b, CFG,
+                                      lanes=lanes, reduction=red,
+                                      unroll=unroll, records=recs)
+            assert torch.equal(got, cc.particle_pass_cuda(
+                name, fl, bd, every, dims, dims_b, CFG, lanes=lanes,
+                reduction=red)), (name, lanes, red)

@@ -50,7 +50,16 @@ def test_capture_round_trips_the_steps_operands(tmp_path, solver, name):
             assert torch.equal(got[key], case[key])
     out = pp.column_pass_plain(name, got["fl"], got["bd"], got["dims"],
                                got["dims_b"], got["cfg"])
-    assert torch.isfinite(out).all() and out.abs().max() > 0
+    assert torch.isfinite(out).all()
+    if name == "stiffness_accel" and not bool(out.any()):
+        # the small block's first projection (PBD's lambda) or warm start
+        # (DFSPH's) can hold s = 0 everywhere, where the pass gives 0: its
+        # pairs show with s = 1
+        fl = got["fl"].clone()
+        fl[4] = 1.0
+        out = pp.column_pass_plain(name, fl, got["bd"], got["dims"],
+                                   got["dims_b"], got["cfg"])
+    assert out.abs().max() > 0
 
 
 def test_time_needs_a_card(tmp_path, monkeypatch):

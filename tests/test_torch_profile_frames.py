@@ -65,6 +65,15 @@ torch.set_num_threads(2)
      "namespace)::DensityViscPass>(float const*, float const*, float4*, "
      "float4*, float4*, int, int, long, (anonymous namespace)::Consts)",
      "pack_density_visc"),
+    ("void (anonymous namespace)::counted_pass_kernel<(anonymous "
+     "namespace)::StiffnessAccelPass, 8, false, 2>((anonymous namespace)::"
+     "Counted, long const*, float*, int, int, int, int, int, int, "
+     "(anonymous namespace)::Consts)", "record_stiffness_accel"),
+    ("void (anonymous namespace)::counted_pass_kernel<(anonymous "
+     "namespace)::PbdLambdaPass, 8, true, 4>(...)", "record_pbd_lambda"),
+    ("(anonymous namespace)::count_pack_kernel(float const*, float const*, "
+     "float4*, int*, float4*, int*, int, int, long, (anonymous namespace)::"
+     "Consts)", "pack_positions"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
     ("Memset (Device)", "other"),
 ])

@@ -7,7 +7,10 @@ c at record c*K + s, as ``{x, y, z, m}`` and the slot's j side (|cg|^2;
 for xsph_colorgrad; vel3 and 0 for viscosity), the boundary window's
 ``{x, y, z, m}`` at c*Kb + s.
 The pack writes only the records a walk reads: the real slots, and each
-cell's first padding slot as ``{POS_PAD, 0, 0, 0}``. The pack kernel is held bitwise to
+cell's first padding slot as ``{POS_PAD, 0, 0, 0}``; for pbd_lambda and
+stiffness_accel (``COUNTED``), whose walk is counted, one position pack of
+the real slots alone and each cell's count of real slots, with no j side.
+The pack kernel is held bitwise to
 ``pack_records_plain`` on those records on the card
 (tests/test_torch_cuda.py); here that plain version is held to the layout,
 to the records it leaves unwritten and to the plain pass bodies'
@@ -45,9 +48,14 @@ TCFG = T.dam_break_config(mode="parity")
 JCFG = J.dam_break_config(mode="parity")
 K, KB, BOX = 12, 7, (20, 24, 20)      # holds the dam at frame 0
 NAMES = tuple(tcc.RECORD_IDS)
+# the passes whose plain executor is held to the JAX package's here: the
+# record passes, and PBD's projection passes whatever kernel runs them
+PLAIN_NAMES = tuple(dict.fromkeys(NAMES + ("pbd_lambda", "stiffness_accel")))
 # a rest density that is not a power of two, so that m / rho0 and the
 # viscosity's lap / rho0 round
 RHO0 = 1.3
+# the record passes whose terms do not read rho0
+RHO0_FREE = ("stiffness_accel",)
 # what the plain pack holds in a record no walk reads, as int32 bits
 UNWRITTEN_BITS = torch.tensor(tcc.UNWRITTEN).view(torch.int32)
 
@@ -99,7 +107,10 @@ def _rows(name, fl):
     return {"surface_pressure": fl[:9],
             "surface": np.concatenate([fl[:4], fl[6:9]]),
             "xsph_colorgrad": np.concatenate([fl[:4], fl[9:12]]),
-            "viscosity": np.concatenate([fl[:4], fl[9:12]])}[name]
+            "viscosity": np.concatenate([fl[:4], fl[9:12]]),
+            "pbd_lambda": fl[:4],
+            # p (negative for some slots) as stiffness_accel's s
+            "stiffness_accel": np.concatenate([fl[:4], fl[5:6]])}[name]
 
 
 def _operands(name, dam):
@@ -115,7 +126,10 @@ def _side_of_bodies(name, f, cfg):
     _surface_pressure_terms: ``j[6] * j[6] + j[7] * j[7] + j[8] * j[8]``
     and ``over``: ``f[5] / torch.clamp(f[4] * f[4], min=eps)``;
     _colorgrad_terms: ``_jb(j[3]) / rho_ref``; _xsph_dv and
-    _viscosity_terms: ``j[4 + c]``)."""
+    _viscosity_terms: ``j[4 + c]``); none in the position pack of
+    COUNTED."""
+    if name in tcc.COUNTED:
+        return []
     if name == "surface":
         return [f[4] * f[4] + f[5] * f[5] + f[6] * f[6]]
     if name == "xsph_colorgrad":
@@ -141,20 +155,24 @@ def _occupancy(x0):
     return real, first
 
 
-def _grid_records(x, geo, k, g):
+def _grid_records(x, geo, k, g, counted=False):
     """The geo records of grid x (rows, K, G): a real slot's record c*K + s
     is [x, y, z, m] of slot s of cell c; the first padding slot's [its x,
-    POS_PAD, 0, 0, 0]; every other record UNWRITTEN in all four words; so
-    exactly the records a walk reads hold values."""
+    POS_PAD, 0, 0, 0], but in the counted pack, which has none; every
+    other record UNWRITTEN in all four words; so exactly the records a walk
+    reads hold values."""
     assert geo.shape == (g * k, 4) and geo.is_contiguous()
     real, first = _occupancy(x[0])
     cells = geo.reshape(g, k, 4).permute(2, 1, 0)      # (4, K, G)
     for r in range(4):
         assert torch.equal(cells[r][real], x[r][real])
-    assert bool((cells[0][first] == POS_PAD).all())
-    assert not bool(cells[1:, first].any())
-    rest = ~(real | first)
-    assert bool(rest.any()) and bool(first.any())
+    assert bool(first.any())
+    probed = torch.zeros_like(first) if counted else first
+    if not counted:
+        assert bool((cells[0][first] == POS_PAD).all())
+        assert not bool(cells[1:, first].any())
+    rest = ~(real | probed)
+    assert bool(rest.any())
     assert bool((_bits(cells[:, rest]) == UNWRITTEN_BITS).all())
     wreal, wfirst = tcc.walked(x[0])
     assert torch.equal(wreal, real.T.reshape(-1))
@@ -168,13 +186,21 @@ def _holds_the_layout(name, fl, bd, dims, dims_b, recs, cfg=TCFG):
     ``cfg``, ghost cells included (bitwise); the j side of every other slot
     UNWRITTEN; the boundary's at c*Kb + s likewise."""
     k, g = dims.k, dims.g
-    real = _grid_records(fl, recs.geo, k, g)
+    counted = name in tcc.COUNTED
+    real = _grid_records(fl, recs.geo, k, g, counted)
     side = _side_of_bodies(name, fl, cfg)
     width = tcc.SIDE_WIDTH[name]
     assert len(side) == width
-    want = (g * k,) if width == 1 else (g * k, width)
-    assert tuple(recs.side.shape) == want and recs.side.is_contiguous()
-    got = recs.side.reshape(g, k, width).permute(2, 1, 0)
+    if counted:
+        # each cell's count: its real slots, int32, in cell order
+        assert recs.side is None
+        assert recs.count.dtype == torch.int32 and recs.count.is_contiguous()
+        assert torch.equal(recs.count, real.sum(0, dtype=torch.int32))
+    else:
+        assert recs.count is None and recs.bcount is None
+        want = (g * k,) if width == 1 else (g * k, width)
+        assert tuple(recs.side.shape) == want and recs.side.is_contiguous()
+        got = recs.side.reshape(g, k, width).permute(2, 1, 0)
     for j in range(width):
         assert torch.equal(got[j][real], side[j][real])
         assert bool((_bits(got[j][~real]) == UNWRITTEN_BITS).all())
@@ -186,7 +212,10 @@ def _holds_the_layout(name, fl, bd, dims, dims_b, recs, cfg=TCFG):
     if bd is None:
         assert recs.bgeo is None
     else:
-        _grid_records(bd, recs.bgeo, dims_b.k, g)
+        breal = _grid_records(bd, recs.bgeo, dims_b.k, g, counted)
+        if counted:
+            assert recs.bcount.dtype == torch.int32
+            assert torch.equal(recs.bcount, breal.sum(0, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -253,7 +282,8 @@ def test_pack_of_a_2x2_window_with_stale_ghost_faces(dam, name):
         moved = (_bits(recs.geo) != _bits(fresh.geo)).reshape(
             ldims.g, -1).any(-1)
         assert bool(moved.any()) and not bool(moved[~face].any())
-        for got, want, k in zip(fresh, whole, (K, K, KB)):
+        # the counts as one slot per cell
+        for got, want, k in zip(fresh, whole, (K, K, KB, 1, 1)):
             if want is None:
                 assert got is None
                 continue
@@ -283,28 +313,31 @@ def _plain_matches_jax(dam, name, tcfg, jcfg):
     return got
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", PLAIN_NAMES)
 def test_plain_pass_matches_jax_on_the_dam(dam, name):
     """The plain executor, which the record kernel is held to on the card,
     against the JAX package's pass on the same operand."""
     _plain_matches_jax(dam, name, TCFG, JCFG)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", PLAIN_NAMES)
 def test_plain_pass_and_pack_at_another_rho0(dam, name):
     """At rho0 1.3, which divides m and lap with rounding, the plain
     executor still matches the JAX package's pass, and differs from its
-    output at the dam's rho0 of 1 wherever rho0 enters the pass; the plain
-    pack still holds the layout and the bodies' j side bitwise (its m /
-    rho0, a division by a tensor, rounds as the bodies' division by the
-    Python scalar on the CPU)."""
+    output at the dam's rho0 of 1 wherever rho0 enters the pass (in
+    stiffness_accel it does not: there the two are equal); a record pass's
+    plain pack still holds the layout and the bodies' j side bitwise (its m
+    / rho0, a
+    division by a tensor, rounds as the bodies' division by the Python
+    scalar on the CPU)."""
     tcfg, jcfg = TCFG.replace(rho0=RHO0), JCFG.replace(rho0=RHO0)
     got = _plain_matches_jax(dam, name, tcfg, jcfg)
     fl, bd, dims, dims_b = _operands(name, dam)
     base = tpp.column_pass_plain(name, fl, bd, dims, dims_b, TCFG).numpy()
-    assert not np.array_equal(got, base)
-    recs = tcc.pack_records(name, fl, bd, dims, dims_b, tcfg)
-    _holds_the_layout(name, fl, bd, dims, dims_b, recs, tcfg)
+    assert np.array_equal(got, base) == (name in RHO0_FREE)
+    if name in tcc.RECORD_IDS:
+        recs = tcc.pack_records(name, fl, bd, dims, dims_b, tcfg)
+        _holds_the_layout(name, fl, bd, dims, dims_b, recs, tcfg)
 
 
 def test_record_wrappers_refuse_what_the_kernel_cannot_take():
@@ -342,25 +375,55 @@ def test_record_wrappers_refuse_what_the_kernel_cannot_take():
                              TCFG)
     with pytest.raises(ValueError, match="not a CUDA device"):
         tcc.record_pass_cuda("surface_pressure", fl, bd, islots, d, d, TCFG)
+    with pytest.raises(ValueError, match=r"unroll 4 is not one of \(1, 2\)"):
+        tcc.record_pass_cuda("surface", fl[:7], None, islots, d, None, TCFG,
+                             unroll=4)
+    with pytest.raises(ValueError, match="unroll 3 is not one of"):
+        tcc.record_pass_cuda("pbd_lambda", fl[:4], bd, islots, d, d, TCFG,
+                             unroll=3)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tcc.record_pass_cuda("pbd_lambda", fl[:4], bd, islots, d, d, TCFG,
+                             unroll=4)
+    # the counted walk's 32-bit indices: K*G of 2^31 or more is refused
+    big = DenseDims(1290, 1290, 1290, 1)
+    assert big.k * big.g >= 2**31
+    with pytest.raises(ValueError, match="indexes in 32 bits"):
+        tcc.record_pass_cuda("stiffness_accel", fl[:5], bd, islots, big, big,
+                             TCFG)
     assert tcc.LAUNCHES == before
     assert set(tcc.RECORD_IDS) == {"surface", "surface_pressure",
-                                   "xsph_colorgrad", "viscosity"}
+                                   "xsph_colorgrad", "viscosity",
+                                   "pbd_lambda", "stiffness_accel"}
+    assert set(tcc.COUNTED) == {"pbd_lambda", "stiffness_accel"}
     assert set(tcc.SIDE_WIDTH) == set(tcc.RECORD_IDS)
+    assert all((tcc.SIDE_WIDTH[n] == 0) == (n in tcc.COUNTED)
+               for n in tcc.RECORD_IDS)
     assert set(tcc.RECORD_IDS) <= set(tpp.PARTICLE_PASSES)
     assert all(tcc.RECORD_IDS[n] == tcc.PASS_IDS[n] for n in tcc.RECORD_IDS)
     assert set(tcc.UNROLLS) == {1, 2}
-    assert all(tcc.RECORD_DEFAULTS[n][2] in tcc.UNROLLS
+    assert set(tcc.COUNTED_UNROLLS) == {1, 2, 4}
+    assert all(tcc.RECORD_DEFAULTS[n][2] in tcc.unrolls(n)
                and tcc.RECORD_DEFAULTS[n][:2] in tcc.variants(n)
                for n in tcc.RECORD_IDS)
+    # one position pack serves both counted passes; the others pack alone
+    assert {tcc.pack_key(n) for n in tcc.COUNTED} == {"pack_positions"}
+    assert all(tcc.pack_key(n) == f"pack_{n}" and tcc.pack_key(n)
+               in tcc.LAUNCHES for n in tcc.RECORD_IDS
+               if n not in tcc.COUNTED)
 
 
 @pytest.mark.parametrize("case", ["other_pass", "other_k", "no_bgeo",
-                                  "stray_bgeo", "float64"])
+                                  "stray_bgeo", "float64", "no_count",
+                                  "count_int64", "count_shape",
+                                  "count_device", "side_pack",
+                                  "position_pack"])
 def test_record_pass_refuses_records_that_do_not_fit(case):
     """Records handed to the walk are checked against the pass's grids
     before anything else of the operands: the walk indexes them by K, Kb
     and G, so a pack of another pass, another K or without the boundary's
-    would send it out of bounds on a card."""
+    would send it out of bounds on a card; the counted walk's position
+    pack needs its counts, (G,) int32 on the operand's device, and a pack
+    with a j side is not one, nor is a position pack a side pass's."""
     d, d3 = DenseDims(3, 3, 3, 2), DenseDims(3, 3, 3, 3)
     fl = torch.zeros((9, d.k, d.g))
     fl[:3] = POS_PAD
@@ -384,10 +447,35 @@ def test_record_pass_refuses_records_that_do_not_fit(case):
         recs = tcc.pack_records(name, fl[:7], None, d, None, TCFG)._replace(
             bgeo=torch.zeros((d.g * d.k, 4)))
         match = "records.bgeo is given; surface takes None"
-    else:
+    elif case == "float64":
         recs = tcc.pack_records(name, fl, bd, d, d, TCFG)
         recs = recs._replace(geo=recs.geo.double())
         match = "records.geo is not contiguous float32"
+    elif case == "position_pack":
+        recs = tcc.pack_records("pbd_lambda", fl[:4], bd, d, d, TCFG)
+        match = (rf"records.side is None; surface_pressure takes "
+                 rf"\({d.g * d.k}, 2\)")
+    else:
+        name, args = "stiffness_accel", (fl[:5], bd, islots, d, d)
+        recs = tcc.pack_records("pbd_lambda", fl[:4], bd, d, d, TCFG)
+        if case == "no_count":
+            recs = recs._replace(count=None)
+            match = "records.count is None; stiffness_accel takes"
+        elif case == "count_int64":
+            recs = recs._replace(count=recs.count.long())
+            match = "records.count is not contiguous int32"
+        elif case == "count_shape":
+            recs = recs._replace(bcount=torch.zeros((d.g + 1,),
+                                                    dtype=torch.int32))
+            match = (rf"records.bcount has shape \({d.g + 1},\), expected "
+                     rf"\({d.g},\)")
+        elif case == "count_device":
+            recs = recs._replace(count=torch.empty((d.g,), dtype=torch.int32,
+                                                   device="meta"))
+            match = "records.count is on meta, fl on cpu"
+        else:
+            recs = tcc.pack_records("surface_pressure", fl, bd, d, d, TCFG)
+            match = "records.side is given; stiffness_accel takes None"
     before = dict(tcc.LAUNCHES)
     with pytest.raises(ValueError, match=match):
         tcc.record_pass_cuda(name, *args, TCFG, records=recs)
@@ -464,3 +552,62 @@ def test_the_steps_slot_lists_name_only_real_slots(k):
         assert _names_real_slots(work, lx0, k * ldims.g) == trash
         owned += islots.shape[0] - trash
     assert owned == int(idx.valid.sum())
+
+
+def test_counted_pack_counts_full_and_empty_cells(dam):
+    """The position pack's counts are each cell's real slots, 0 on an empty
+    cell and K on a full one: the dam at K 3 fills cells to K (it drops
+    the particles past K), and its boundary window at Kb 7; the records
+    hold exactly the real slots."""
+    _, bd, _, dims_b = dam
+    k = 3
+    pos = torch.as_tensor(T.dam_break_positions(TCFG))
+    box = DenseDims(*BOX, k)
+    idx = tbox.build_box_index(pos, TCFG, tdense.dims_for(TCFG, k), box)
+    assert int(idx.overflow) > 0
+    fields = [pos[:, 0], pos[:, 1], pos[:, 2],
+              torch.full((pos.shape[0],), TCFG.m0)]
+    fl = tbox.fill_box(idx, fields, [POS_PAD] * 3 + [0.0], box)
+    bd = _t(bd)
+    real = fl[0] < POS_PAD / 2
+    for name in tcc.COUNTED:
+        op = fl if name == "pbd_lambda" else torch.cat([fl, fl[3:4]])
+        recs = tcc.pack_records(name, op, bd, box, dims_b, TCFG)
+        assert torch.equal(recs.count, real.sum(0, dtype=torch.int32))
+        assert bool((recs.count == k).any()) and bool((recs.count == 0).any())
+        assert bool((recs.bcount == 0).any())
+        assert int(recs.bcount.max()) <= KB
+        _holds_the_layout(name, op, bd, box, dims_b, recs)
+        assert torch.equal(_bits(recs.geo), _bits(tcc.pack_records(
+            "pbd_lambda", fl, bd, box, dims_b, TCFG).geo))
+    assert torch.equal(tcc.counts_plain(fl[0]), real.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name", tcc.COUNTED)
+def test_shared_pack_stays_empty_on_the_cpu(dam, name):
+    """A SharedPack handed to a counted pass on the CPU is not packed: the
+    plain executor runs, bitwise as without it, and launches nothing."""
+    fl, bd, dims, dims_b = _operands(name, dam)
+    pack = tpp.SharedPack()
+    before = dict(tcc.LAUNCHES)
+    got = tpp.column_pass(name, fl, bd, dims, dims_b, TCFG, records=pack)
+    assert pack.records is None and tcc.LAUNCHES == before
+    assert torch.equal(got, tpp.column_pass_plain(name, fl, bd, dims,
+                                                  dims_b, TCFG))
+
+
+def test_shared_pack_refuses_other_grids():
+    """A SharedPack makes its pack once, hands the same pack to every later
+    call on the grids it was made for, and refuses other grids."""
+    pack = tpp.SharedPack()
+    made = []
+
+    def make():
+        made.append(object())
+        return made[-1]
+    key = (DenseDims(*BOX, 4), DenseDims(*BOX, 2), torch.device("cpu"))
+    first = pack.take(key, make)
+    assert pack.take(key, make) is first and len(made) == 1
+    with pytest.raises(ValueError, match="packed for"):
+        pack.take((DenseDims(*BOX, 5),) + key[1:], make)
+    assert pack.records is first and len(made) == 1

@@ -60,3 +60,16 @@ def test_compare_sorts_entries_by_kernel_and_outcome():
     assert report["pack_kernel"]["only_new"] == [
         "_ZN12_GLOBAL__N_111pack_kernelINS_13ViscosityPassEEEvv"]
     assert not any(r["only_old"] for r in report.values())
+
+
+def test_kernel_of_tells_the_counted_kernels_apart():
+    """The counted walk and its position pack fall into templates of their
+    own, apart from the record kernel and pack_kernel whose names they
+    resemble."""
+    walk = ("_ZN12_GLOBAL__N_119counted_pass_kernelINS_13PbdLambdaPassELi8"
+            "ELb0ELi2EEEvNS_7CountedEPKlPfiiiiiiNS_6ConstsE")
+    pack = ("_ZN12_GLOBAL__N_117count_pack_kernelEPKfS1_P6float4PiS3_S4_ii"
+            "lNS_6ConstsE")
+    assert sc.kernel_of(walk) == "counted_pass_kernel"
+    assert sc.kernel_of(pack) == "count_pack_kernel"
+    assert sc.kernel_of(RECORD) == "record_pass_kernel"
