@@ -10,8 +10,9 @@ density_alpha_colorgrad, density_visc, pressure_force, density_alpha,
 viscosity, surface, xsph and the scene build's density, the
 cell-packed record kernel and its pack that run surface, surface_pressure,
 xsph_colorgrad and viscosity on the main path, and the counted walk and
-its shared position pack that run pbd_lambda and stiffness_accel there
-(so no path launches the column kernel),
+its shared position pack that run pbd_lambda, stiffness_accel and the
+surface-off pressure_force and density_alpha there (so no path launches
+the column kernel),
 against the plain torch executor on the card,
 then drives the port's paths on the full 20,736-particle dam
 (``dam_break_config(mode="parity")``, device "cuda"),
@@ -31,7 +32,7 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               kernel's at each (group width, reduction) of
               ``variants(name)`` too, the record kernel's also at each
               unroll of ``unrolls(name)`` (the counted walk's, U 1, 2
-              and 4, for pbd_lambda and stiffness_accel), the pack
+              and 4, for ``COUNTED``), the pack
               kernels' (``pack_positions``: the counted walk's); for the six
               fluid-only instances of phase 7 also their shared memory
   3. kernel   each pass instance vs ``column_pass_plain`` on the operands
@@ -59,10 +60,12 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               each variant and unroll against the plain executor at the
               bar and bitwise equal to the particle-list kernel at the
               same variant; the counted walk of ``COUNTED``
-              (pbd_lambda, stiffness_accel) also on a pack made before it
-              and at rho0 1.3, bitwise the particle-list kernel there, and
-              PBD's stiffness_accel on pbd_lambda's position pack bitwise
-              on its own
+              (pbd_lambda, stiffness_accel, pressure_force,
+              density_alpha) also on a pack made before it and at rho0
+              1.3, bitwise the particle-list kernel there, and
+              stiffness_accel on the position pack of pbd_lambda's
+              operand (PBD) and of the surface-off density_alpha's
+              (DFSPH) bitwise on its own
   4. step     one solver step with the kernel vs with the plain executor
               (pos atol 2e-6, vel atol 2e-3, equal iteration counts), and
               the drift after 5 steps; for WCSPH and DFSPH also with
@@ -93,12 +96,12 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               fast mode: tolerance exit + Chebyshev) with the 5c checks
   5e. off     the three solvers with surface tension and air pressure
               off, a short run each: the surface-off instances' launches
-              (WCSPH particle_density_visc == particle_pressure_force ==
-              the frames run; DFSPH particle_density_alpha ==
-              pack_viscosity == record_viscosity == the frames run and the
-              divergence identity as in 5b; PBD as in 5c with
-              particle_xsph == the frames run in place of xsph_colorgrad
-              and surface)
+              (WCSPH particle_density_visc == record_pressure_force ==
+              pack_positions == the frames run; DFSPH
+              record_density_alpha == pack_positions == pack_viscosity ==
+              record_viscosity == the frames run and the divergence
+              identity as in 5b; PBD as in 5c with particle_xsph == the
+              frames run in place of xsph_colorgrad and surface)
   6. timing   kernel vs plain executor per pass at the shapes of its
               solver's 300-frame state (WCSPH's for density_visc and
               pressure_force; density_alpha on DFSPH's and xsph on PBD's,
@@ -124,17 +127,21 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               the adoption rule's verdict (the record kernel keeps the
               pass only if its best rung beats the particle-list kernel's
               best rung in both passes by more than the gap between
-              them); pbd_lambda (PBD's state) and stiffness_accel
-              (DFSPH's and PBD's) ladder the counted walk alone at each
-              variant and unroll on a position pack made before the
+              them); pbd_lambda (PBD's state), stiffness_accel
+              (DFSPH's and PBD's), pressure_force (WCSPH's) and
+              density_alpha (DFSPH's) ladder the counted walk alone at
+              each variant and unroll on a position pack made before the
               timing, the pack alone and the default with its pack;
               after all states the counted
               walk's rule (``counted_adoptions``: on PBD's state the pack
               and both walks per projection iteration, on DFSPH's the walk
-              and its share of a frame's pack, each at its best rung,
-              against the particle-list bests, in both passes by more
-              than their gap) prints one adoption line per pass and
-              solver; then on the 1M recipe's one-device
+              and its share of a frame's pack, on WCSPH's surface-off
+              step the pack and the pressure_force walk, on DFSPH's
+              surface-off step the density_alpha walk alone (the frame
+              makes its pack either way), each at its best rung, against
+              the particle-list bests, in both passes by more than their
+              gap) prints one adoption line per pass and solver; then on
+              the 1M recipe's one-device
               state after its warm-up frame divergence once more, against
               plain, in cell-major order and in the particles', in turns,
               and density_alpha_colorgrad held as in phase 3 and laddered
@@ -167,7 +174,9 @@ x-slab mesh and on a 2x2 x-z block mesh of ranks (each a process of
               collective but the exchange, which one rank never makes),
               (c) on one rank per GPU over NCCL where more than one GPU is
               visible (else it says why it did not run); and the dam for
-              WCSPH and PBD parity, 100 frames each, under (a) (the
+              WCSPH and PBD parity, 100 frames each, and with surface
+              effects off for DFSPH and WCSPH, 20 frames each (the counted
+              walks on their frames' position packs), under (a) (the
               collapsing column makes PBD's projection run all 20
               iterations in the later frames); (d) the 1M recipe and the
               PBD dam on the (gx, gz) 2-D mesh of 2x2 ranks over gloo
@@ -232,6 +241,8 @@ APP_PNG_STEPS = 50              # phase 8: the CLI's PNG run
 # phase 9: the README's multi-GPU recipe at full size, and the dam
 MESH_1M = "dfsph-fast:scaled1000000:3"
 MESH_DAM = ("wcsph:dam:100", "pbd:dam:100")
+# phase 9 (a): the surface-off dam, whose counted walks share a frame's pack
+MESH_OFF = ("dfsph-off:dam:20", "wcsph-off:dam:20")
 MESH_2D = "2x2"          # the (gx, gz) mesh of run (d)
 MESH_TIMEOUT = 420       # seconds for one run of the per-rank entry point
 # the passes each solver's mesh path must launch on every rank, each
@@ -241,7 +252,10 @@ MESH_PASSES = {
               "stiffness_accel", "viscosity", "surface"),
     "wcsph": ("density", "density_colorgrad_visc", "surface_pressure"),
     "pbd": ("density", "pbd_lambda", "stiffness_accel", "xsph_colorgrad",
-            "surface")}
+            "surface"),
+    "dfsph-off": ("density", "density_alpha", "divergence",
+                  "stiffness_accel", "viscosity"),
+    "wcsph-off": ("density", "density_visc", "pressure_force")}
 CHUNK = 25
 STEP_POS_ATOL = 2e-6
 STEP_VEL_ATOL = 2e-3
@@ -269,12 +283,16 @@ PAIR_FLOPS = {"density": (10, 10), "density_colorgrad_visc": (46, 30),
 # operations per real slot of a record pass's j side (csrc/column_pass.cu
 # P::side): |cg|^2 5; and p / max(eps, rho^2) 3; m / rho0 1; vel3 copied 0
 SIDE_FLOPS = {"surface": 5, "surface_pressure": 8, "xsph_colorgrad": 1,
-              "viscosity": 0, "pbd_lambda": 0, "stiffness_accel": 0}
+              "viscosity": 0, "pbd_lambda": 0, "stiffness_accel": 0,
+              "pressure_force": 0, "density_alpha": 0}
 # instances that no step runs, in either package: held in phases 3 and 6
 # on the PBD path's own [pos3, mass] operands, never launched by a path
 OFF_PATH = {name: "no step runs it; held on the PBD path's [pos3, mass] "
             "operands at frame 0 and after the PBD run"
             for name in ("color_gradient", "density_colorgrad")}
+# passes that the DFSPH state's capture runs only for phase 3, through a
+# surface-off WCSPH step: phase 6 times them on WCSPH's state alone
+WCSPH_OFF = ("density_visc", "pressure_force")
 # the operands of the two rows that no step of a 300-frame path gives
 STATE = {"density": "the scene build's boundary grid (full domain, Kb = K) "
          "and its zero-mass clone, with the boundary index's slot list; "
@@ -530,27 +548,33 @@ def compare_records(tag, name, fl, bd, dims, dims_b, islots, cfg, want,
 
 
 def compare_shared_pack(tag, calls, cfg, cc, torch):
-    """PBD's two passes of one projection iteration on one position pack:
-    stiffness_accel's walk on the pack of pbd_lambda's operand bitwise its
-    walk on its own operand's pack, at its default, as the step runs it."""
+    """The passes that share one position pack on a path: stiffness_accel's
+    walk on the pack of the operand of PBD's pbd_lambda (one projection
+    iteration) or of DFSPH's surface-off density_alpha (one frame) bitwise
+    its walk on its own operand's pack, at its default, as the step runs
+    it."""
     ops = {c[0]: c for c in calls}
-    if not set(cc.COUNTED) <= set(ops):
+    if "stiffness_accel" not in ops:
         return
-    _, lfl, lbd, ldims, ldims_b, _ = ops["pbd_lambda"]
     _, fl, bd, dims, dims_b, islots = ops["stiffness_accel"]
-    if not torch.equal(lfl, fl[:4]):
-        raise AssertionError(f"{tag}: the two passes' positions differ")
-    shared = cc.pack_records("pbd_lambda", lfl, lbd, ldims, ldims_b, cfg)
-    got = cc.record_pass_cuda("stiffness_accel", fl, bd, islots, dims,
-                              dims_b, cfg, records=shared)
     own = cc.record_pass_cuda("stiffness_accel", fl, bd, islots, dims,
                               dims_b, cfg)
-    torch.cuda.synchronize()
-    if not torch.equal(got, own):
-        raise AssertionError(f"{tag}: stiffness_accel on pbd_lambda's pack "
-                             "differs from it on its own")
-    log("kernel", f"{tag} stiffness_accel on pbd_lambda's position pack "
-        "bitwise equal to it on its own operand's pack")
+    for first in ("pbd_lambda", "density_alpha"):
+        if first not in ops:
+            continue
+        _, lfl, lbd, ldims, ldims_b, _ = ops[first]
+        if not (torch.equal(lfl, fl[:4]) and torch.equal(lbd, bd)):
+            raise AssertionError(f"{tag}: {first}'s and stiffness_accel's "
+                                 "positions differ")
+        shared = cc.pack_records(first, lfl, lbd, ldims, ldims_b, cfg)
+        got = cc.record_pass_cuda("stiffness_accel", fl, bd, islots, dims,
+                                  dims_b, cfg, records=shared)
+        torch.cuda.synchronize()
+        if not torch.equal(got, own):
+            raise AssertionError(f"{tag}: stiffness_accel on {first}'s pack "
+                                 "differs from it on its own")
+        log("kernel", f"{tag} stiffness_accel on {first}'s position pack "
+            "bitwise equal to it on its own operand's pack")
 
 
 def scene_mass_vs_plain(sim, ds, pp, torch, errs):
@@ -1092,10 +1116,15 @@ def counted_adoptions(times, paths, cc, card):
     pbd_lambda walk + the stiffness_accel walk against the two passes'
     particle-list bests; on DFSPH's state, the stiffness_accel walk + the
     pack over the stiffness_accel calls a pack serves in a DFSPH frame
-    (the path's launch counts) against the particle-list best. The walk
-    keeps a solver's passes only if it wins in both ladder passes by more
-    than the gap between them (the larger of the two sums' pass-to-pass
-    spreads) -> {solver: record}, each logged as one line per pass."""
+    (the path's launch counts) against the particle-list best; on WCSPH's
+    surface-off step, the pack + the pressure_force walk against the
+    particle-list best; on DFSPH's surface-off step, the density_alpha
+    walk alone against the particle-list best, since the frame makes its
+    one pack whether or not density_alpha walks it. The walk keeps a
+    path's passes only if it wins in both ladder passes by more than the
+    gap between them (the larger of the two sums' pass-to-pass spreads)
+    -> {path: record} (``tkeys``: each pass's key in ``times``), each
+    logged as one line per pass."""
     out = {}
     pbd = (times.get("pbd_lambda"), times.get("stiffness_accel@pbd"))
     if all(t is not None and "bests" in t for t in pbd):
@@ -1104,7 +1133,10 @@ def counted_adoptions(times, paths, cc, card):
                + bs["walk_best_graph_ms"][i] for i in range(2)]
         part = [bl["particle_best_graph_ms"][i]
                 + bs["particle_best_graph_ms"][i] for i in range(2)]
-        out["pbd"] = {"passes": list(cc.COUNTED), "counted_ms": rec,
+        out["pbd"] = {"passes": ["pbd_lambda", "stiffness_accel"],
+                      "tkeys": {"pbd_lambda": "pbd_lambda",
+                                "stiffness_accel": "stiffness_accel@pbd"},
+                      "label": "PBD", "counted_ms": rec,
                       "particle_ms": part, "per": "projection iteration",
                       "terms": {"pack": bl["pack_graph_ms"],
                                 "pbd_lambda": bl, "stiffness_accel": bs}}
@@ -1115,19 +1147,39 @@ def counted_adoptions(times, paths, cc, card):
         calls = la["record_stiffness_accel"] / la["pack_positions"]
         rec = [b["walk_best_graph_ms"][i] + b["pack_graph_ms"][i] / calls
                for i in range(2)]
-        out["dfsph"] = {"passes": ["stiffness_accel"], "counted_ms": rec,
+        out["dfsph"] = {"passes": ["stiffness_accel"],
+                        "tkeys": {"stiffness_accel": "stiffness_accel"},
+                        "label": "DFSPH", "counted_ms": rec,
                         "particle_ms": list(b["particle_best_graph_ms"]),
                         "per": f"call ({calls:.2f} calls a pack)",
                         "terms": {"pack": b["pack_graph_ms"],
                                   "stiffness_accel": b}}
-    for solver, a in out.items():
+    for path, name, label, own_pack in (
+            ("wcsph_surface_off", "pressure_force", "WCSPH surface off", True),
+            ("dfsph_surface_off", "density_alpha", "DFSPH surface off",
+             False)):
+        t = times.get(name)
+        if t is None or "bests" not in t:
+            continue
+        b = t["bests"]
+        rec = [b["walk_best_graph_ms"][i]
+               + (b["pack_graph_ms"][i] if own_pack else 0.0)
+               for i in range(2)]
+        out[path] = {"passes": [name], "tkeys": {name: name},
+                     "label": label, "counted_ms": rec,
+                     "particle_ms": list(b["particle_best_graph_ms"]),
+                     "per": ("frame, its own pack" if own_pack else
+                             "frame, the walk alone (the frame's pack is "
+                             "made either way)"),
+                     "terms": {"pack": b["pack_graph_ms"], name: b}}
+    for a in out.values():
         rec, part = a["counted_ms"], a["particle_ms"]
         a["gap_ms"] = gap = max(abs(rec[0] - rec[1]), abs(part[0] - part[1]))
         a["counted_keeps_the_passes"] = all(
             x < y - gap for x, y in zip(rec, part))
         for name in a["passes"]:
             b = a["terms"][name]
-            log("timing", f"{name} ({solver.upper()}) adoption: counted walk "
+            log("timing", f"{name} ({a['label']}) adoption: counted walk "
                 f"best {b['walk_best']} "
                 + "/".join(f"{x:.4f}" for x in b["walk_best_graph_ms"])
                 + f", particle-list best {b['particle_best']} "
@@ -1197,12 +1249,13 @@ def time_passes(calls, cfg, pp, cc, torch, card, times, orders=None,
     or None where it does not know them. A pass is timed on the first
     state that gives it, kept as ``times[name]``; a pass of
     ``cc.RECORD_IDS`` also on each later one, as ``times[name@solver]``
-    (surface: DFSPH's state, then PBD's)."""
+    (surface: DFSPH's state, then PBD's), but WCSPH_OFF's, which the
+    DFSPH state's capture runs for phase 3 alone."""
     from cpp_fluid_particles_tpu_torch.utils.check import time_ms
     for name, fl, bd, dims, dims_b, islots in calls:
         tkey = name
         if name in times:
-            if name not in cc.RECORD_IDS:
+            if name not in cc.RECORD_IDS or name in WCSPH_OFF:
                 continue
             tkey = f"{name}@{solver}"
 
@@ -1756,9 +1809,11 @@ def mesh_launches(res, tag, ref=None):
     """Every kernel of the case's path launched on this rank, each as often
     as in the single-device run ``ref`` where given; no column kernel."""
     m = res["meta"]
-    solver = m["case"].split(":")[0].split("-")[0]
-    want = [k for name in MESH_PASSES[solver] for k in launched(name, 1)]
-    want += list(position_packs(MESH_PASSES[solver], 1))
+    from cpp_fluid_particles_tpu_torch.exp.mesh_run import parse_case
+    solver, _, surface, _, _ = parse_case(m["case"])
+    names = MESH_PASSES[solver if surface else f"{solver}-off"]
+    want = [k for name in names for k in launched(name, 1)]
+    want += list(position_packs(names, 1))
     missing = [k for k in want if not m["launches"].get(k)]
     column = {k: v for k, v in m["launches"].items()
               if not k.startswith(("particle_", "pack_", "record_")) and v}
@@ -1835,7 +1890,7 @@ def mesh_phase(torch, card):
 
 def _mesh_phase(torch, card, out_dir, data_dir):
     t0 = time.perf_counter()
-    cases = (MESH_1M,) + MESH_DAM
+    cases = (MESH_1M,) + MESH_DAM + MESH_OFF
     (ref,), wall = mesh_ranks("single", cases, 0, lambda r: "cuda:0", None,
                               out_dir, data_dir)
     record = {"single": {"wall_s": wall, "meta": [r["meta"] for r in ref]}}
@@ -1981,9 +2036,10 @@ def pack_row(name, paths, owner, errs, times, cc):
             "ms": pk["ms"], "graph_ms": pk["graph_ms"],
             "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
             "bound_by": pk["bound_by"], "library_ms": None,
-            "note": (f"the position pack that {' and '.join(cc.COUNTED)} "
-                     "walk, packed once per PBD projection iteration and "
-                     f"once per DFSPH frame; timed on {name}'s state"
+            "note": (f"the position pack that {', '.join(cc.COUNTED)} "
+                     "walk, packed once per PBD projection iteration, once "
+                     "per DFSPH frame and once per surface-off WCSPH "
+                     f"frame; timed on {name}'s state"
                      if name in cc.COUNTED else
                      f"the records {name}'s record kernel walks, packed "
                      "once per call")}
@@ -2130,11 +2186,9 @@ def main(argv) -> int:
     adopted = record["counted_adoption"] = guard(
         "counted adoption (phase 6)", functools.partial(
             counted_adoptions, times, paths, cc, card)) or {}
-    for solver, a in adopted.items():
+    for a in adopted.values():
         for name in a["passes"]:
-            tkey = name if solver == "dfsph" or name == "pbd_lambda" \
-                else f"{name}@{solver}"
-            times[tkey]["counted_keeps_the_pass"] = \
+            times[a["tkeys"][name]]["counted_keeps_the_pass"] = \
                 a["counted_keeps_the_passes"]
 
     # 7. flat: the prototype's entry point on the 150-frame WCSPH dam
@@ -2289,9 +2343,13 @@ def off_phase(cfp, ds, cc, torch, off, solver, card):
                     OFF_FRAMES, tally=(solver == "pbd"))
     n, tail = st["rerun_frames"], ""
     if solver == "wcsph":
-        expect_launches(st, {"particle_density_visc": n,
-                             "particle_pressure_force": n})
+        # pressure_force packs its own positions once a frame
+        expect_launches(st, dict(launched("density_visc", n),
+                                 **launched("pressure_force", n),
+                                 **position_packs(("pressure_force",), n)))
     elif solver == "dfsph":
+        # density_alpha walks the frame's one position pack, which every
+        # stiffness_accel of the frame walks after it
         expect_launches(st, dfsph_launches(n, ("viscosity",
                                                "density_alpha")))
         divergence_is_stiffness_accel(st)

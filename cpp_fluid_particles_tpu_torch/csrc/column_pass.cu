@@ -51,20 +51,21 @@
 // untiled (column_pass_kernel<FluidOnly<P>>) as its timing yardstick; the
 // times of both, on each brick, are in PERF.md's kernel table.
 //
-// particle_pass_kernel (below) has fourteen instances and runs eight on
+// particle_pass_kernel (below) has fourteen instances and runs six on
 // the main path: divergence, density_colorgrad_visc,
-// density_alpha_colorgrad, the surface-off density_visc, pressure_force
-// and density_alpha, (PBD with surface effects off) the fluid-only xsph,
-// and the scene build's density over the boundary grid. A group of lanes
-// per particle of the slot list splits that particle's 27-cell walk, and
-// the group's sums are reduced by an xor butterfly or, for passes with
-// many sums, a transpose reduction. record_pass_kernel (below) runs four
-// more, surface_pressure, xsph_colorgrad and the fluid-only surface and
-// viscosity, in the same groups over a cell-packed copy of the operand
-// that pack_kernel writes once per call, and counted_pass_kernel the last
-// two, pbd_lambda and stiffness_accel, over one position pack
-// (count_pack_kernel) that serves every pass on the same positions; their
-// particle-list instances stay as their bitwise yardstick. No path
+// density_alpha_colorgrad, the surface-off density_visc, (PBD with
+// surface effects off) the fluid-only xsph, and the scene build's density
+// over the boundary grid. A group of lanes per particle of the slot list
+// splits that particle's 27-cell walk, and the group's sums are reduced by
+// an xor butterfly or, for passes with many sums, a transpose reduction.
+// record_pass_kernel (below) runs four more, surface_pressure,
+// xsph_colorgrad and the fluid-only surface and viscosity, in the same
+// groups over a cell-packed copy of the operand that pack_kernel writes
+// once per call, and counted_pass_kernel the last four, pbd_lambda,
+// stiffness_accel and the surface-off pressure_force and density_alpha,
+// over one position pack (count_pack_kernel) that serves every pass on the
+// same positions; their particle-list instances stay as their bitwise
+// yardstick. No path
 // launches column_pass_kernel any more: it runs only as the yardstick of
 // those fourteen (the note above the particle template says why it is
 // slower) and for color_gradient and density_colorgrad, which nothing
@@ -147,6 +148,12 @@ __device__ __forceinline__ bool in_support(float r, const Consts& c) {
 // p / max(eps, rho^2) from rows [.., rho (4), p (5)]
 __device__ __forceinline__ float p_over_rho2(const float* f, int64_t t,
                                              int64_t kg, const Consts& c) {
+  const float rho = f[4 * kg + t];
+  return f[5 * kg + t] / fmaxf(c.eps, rho * rho);
+}
+// the same in 32-bit indices, for the counted walk (f's Fi*K*G under 2^31)
+__device__ __forceinline__ float p_over_rho2(const float* f, int t, int kg,
+                                             const Consts& c) {
   const float rho = f[4 * kg + t];
   return f[5 * kg + t] / fmaxf(c.eps, rho * rho);
 }
@@ -340,14 +347,35 @@ __device__ __forceinline__ void colorgrad(float* acc, float m, float rho_ref,
 }
 
 // DFSPH density + alpha terms (pallas_passes.py:1047): fl = bd = [pos3,
-// mass]. Outputs [rho, gsumx, gsumy, gsumz, slam].
+// mass]. Outputs [rho, gsumx, gsumy, gsumz, slam]. The counted record
+// interface (kCounted; see counted_pass_kernel): as PbdLambdaPass's, the
+// pass reads nothing of j but its position and mass, so make_i and terms
+// ignore the operand's planes; terms is fluid's alpha_fluid, bdry_terms
+// bdry's alpha_bdry, over a record's mass.
 struct DensityAlphaPass {
   static constexpr int kOut = 5;
   static constexpr bool kBoundary = true;
+  static constexpr bool kCounted = true;
+  static constexpr int kRows = 4;
   using I = Pos;
+  __device__ static I make_i(float x, float y, float z, const float*, int,
+                             int) {
+    return {x, y, z};
+  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts&) {
     return load_pos(fl, t, kg);
+  }
+  __device__ static void terms(float* acc, const I&, float mj, const float*,
+                               int, int, float dx, float dy, float dz,
+                               float r, const Consts& c) {
+    alpha_fluid(acc, mj, w_cubic(r, c), grad_w_cubic_coef(r, c), dx, dy,
+                dz);
+  }
+  __device__ static void bdry_terms(float* acc, const I&, float mb,
+                                    float dx, float dy, float dz, float r,
+                                    const Consts& c) {
+    alpha_bdry(acc, mb, w_cubic(r, c), grad_w_cubic_coef(r, c), dx, dy, dz);
   }
   __device__ static void fluid(float* acc, const I&, const float* fl,
                                int64_t tj, int64_t kg, float dx, float dy,
@@ -433,6 +461,7 @@ struct StiffnessAccelPass {
   static constexpr int kOut = 3;
   static constexpr bool kBoundary = true;
   static constexpr bool kCounted = true;
+  static constexpr int kRows = 5;
   struct I {
     float x, y, z, s;
   };
@@ -588,13 +617,43 @@ struct DensityViscPass : VelocitySide {
 
 // Symmetric pressure acceleration (src/BasicSPHSolver.cu:113-165;
 // pallas_passes.py:893), the surface-off WCSPH traversal 2: fl = [pos3,
-// mass, rho, p]. Outputs [pax, pay, paz] before the MAX_A clamp.
+// mass, rho, p]. Outputs [pax, pay, paz] before the MAX_A clamp. The
+// counted record interface (kCounted; see counted_pass_kernel), as
+// StiffnessAccelPass's but in 32-bit indices: make_i takes x, y, z from a
+// record and p_i / max(eps, rho_i^2) from the operand's planes 4 and 5 at
+// the particle's slot t; terms takes m_j from a record and loads rho_j and
+// p_j from the planes at the pair's slot tj after the support test, in
+// fluid's float operations and order; bdry_terms is bdry over m_b.
 struct PressureForcePass {
   static constexpr int kOut = 3;
   static constexpr bool kBoundary = true;
+  static constexpr bool kCounted = true;
+  static constexpr bool kIConsts = true;
+  static constexpr int kRows = 6;
   struct I {
     float x, y, z, p_rho2;
   };
+  __device__ static I make_i(float x, float y, float z, const float* f,
+                             int t, int kg, const Consts& c) {
+    return {x, y, z, p_over_rho2(f, t, kg, c)};
+  }
+  __device__ static void terms(float* acc, const I& i, float mj,
+                               const float* f, int tj, int kg, float dx,
+                               float dy, float dz, float r, const Consts& c) {
+    const float s =
+        (i.p_rho2 + p_over_rho2(f, tj, kg, c)) * grad_w_cubic_coef(r, c);
+    acc[0] -= mj * (s * dx);
+    acc[1] -= mj * (s * dy);
+    acc[2] -= mj * (s * dz);
+  }
+  __device__ static void bdry_terms(float* acc, const I& i, float mb,
+                                    float dx, float dy, float dz, float r,
+                                    const Consts& c) {
+    const float coefb = -mb * i.p_rho2 * grad_w_cubic_coef(r, c);
+    acc[0] += coefb * dx;
+    acc[1] += coefb * dy;
+    acc[2] += coefb * dz;
+  }
   __device__ static I load_i(const float* fl, int64_t t, int64_t kg,
                              const Consts& c) {
     return {fl[t], fl[kg + t], fl[2 * kg + t], p_over_rho2(fl, t, kg, c)};
@@ -629,6 +688,7 @@ struct PbdLambdaPass {
   static constexpr int kOut = 5;
   static constexpr bool kBoundary = true;
   static constexpr bool kCounted = true;
+  static constexpr int kRows = 4;
   using I = Pos;
   __device__ static I make_i(float x, float y, float z, const float*,
                              int64_t, int64_t) {
@@ -906,8 +966,9 @@ cudaError_t launch(const float* fl, const float* bd, float* out, int k, int kb,
 // `column_pass`, for fourteen instances: the PBD projection passes
 // pbd_lambda and stiffness_accel and the DFSPH Jacobi pass stiffness_accel
 // (which the steps run through counted_pass_kernel, below, with these
-// instances as its yardstick), the DFSPH Jacobi pass divergence (each
-// runs in every iteration of its solve), WCSPH's two
+// instances as its yardstick, as they run WCSPH's surface-off
+// pressure_force and DFSPH's surface-off density_alpha), the DFSPH Jacobi
+// pass divergence (each runs in every iteration of its solve), WCSPH's two
 // traversals density_colorgrad_visc and surface_pressure, PBD's
 // xsph_colorgrad, DFSPH's density_alpha_colorgrad, WCSPH's surface-off
 // density_visc and pressure_force, DFSPH's surface-off density_alpha, and
@@ -1419,12 +1480,15 @@ struct RecordsIn {
   };
 };
 
-// --- the counted record walk (PbdLambdaPass, StiffnessAccelPass) ---
+// --- the counted record walk (PbdLambdaPass, StiffnessAccelPass,
+// PressureForcePass, DensityAlphaPass) ---
 //
 // Replaces the same TPU kernel, pallas_passes.py:107 `column_pass`, for
 // pbd_lambda (:1185) and stiffness_accel (:1124), the two passes of every
 // PBD projection iteration and the correction pass of both DFSPH Jacobi
-// loops, in place of particle_pass_kernel on those instances. It computes
+// loops, and for the surface-off pressure_force (:893, WCSPH's second
+// traversal) and density_alpha (:1047, DFSPH's first), in place of
+// particle_pass_kernel on those instances. It computes
 // what particle_pass_kernel computes: the same slot list, groups of W
 // lanes, offsets l, l+W, ... in m-order, slots in rank order, fluid before
 // boundary per cell, float operations (the functors' terms and bdry_terms)
@@ -1446,8 +1510,10 @@ struct RecordsIn {
 // and no record of a padding slot, which the pack does not write. The
 // loads of a batch do not wait on a test, and the batches do not wait on
 // each other: the only chain left is from a pair's support test to the
-// functor's own j load (stiffness_accel's s_j, from the operand's plane,
-// as particle_pass_kernel loads it). The walk indexes in 32 bits and is
+// functor's own j loads (stiffness_accel's s_j, pressure_force's rho_j
+// and p_j, from the operand's planes, as particle_pass_kernel loads them).
+// The walk indexes in 32 bits (pressure_force's terms too: the launcher
+// refuses an operand of 2^31 floats or more) and is
 // held to 48 registers (kCountedBlocks): its first form, with 64-bit
 // indices and 50-62 registers, lost to particle_pass_kernel on every
 // state (pbd_lambda's walk 0.0562-0.0568 against 0.0492-0.0503 ms on one
@@ -1455,9 +1521,14 @@ struct RecordsIn {
 // 0.0444 / 0.0447 of its default on the 300-frame state (PERF.md section
 // 6). The pack holds positions and masses
 // only, so one pack serves every pass on the same positions: pbd_lambda
-// and stiffness_accel within a PBD projection iteration, and every
-// stiffness_accel of a DFSPH frame, whose positions stay fixed across the
-// Jacobi iterations (ops/passes.py SharedPack).
+// and stiffness_accel within a PBD projection iteration, and the
+// surface-off density_alpha and every stiffness_accel of a DFSPH frame,
+// whose positions stay fixed across the Jacobi iterations (ops/passes.py
+// SharedPack); WCSPH's surface-off pressure_force packs its own once a
+// frame. On the 300-frame dam states the pressure_force walk took
+// 0.0461-0.0467 ms and its pack 0.0034 against the particle-list kernel's
+// best 0.0506-0.0508, and the density_alpha walk 0.0408-0.0425 against
+// 0.0490 (PERF.md section 6).
 
 // the counted records of one operand, each indexed c*K + s (boundary c*Kb
 // + s), and the operand's planes
@@ -1550,6 +1621,16 @@ __device__ __forceinline__ void walk_counted(float* acc,
   }
 }
 
+// whether P::make_i takes the constants too (pressure_force's p_i /
+// max(eps, rho_i^2)): P::kIConsts. The kernel picks the call with if
+// constexpr; a helper function in between changed the machine code of the
+// other counted instances (pbd_lambda's at U 1)
+template <class P, class = void>
+struct i_takes_consts : std::false_type {};
+template <class P>
+struct i_takes_consts<P, std::void_t<decltype(P::kIConsts)>>
+    : std::bool_constant<P::kIConsts> {};
+
 // blocks of counted_pass_kernel resident on an SM at the least, which caps
 // its registers at 48 (some instances spill up to 24 bytes): uncapped, the
 // walk took 50-62 registers, 4 blocks an SM
@@ -1604,7 +1685,11 @@ __global__ void __launch_bounds__(kThreads, kCountedBlocks)
   for (int j = 0; j < S; ++j) acc[j] = 0.f;
 
   if (active) {
-    const typename P::I iv = P::make_i(gi.x, gi.y, gi.z, rec.fl, t, kg);
+    typename P::I iv;
+    if constexpr (i_takes_consts<P>::value)
+      iv = P::make_i(gi.x, gi.y, gi.z, rec.fl, t, kg, c);
+    else
+      iv = P::make_i(gi.x, gi.y, gi.z, rec.fl, t, kg);
     for (int o = lane; o < 27; o += W) {
       const int cj =
           cell + (o / 9 - 1) * gyz + ((o % 9) / 3 - 1) * gz + (o % 3 - 1);
@@ -1648,7 +1733,8 @@ cudaError_t launch_pack(const float* fl, const float* bd, void* geo,
 }
 
 // the launchers of counted_pass_kernel<P, W, kTranspose, U>; its 32-bit
-// indices need K*G, Kb*G and the n * W threads under 2^31
+// indices need the operand's P::kRows * K * G floats, Kb*G and the n * W
+// threads under 2^31
 template <int U>
 struct CountedIn {
   template <class P, int W, bool kTranspose>
@@ -1659,7 +1745,7 @@ struct CountedIn {
       if (n == 0) return cudaSuccess;
       const int64_t g = static_cast<int64_t>(gx) * gy * gz;
       constexpr int64_t kMax = int64_t{1} << 31;
-      if (k * g >= kMax || kb * g >= kMax ||
+      if (P::kRows * k * g >= kMax || kb * g >= kMax ||
           static_cast<int64_t>(n) * W >= kMax)
         return cudaErrorInvalidValue;
       counted_pass_kernel<P, W, kTranspose, U>
@@ -1939,8 +2025,9 @@ extern "C" int particle_pass_launch(int pass_id, int lanes, int reduction,
 // from fl = [pos3, mass, vel3], bgeo from bd) of column_pass_launch, each
 // record at c*K + s (boundary c*Kb + s) of buffers the caller allocates;
 // only the records a walk reads are written (pack_kernel; count and bcount
-// null). Pass ids 5 (stiffness_accel) and 11 (pbd_lambda) take one
-// position pack, the same for both (count_pack_kernel): geo and bgeo of
+// null). Pass ids 5 (stiffness_accel), 8 (density_alpha), 10
+// (pressure_force) and 11 (pbd_lambda) take one position pack, the same
+// for all four (count_pack_kernel): geo and bgeo of
 // the real slots of rows 0-3 of fl and bd, and int32 count and bcount per
 // cell (side null); the caller zeroes bcount where Kb is 0. Returns a
 // cudaError_t; any other pass id, or K + Kb over 65535, is
@@ -1971,6 +2058,12 @@ extern "C" int pack_records_launch(int pass_id, const float* fl,
     case 7:
       return launch_pack<SurfacePass>(fl, nullptr, geo, side, nullptr,
                                       nullptr, nullptr, k, 0, g, c, s);
+    case 8:
+      return launch_pack<DensityAlphaPass>(fl, bd, geo, nullptr, bgeo, count,
+                                           bcount, k, kb, g, c, s);
+    case 10:
+      return launch_pack<PressureForcePass>(fl, bd, geo, nullptr, bgeo,
+                                            count, bcount, k, kb, g, c, s);
     case 11:
       return launch_pack<PbdLambdaPass>(fl, bd, geo, nullptr, bgeo, count,
                                         bcount, k, kb, g, c, s);
@@ -1986,12 +2079,15 @@ extern "C" int pack_records_launch(int pass_id, const float* fl,
 // (surface) and 12 (xsph_colorgrad) over pack_records_launch's records
 // (count, bcount and fl null), U = unroll in {1, 2}, and the counted walk
 // (counted_pass_kernel) on pass ids 5 (stiffness_accel, whose i side and
-// s_j come from the operand fl = [pos3, mass, s]) and 11 (pbd_lambda, fl =
-// [pos3, mass]), whose row 0 says which i slots hold a particle, over their position pack (geo, count, bgeo,
-// bcount; side null), U in {1, 2, 4}; W = lanes in {8, 16, 32}, reduction
-// 0 or 1 as particle_pass_launch, over the n particles of islots (plane
-// slots as particle_pass_launch's). out must be zeroed by the caller. Returns a cudaError_t; any other pass
-// id, width, reduction or unroll is cudaErrorInvalidValue.
+// s_j come from the operand fl = [pos3, mass, s]), 8 (density_alpha, fl =
+// [pos3, mass]), 10 (pressure_force, whose i side and rho_j, p_j come from
+// fl = [pos3, mass, rho, p]) and 11 (pbd_lambda, fl = [pos3, mass]), whose
+// row 0 says which i slots hold a particle, over their position pack (geo,
+// count, bgeo, bcount; side null), U in {1, 2, 4}; W = lanes in {8, 16,
+// 32}, reduction 0 or 1 as particle_pass_launch, over the n particles of
+// islots (plane slots as particle_pass_launch's). out must be zeroed by
+// the caller. Returns a cudaError_t; any other pass id, width, reduction
+// or unroll is cudaErrorInvalidValue.
 extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
                                   int unroll, const void* geo,
                                   const void* side, const void* bgeo,
@@ -2052,6 +2148,10 @@ extern "C" int record_pass_launch(int pass_id, int lanes, int reduction,
       return run(ViscosityPass{});
     case 7:
       return run(SurfacePass{});
+    case 8:
+      return run(DensityAlphaPass{});
+    case 10:
+      return run(PressureForcePass{});
     case 11:
       return run(PbdLambdaPass{});
     case 12:

@@ -5,7 +5,9 @@
         [--mesh2d NXxNZ] CASE [CASE ...]
 
 A CASE is ``solver:scene:frames``: solver ``wcsph``, ``dfsph`` or ``pbd``,
-with ``-fast`` for the config's fast mode (parity otherwise); scene
+with ``-fast`` for the config's fast mode (parity otherwise) and ``-off``
+for surface tension and air pressure 0, so that the steps take their
+surface-off passes (``dfsph-fast-off``); scene
 ``block`` (the 6x6x6 block of the JAX package's mesh tests in a 13-cell
 domain), ``splash`` (that block stretched upwards, its top layer at 28 m/s, so the
 box refits within a few frames), ``floor`` (a jittered 7x7x7 block
@@ -26,7 +28,7 @@ or with ``--mesh2d NXxNZ`` the (gx, gz) 2-D mesh of NX x NZ ranks;
 Each rank writes its own ``OUT.npz``: per case the final ``pos``, ``vel``
 and ``density``, and a JSON record (``meta``) of every frame's metrics,
 the retries, K and box, ms per frame (CUDA events on a card), the
-particle-list kernel's launch counts, the mesh's shape, and the
+kernels' launch counts, the mesh's shape, and the
 exchanges, their bytes (per axis too) and the other collectives of
 ``parallel.halo``.
 """
@@ -88,21 +90,26 @@ def scene(name: str, mode: str, seed: int = 0):
 
 
 def parse_case(case: str):
-    """'solver[-fast]:scene:frames' -> (solver, mode, scene, frames)."""
-    solver, name, frames = case.split(":")
-    mode = "parity"
-    if solver.endswith("-fast"):
-        solver, mode = solver[:-len("-fast")], "fast"
+    """'solver[-fast][-off]:scene:frames' -> (solver, mode, surface on,
+    scene, frames)."""
+    head, name, frames = case.split(":")
+    solver, *flags = head.split("-")
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r} in case {case!r}")
-    return solver, mode, name, int(frames)
+    if not set(flags) <= {"fast", "off"} or len(set(flags)) != len(flags):
+        raise ValueError(f"unknown or repeated flags {flags} in case "
+                         f"{case!r}; a solver takes -fast and -off")
+    return (solver, "fast" if "fast" in flags else "parity",
+            "off" not in flags, name, int(frames))
 
 
 def run_case(case: str, device, mesh=None, seed: int = 0) -> dict:
     """Run one case -> {"pos", "vel", "density": numpy arrays, "meta": a
     JSON-able record}."""
-    solver, mode, name, frames = parse_case(case)
+    solver, mode, surface, name, frames = parse_case(case)
     cfg, pos, vel = scene(name, mode, seed)
+    if not surface:
+        cfg = cfg.replace(surface_tension=0.0, air_pressure=0.0)
     cc.reset_launch_counts()
     halo.reset_counts()
     t0 = time.perf_counter()

@@ -52,15 +52,17 @@ from ..ops.dense import DenseDims
 # kernel), surface and stiffness_accel on both solvers that run them, each
 # on the state of a solver that runs it; PBD's pbd_lambda and
 # stiffness_accel from the same projection iteration, so that one position
-# pack serves both
+# pack serves both; the surface-off pressure_force (WCSPH) and
+# density_alpha (DFSPH)
 CASES = (("wcsph", "surface_pressure"), ("dfsph", "surface"),
          ("pbd", "surface"), ("pbd", "xsph_colorgrad"),
          ("dfsph", "density_alpha_colorgrad"), ("dfsph", "viscosity"),
          ("wcsph", "density_visc"), ("pbd", "pbd_lambda"),
-         ("pbd", "stiffness_accel"), ("dfsph", "stiffness_accel"))
+         ("pbd", "stiffness_accel"), ("dfsph", "stiffness_accel"),
+         ("wcsph", "pressure_force"), ("dfsph", "density_alpha"))
 # passes that a step runs only with surface effects off: captured from a
 # surface-off step on the state of the dam's (surface-on) run
-SURFACE_OFF = ("density_visc",)
+SURFACE_OFF = ("density_visc", "pressure_force", "density_alpha")
 CHUNK = 25
 
 

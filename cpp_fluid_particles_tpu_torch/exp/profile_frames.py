@@ -21,8 +21,10 @@ passes. Each window prints one line and one JSON record (also written to
     memsets, copies) the profiler recorded; busy share: that over the
     faster unprofiled ms/frame;
   * device ms per frame of each kernel group (the particle-list kernel,
-    the column kernel, the record kernel and its pack, each per pass;
-    everything else) and the device ops per frame.
+    the column kernel, the record kernel and its pack, each per pass, the
+    counted walk with the record kernel as ``record_<pass>`` and its
+    position pack as ``pack_positions``, as the launch counters count
+    them; everything else) and the device ops per frame.
 
 K and the box are whatever the run reached; a window whose runs refit
 either is flagged (``refit``) because its frames then ran at other shapes.

@@ -397,10 +397,12 @@ def wcsph_step(state: FluidState, carry, scene_d: DenseScene,
         rho = o[0]
         vel_d = vel_d + o[1:4] * _visc_dt(cfg, dt)
         p = _eos(rho, cfg)
-        # no position moved since the fill: the list names every real slot
+        # no position moved since the fill: the list names every real slot;
+        # on a card the pass walks a position pack of its own, one a frame
         a = pp.pressure_force_pass(
             torch.cat([pos_d, mass_d, rho[None], p[None]], 0),
-            bdx, dims, dims_b, cfg, executor, islots=lo.work)
+            bdx, dims, dims_b, cfg, executor, islots=lo.work,
+            records=pp.SharedPack())
         vel_d = vel_d + _accel_clamp(a, cfg) * dt
 
     pos, vel, out = _advect_read(lo, state, cfg, dt, pos_d, vel_d, [rho, p])
@@ -477,6 +479,10 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     vel_d, warm_d, divwarm_d = rest[0:3], rest[3], rest[4]
     pm = torch.cat([pos_d, mass_d], 0)
 
+    # the positions stay fixed through the frame: one position pack serves
+    # the surface-off density_alpha and every stiffness_accel of both
+    # solves on a card
+    pack = pp.SharedPack()
     surface_on = _surface_on(cfg)
     if surface_on:
         # fused traversal: rho/alpha + color-field sums share [pos, mass]
@@ -486,7 +492,7 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     else:
         # the fill's own grid: the list names every real slot once
         da = pp.density_alpha_pass(pm, bdx, dims, dims_b, cfg, executor,
-                                   islots=lo.work)
+                                   islots=lo.work, records=pack)
     rho = da[0]
     alpha = _const(-1.0, rho) / torch.clamp(
         da[1] * da[1] + da[2] * da[2] + da[3] * da[3] + da[4],
@@ -498,10 +504,6 @@ def dfsph_step(state: FluidState, carry: dfsph_mod.DFSPHCarry,
     def div_pass(v_d):
         return pp.divergence_pass((pm, v_d), bdx, dims, dims_b, cfg,
                                   executor, islots=lo.work)
-
-    # the positions stay fixed through the frame: one position pack serves
-    # every stiffness_accel of both solves on a card
-    pack = pp.SharedPack()
 
     def sa_pass(s_d):
         return pp.stiffness_accel_pass((pm, s_d[None]), bdx, dims, dims_b,

@@ -18,8 +18,9 @@ lanes per particle of a slot list whose sums one of ``REDUCTIONS``
 combines, at the (width, reduction) pairs ``variants`` gives for the pass's
 sum count. ``record_pass_cuda`` runs surface, surface_pressure,
 xsph_colorgrad and viscosity (``RECORD_IDS``) through the cell-packed
-record kernel, and pbd_lambda and stiffness_accel (``COUNTED``) through
-the counted record walk:
+record kernel, and pbd_lambda, stiffness_accel and the surface-off
+pressure_force and density_alpha (``COUNTED``) through the counted record
+walk:
 ``pack_records`` (the pack kernel on a card, ``pack_records_plain`` on the
 CPU) writes the records of the operand's (cell, slot)s that a walk reads
 (``walked``; for ``COUNTED`` one position pack with each cell's count of
@@ -123,7 +124,9 @@ LANES = (32, 8, 16)
 # stiffness_accel (PBD's 300-frame state, K 18, both ladder passes), 0.0497
 # / 0.0504 and 0.0434 / 0.0443 at W 8 butterfly against 0.0536 / 0.0539
 # and 0.0469 / 0.0463 at W 32 (on DFSPH's state stiffness_accel 0.0476 /
-# 0.0486 against 0.0479 / 0.0476)
+# 0.0486 against 0.0479 / 0.0476); and of the surface-off counted walks,
+# pressure_force 0.0508 / 0.0506 at its W 8 transposed (butterfly 0.0524 /
+# 0.0522, W 16-32 0.0570-0.0592)
 PASS_LANES = {"surface_pressure": 8, "density_visc": 8,
               "pressure_force": 8, "divergence": 8,
               "density_colorgrad_visc": 8, "density_alpha_colorgrad": 16,
@@ -162,7 +165,11 @@ REDUCTIONS = ("butterfly", "transpose")
 # transposed at W 32 against the butterfly's 0.0404 and 0.0410 (W 16:
 # 0.0394, 0.0416 / 0.0426, 0.0411; W 8: 0.0415, 0.0413 / 0.0439, 0.0418),
 # each pair spreading 10-20% run to run, so it keeps W 32, where it alone
-# does not spill (W 8 and 16 spill 32 B)
+# does not spill (W 8 and 16 spill 32 B). Re-laddered as the counted
+# walk's yardstick (one call, both ladder passes, graph ms), density_alpha
+# kept W 32 transposed, 0.0490 / 0.0490 against 0.0500 / 0.0506 at W 8
+# and 0.0501 / 0.0500 at W 16 transposed, and pressure_force W 8
+# transposed, 0.0508 / 0.0506
 PASS_REDUCTION = {"xsph_colorgrad": "transpose", "surface": "transpose",
                   "density_alpha_colorgrad": "transpose",
                   "density_visc": "transpose", "density_alpha": "transpose",
@@ -179,21 +186,23 @@ PASS_REDUCTION = {"xsph_colorgrad": "transpose", "surface": "transpose",
 # 0.0490 against 0.0457 / 0.0455 at W 8 transposed on WCSPH's: its walk
 # alone tied (0.0456), and the pack added 0.0042
 RECORD_IDS = {"surface_pressure": 2, "stiffness_accel": 5, "viscosity": 6,
-              "surface": 7, "pbd_lambda": 11, "xsph_colorgrad": 12}
+              "surface": 7, "density_alpha": 8, "pressure_force": 10,
+              "pbd_lambda": 11, "xsph_colorgrad": 12}
 
 # the record passes whose walk is counted (csrc/column_pass.cu
 # counted_pass_kernel): their records are one position pack, {x, y, z, m}
 # of each real slot and each cell's count of real slots, with no j side,
-# the same for both passes, so that one pack serves every pass on the same
-# positions (ops/passes.py SharedPack); stiffness_accel reads its s from
-# the operand's own plane
-COUNTED = ("pbd_lambda", "stiffness_accel")
+# the same for every such pass, so that one pack serves every pass on the
+# same positions (ops/passes.py SharedPack); stiffness_accel reads its s,
+# pressure_force its rho and p from the operand's own planes
+COUNTED = ("pbd_lambda", "stiffness_accel", "pressure_force",
+           "density_alpha")
 
 # floats of a record pass's j side, P::J in csrc/column_pass.cu: |cg|^2;
 # |cg|^2 and p / max(eps, rho^2); vel3 and m / rho0; vel3 and 0; none in
 # the position pack of COUNTED
 SIDE_WIDTH = {"surface": 1, "surface_pressure": 2, "xsph_colorgrad": 4,
-              "viscosity": 4, "pbd_lambda": 0, "stiffness_accel": 0}
+              "viscosity": 4, **{name: 0 for name in COUNTED}}
 
 # what pack_records_plain puts in a record that no walk reads, and the pack
 # kernel does not write
@@ -237,13 +246,22 @@ COUNTED_UNROLLS = (1, 2, 4)
 # butterfly, U 2, 0.0391 / 0.0386 on PBD's state (U 4 0.0382 / 0.0388)
 # and 0.0407 / 0.0405 on DFSPH's (K 16; U 4 0.0423 / 0.0405) against
 # 0.0434 / 0.0443 (W 8 butterfly) and 0.0471 / 0.0475 (W 32 transposed);
-# the shared position pack 0.0032-0.0034 a call.
+# the shared position pack 0.0032-0.0034 a call. The surface-off passes
+# (one call, both ladder passes): pressure_force (WCSPH's state, K 22) 0.0467
+# / 0.0463 at W 8 butterfly, U 2 (best U 4 0.0461 / 0.0462, which spills
+# 36 B; transposed U 2 0.0464 / 0.0472), its own pack 0.0034, against the
+# particle-list kernel's best, 0.0508 / 0.0506 at W 8 transposed;
+# density_alpha (DFSPH's, K 16) 0.0425 / 0.0408 at W 8 transposed, U 2
+# (butterfly 0.0425 / 0.0417, U 4 0.0420 / 0.0434, W 16 0.0426-0.0443)
+# against 0.0490 / 0.0490 at W 32 transposed.
 RECORD_DEFAULTS = {"surface": (8, "transpose", 1),
                    "surface_pressure": (8, "butterfly", 2),
                    "xsph_colorgrad": (8, "transpose", 1),
                    "viscosity": (8, "transpose", 1),
                    "pbd_lambda": (8, "butterfly", 2),
-                   "stiffness_accel": (8, "butterfly", 2)}
+                   "stiffness_accel": (8, "butterfly", 2),
+                   "pressure_force": (8, "butterfly", 2),
+                   "density_alpha": (8, "transpose", 2)}
 
 # launches per pass instance, per particle-list instance (particle_<name>),
 # per record instance's pack and walk (pack_key(name), record_<name>) and
@@ -635,7 +653,7 @@ def pack_records(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
     ``torch.empty`` (no sync, so a CUDA graph can hold it), the records no
     walk reads left unwritten, counted as ``pack_key(name)``. For COUNTED
     it is the position pack of rows 0-3 of ``fl`` and ``bd``, the same for
-    both passes."""
+    every counted pass."""
     fn = "pack_records"
     if name not in RECORD_IDS:
         raise ValueError(f"{fn}: pass {name!r} has no record kernel; one of "
@@ -743,17 +761,18 @@ def record_pass_cuda(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
     ``particle_pass_cuda`` takes them, loading ``unroll`` (one of
     ``unrolls(name)``; default the pass's in RECORD_DEFAULTS) slots'
     records a batch. The counted walk reads its i side's and its pairs'
-    other values (stiffness_accel's s) from ``fl`` itself, and tells by
-    ``fl``'s row 0, as the particle-list kernel does, whether a listed slot
-    holds a particle. Every entry of ``islots`` of a pass with its own pack
-    must be a slot that holds a particle or the trash slot K*G, as the
-    steps' lists are (``BoxIndex.slots`` and ``.work``,
-    ``halo.slab_slots``): that walk takes its i side from the listed slot's
-    record, and the pack leaves the records of padding slots unwritten. The counted walk indexes in 32
-    bits: it refuses K*G, Kb*G or ``lanes`` threads per listed particle
-    that reach 2^31. Returns (n_out, K, G), zeroed by one memset before the
-    walk, which writes only the listed slots; the walk is counted as
-    ``record_<name>``."""
+    other values (stiffness_accel's s, pressure_force's rho and p) from
+    ``fl`` itself, and tells by ``fl``'s row 0, as the particle-list kernel
+    does, whether a listed slot holds a particle. Every entry of ``islots``
+    of a pass with its own pack must be a slot that holds a particle or the
+    trash slot K*G, as the steps' lists are (``BoxIndex.slots`` and
+    ``.work``, ``halo.slab_slots``): that walk takes its i side from the
+    listed slot's record, and the pack leaves the records of padding slots
+    unwritten. The counted walk indexes in 32 bits: it refuses an operand
+    of rows x K x G floats, a Kb*G or ``lanes`` threads per listed
+    particle that reach 2^31. Returns (n_out, K, G), zeroed by one memset
+    before the walk, which writes only the listed slots; the walk is
+    counted as ``record_<name>``."""
     fn = "record_pass_cuda"
     if name not in RECORD_IDS:
         raise ValueError(f"{fn}: pass {name!r} has no record kernel; one of "
@@ -764,12 +783,13 @@ def record_pass_cuda(name: str, fl: torch.Tensor, bd: Optional[torch.Tensor],
     if unroll not in unrolls(name):
         raise ValueError(f"{fn}: unroll {unroll} is not one of "
                          f"{unrolls(name)}")
-    if name in COUNTED and max(dims.k * dims.g, islots.shape[0] * lanes,
+    floats = PASSES[name].fi * dims.k * dims.g
+    if name in COUNTED and max(floats, islots.shape[0] * lanes,
                                (dims_b.k if dims_b else 0) * dims.g) >= 2**31:
-        raise ValueError(f"{fn}: the counted walk indexes in 32 bits: K*G "
-                         f"{dims.k * dims.g}, Kb*G and its {lanes} lanes for "
-                         f"each of {islots.shape[0]} particles must stay "
-                         "under 2^31")
+        raise ValueError(f"{fn}: the counted walk indexes in 32 bits: the "
+                         f"operand's {floats} floats (rows x K x G), Kb*G "
+                         f"and its {lanes} lanes for each of "
+                         f"{islots.shape[0]} particles must stay under 2^31")
     if records is not None:
         _check_records(fn, name, records, fl, dims, dims_b)
     bd_ptr, kb = _check_operands(fn, name, fl, bd, dims, dims_b)

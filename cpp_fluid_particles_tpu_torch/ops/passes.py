@@ -33,9 +33,10 @@ density_alpha_colorgrad, density_visc, pressure_force, density_alpha, the
 fluid-only viscosity, surface and xsph, and density) take the
 particle-list kernel (``column_pass_cuda.particle_pass_cuda``), which
 needs ``islots``, but for ``column_pass_cuda.RECORD_IDS`` (surface,
-surface_pressure, xsph_colorgrad and viscosity, and pbd_lambda and
-stiffness_accel, whose walk is counted), which take the cell-packed record
-kernel (``column_pass_cuda.record_pass_cuda``) over the same list; the
+surface_pressure, xsph_colorgrad and viscosity, and pbd_lambda,
+stiffness_accel and the surface-off pressure_force and density_alpha,
+whose walk is counted), which take the cell-packed record kernel
+(``column_pass_cuda.record_pass_cuda``) over the same list; the
 counted passes share one position pack among the calls a ``SharedPack``
 is handed to; only color_gradient and density_colorgrad, which nothing
 runs, take the column kernel.
@@ -568,8 +569,10 @@ class SharedPack:
     """One position pack shared by the record passes of
     ``column_pass_cuda.COUNTED`` that run on the same positions, masses and
     boundary window: PBD's pbd_lambda and stiffness_accel within one
-    projection iteration, and every stiffness_accel of a DFSPH frame, whose
-    positions stay fixed across the Jacobi iterations. Empty until the
+    projection iteration, and the surface-off density_alpha and every
+    stiffness_accel of a DFSPH frame, whose positions stay fixed across the
+    Jacobi iterations; WCSPH's surface-off pressure_force, alone on its
+    frame's pack. Empty until the
     first such pass on a card packs its operand, after the mesh's exchange
     (``column_pass``); every later pass handed this object walks that pack.
     On the CPU it stays empty: the plain executor runs.
@@ -717,18 +720,21 @@ def density_visc_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
 
 
 def pressure_force_pass(fl, bd, dims, dims_b, cfg, executor=None, *,
-                        islots):
+                        islots, records=None):
     """fl: [pos3, mass, rho, p]; bd: [pos3, mass]; islots: the step's
-    ``BoxIndex.work``. Returns (3, K, G)."""
+    ``BoxIndex.work``; records: a SharedPack of the same positions, or
+    None. Returns (3, K, G)."""
     return column_pass("pressure_force", fl, bd, dims, dims_b, cfg,
-                       executor, islots=islots)
+                       executor, islots=islots, records=records)
 
 
-def density_alpha_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots):
-    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.work``. Returns
-    (5, K, G): [rho, gsumx, gsumy, gsumz, slam]."""
+def density_alpha_pass(fl, bd, dims, dims_b, cfg, executor=None, *, islots,
+                       records=None):
+    """fl, bd: [pos3, mass]; islots: the step's ``BoxIndex.work``;
+    records: a SharedPack of the same positions, or None. Returns (5, K,
+    G): [rho, gsumx, gsumy, gsumz, slam]."""
     return column_pass("density_alpha", fl, bd, dims, dims_b, cfg, executor,
-                       islots=islots)
+                       islots=islots, records=records)
 
 
 def density_alpha_colorgrad_pass(fl, bd, dims, dims_b, cfg, executor=None, *,

@@ -10,9 +10,10 @@ the passes of ``column_pass_cuda.RECORD_IDS`` on the steps (at each width,
 reduction and unroll, in any order of the slot list, on full and empty
 cells and on a 2x2 block's window, bitwise the particle-list kernel; the
 pack bitwise its plain version on the records a walk reads; both also at
-a rho0 that is not a power of two; the counted walk of pbd_lambda and
-stiffness_accel also on one position pack shared by both, bitwise a fresh
-pack's), and the brick-tiled
+a rho0 that is not a power of two; the counted walk of pbd_lambda,
+stiffness_accel and the surface-off pressure_force and density_alpha also
+on one position pack shared by PBD's two, bitwise a fresh pack's, and at a
+listed padding slot), and the brick-tiled
 fluid-only variant, on the card.
 Every Simulation on the card launches the particle-list density once, for
 its scene, and the column kernel never.
@@ -47,6 +48,8 @@ pytestmark = pytest.mark.cuda
 
 CFG = T.dam_break_config(mode="parity", space_size=(0.52, 0.52, 0.52))
 BAR = 2e-5          # rtol, and atol x the output's max
+# the record passes whose terms do not read rho0
+RHO0_FREE = ("stiffness_accel", "pressure_force", "density_alpha")
 
 
 @pytest.fixture(scope="module")
@@ -372,9 +375,11 @@ def test_simulation_runs_through_the_kernel(dev):
 
 def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
     """With surface effects off, the card's WCSPH frames launch
-    density_visc and pressure_force through the particle-list kernel, once
-    a frame each, and the column kernel never; they agree with the CPU's
-    at the one-step bars after 3 frames."""
+    density_visc through the particle-list kernel and pressure_force
+    through its path's kernel (for ``cc.COUNTED`` the counted walk and a
+    position pack of its own), once a frame each, and the column kernel
+    never; they agree with the CPU's at the one-step bars after 3
+    frames."""
     off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
     cc.reset_launch_counts()
     gpu = T.Simulation(solver="wcsph", cfg=off, fluid_pos=_block(),
@@ -382,9 +387,10 @@ def test_surface_off_wcsph_simulation_runs_through_the_kernel(dev):
     gpu.run(3)
     frames = 4 + gpu.retries                    # warm-up + 3 + retries
     _scene_built_once()
-    assert {k: n for k, n in cc.LAUNCHES.items() if n} == {
-        "particle_density": 1, "particle_density_visc": frames,
-        "particle_pressure_force": frames}
+    packs = ("pack_positions",) if "pressure_force" in cc.COUNTED else ()
+    assert {k: n for k, n in cc.LAUNCHES.items() if n} == dict(
+        {k: frames for k in _kernels("density_visc", "pressure_force")
+         + packs}, particle_density=1)
     cpu = T.Simulation(solver="wcsph", cfg=off, fluid_pos=_block(),
                        device="cpu")
     cpu.run(3)
@@ -953,15 +959,19 @@ def test_record_kernel_on_full_and_empty_cells(dev, name, unroll):
 def record_window_operands(dev):
     """For each record pass: the whole box's operands from one step of its
     solver (surface, viscosity and stiffness_accel: DFSPH;
-    surface_pressure: WCSPH; xsph_colorgrad and pbd_lambda: PBD) after 3
-    frames of the block, and the BoxIndex,
-    full boundary grid and dims that ops/box.slab_window cuts a block's
-    window from."""
+    surface_pressure: WCSPH; xsph_colorgrad and pbd_lambda: PBD; with
+    surface effects off, pressure_force: WCSPH, density_alpha: DFSPH)
+    after 3 frames of the block, and the BoxIndex, full boundary grid and
+    dims that ops/box.slab_window cuts a block's window from."""
+    off = CFG.replace(surface_tension=0.0, air_pressure=0.0)
     got = {}
-    for name, solver in (("surface", "dfsph"), ("surface_pressure", "wcsph"),
-                         ("xsph_colorgrad", "pbd"), ("viscosity", "dfsph"),
-                         ("pbd_lambda", "pbd"), ("stiffness_accel", "dfsph")):
-        sim = T.Simulation(solver=solver, cfg=CFG, fluid_pos=_block(),
+    for name, solver, cfg in (
+            ("surface", "dfsph", CFG), ("surface_pressure", "wcsph", CFG),
+            ("xsph_colorgrad", "pbd", CFG), ("viscosity", "dfsph", CFG),
+            ("pbd_lambda", "pbd", CFG), ("stiffness_accel", "dfsph", CFG),
+            ("pressure_force", "wcsph", off),
+            ("density_alpha", "dfsph", off)):
+        sim = T.Simulation(solver=solver, cfg=cfg, fluid_pos=_block(),
                            device=dev)
         sim.run(3)
         calls = {}
@@ -970,7 +980,7 @@ def record_window_operands(dev):
             calls.setdefault(n, (fl, bd, dims, dims_b, islots))
             return pp.column_pass_plain(n, fl, bd, dims, dims_b, cfg)
         full, full_b = sim._dims()
-        ds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, CFG, CFG.dt,
+        ds.DENSE_STEPS[solver](sim.state, sim.carry, sim.scene, cfg, CFG.dt,
                                full, full_b, sim.box, executor=record)
         box = DenseDims(*sim.box, full.k)
         idx = bxm.build_box_index(sim.state.pos, CFG, full, box)
@@ -1118,8 +1128,9 @@ def test_pack_and_record_kernel_at_another_rho0(operands, name):
         assert torch.equal(a, b)
     want = pp.column_pass_plain(name, fl, bd, dims, dims_b, cfg)
     base = pp.column_pass_plain(name, fl, bd, dims, dims_b, CFG)
-    # stiffness_accel's terms do not read rho0
-    assert torch.equal(want, base) == (name == "stiffness_accel")
+    # the terms of stiffness_accel, pressure_force and density_alpha do not
+    # read rho0
+    assert torch.equal(want, base) == (name in RHO0_FREE)
     scale = float(want.abs().max())
     for lanes, red in cc.variants(name):
         part = cc.particle_pass_cuda(name, fl, bd, islots, dims, dims_b, cfg,
@@ -1233,15 +1244,39 @@ def test_counted_stiffness_accel_is_exactly_zero_at_zero_lambda(
 
 
 @pytest.mark.parametrize("unroll", cc.COUNTED_UNROLLS)
+def test_counted_pressure_force_is_exactly_zero_at_zero_pressure(operands,
+                                                                 unroll):
+    """At p = 0 every pressure_force term is +-0, fluid and boundary
+    alike: the counted walk stores +-0 at every listed slot, at every
+    variant, bitwise the particle-list kernel."""
+    _, fl, bd, dims, dims_b, islots = operands["pressure_force"]
+    zero = fl.clone()
+    zero[5] = 0.0
+    for lanes, red in cc.variants("pressure_force"):
+        out = cc.record_pass_cuda("pressure_force", zero, bd, islots, dims,
+                                  dims_b, CFG, lanes=lanes, reduction=red,
+                                  unroll=unroll)
+        assert not bool(out.any()), (lanes, red)
+        assert torch.equal(out, cc.particle_pass_cuda(
+            "pressure_force", zero, bd, islots, dims, dims_b, CFG,
+            lanes=lanes, reduction=red)), (lanes, red)
+
+
+@pytest.mark.parametrize("unroll", cc.COUNTED_UNROLLS)
 def test_counted_walk_stores_nothing_at_a_listed_padding_slot(
-        projection_operands, unroll):
+        projection_operands, operands, unroll):
     """The counted pack writes no record for a padding slot; the walk tells
     by its operand's row 0 whether a listed slot holds a particle, as the
     particle-list kernel does: on a list of every slot (padding slots
-    included) over a pack whose unwritten records hold NaN, both counted
-    passes are bitwise the particle-list kernel at every variant."""
-    for fl, bd, dims, dims_b, _ in projection_operands:
-        name = "pbd_lambda" if fl.shape[0] == 4 else "stiffness_accel"
+    included) over a pack whose unwritten records hold NaN, every counted
+    pass (PBD's two on a projection iteration's operands, the surface-off
+    pressure_force and density_alpha on their steps') is bitwise the
+    particle-list kernel at every variant."""
+    cases = list(zip(("pbd_lambda", "stiffness_accel"), projection_operands))
+    cases += [(n, operands[n][1:]) for n in ("pressure_force",
+                                             "density_alpha")]
+    assert sorted(n for n, _ in cases) == sorted(cc.COUNTED)
+    for name, (fl, bd, dims, dims_b, _) in cases:
         every = torch.arange(dims.k * dims.g, dtype=torch.int64,
                              device=fl.device)
         recs = cc.pack_records(name, fl, bd, dims, dims_b, CFG)

@@ -218,6 +218,38 @@ def test_one_rank_mesh_is_the_single_device_run(solver):
         k: v.tolist() for k, v in ambient.metrics.items()}
 
 
+@pytest.mark.parametrize("case, want", [
+    ("wcsph:dam:100", ("wcsph", "parity", True, "dam", 100)),
+    ("dfsph-fast:scaled1000000:3",
+     ("dfsph", "fast", True, "scaled1000000", 3)),
+    ("dfsph-off:dam:20", ("dfsph", "parity", False, "dam", 20)),
+    ("pbd-fast-off:floor:2", ("pbd", "fast", False, "floor", 2)),
+    ("pbd-off-fast:floor:2", ("pbd", "fast", False, "floor", 2))])
+def test_mesh_run_case_takes_the_mode_and_surface_flags(case, want):
+    """A case's solver takes -fast (the config's fast mode) and -off
+    (surface tension and air pressure 0) in either order; an unknown or
+    repeated flag is refused."""
+    assert mesh_run.parse_case(case) == want
+    with pytest.raises(ValueError, match="flags"):
+        mesh_run.parse_case(case.replace(":", "-fast-fast:", 1))
+    with pytest.raises(ValueError, match="flags"):
+        mesh_run.parse_case(case.replace(":", "-slow:", 1))
+
+
+def test_mesh_run_surface_off_case_runs_the_surface_off_config():
+    """An -off case runs Simulation with the scene's config at surface
+    tension and air pressure 0: bitwise a Simulation built so by hand."""
+    got = mesh_run.run_case("wcsph-off:block:2", "cpu")
+    cfg, pos, _ = mesh_run.scene("block", "parity")
+    sim = T.Simulation(solver="wcsph", cfg=cfg.replace(
+        surface_tension=0.0, air_pressure=0.0), fluid_pos=pos, device="cpu")
+    for _ in range(2):
+        sim.step()
+    assert np.array_equal(_bits(got["pos"]), _bits(sim.state.pos.numpy()))
+    on = mesh_run.run_case("wcsph:block:2", "cpu")
+    assert not np.array_equal(on["pos"], got["pos"])
+
+
 # ----------------------------------------------------------------------
 # the ghost-plane exchange, pass by pass (2 ranks)
 # ----------------------------------------------------------------------

@@ -71,6 +71,13 @@ torch.set_num_threads(2)
      "(anonymous namespace)::Consts)", "record_stiffness_accel"),
     ("void (anonymous namespace)::counted_pass_kernel<(anonymous "
      "namespace)::PbdLambdaPass, 8, true, 4>(...)", "record_pbd_lambda"),
+    ("void (anonymous namespace)::counted_pass_kernel<(anonymous "
+     "namespace)::PressureForcePass, 8, false, 2>((anonymous namespace)::"
+     "Counted, long const*, float*, int, int, int, int, int, int, "
+     "(anonymous namespace)::Consts)", "record_pressure_force"),
+    ("void (anonymous namespace)::counted_pass_kernel<(anonymous "
+     "namespace)::DensityAlphaPass, 8, false, 2>(...)",
+     "record_density_alpha"),
     ("(anonymous namespace)::count_pack_kernel(float const*, float const*, "
      "float4*, int*, float4*, int*, int, int, long, (anonymous namespace)::"
      "Consts)", "pack_positions"),

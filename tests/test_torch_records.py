@@ -7,9 +7,10 @@ c at record c*K + s, as ``{x, y, z, m}`` and the slot's j side (|cg|^2;
 for xsph_colorgrad; vel3 and 0 for viscosity), the boundary window's
 ``{x, y, z, m}`` at c*Kb + s.
 The pack writes only the records a walk reads: the real slots, and each
-cell's first padding slot as ``{POS_PAD, 0, 0, 0}``; for pbd_lambda and
-stiffness_accel (``COUNTED``), whose walk is counted, one position pack of
-the real slots alone and each cell's count of real slots, with no j side.
+cell's first padding slot as ``{POS_PAD, 0, 0, 0}``; for pbd_lambda,
+stiffness_accel and the surface-off pressure_force and density_alpha
+(``COUNTED``), whose walk is counted, one position pack of the real slots
+alone and each cell's count of real slots, with no j side.
 The pack kernel is held bitwise to
 ``pack_records_plain`` on those records on the card
 (tests/test_torch_cuda.py); here that plain version is held to the layout,
@@ -17,7 +18,9 @@ to the records it leaves unwritten and to the plain pass bodies'
 arithmetic, on the dam's operand and on a 2x2 block's window whose ghost
 faces are stale until an exchange refreshes them; and the plain passes,
 which the kernel is held to, to the JAX package's, at the dam's rho0 and
-at a rho0 that is not a power of two.
+at a rho0 that is not a power of two. The surface-off steps hand their
+counted passes one position pack a frame: DFSPH's density_alpha the pack
+every stiffness_accel of the frame walks, WCSPH's pressure_force its own.
 """
 
 import re
@@ -33,6 +36,7 @@ from cpp_fluid_particles_tpu.ops import dense as jdense
 from cpp_fluid_particles_tpu.ops import pallas_passes as jpp
 
 import cpp_fluid_particles_tpu_torch as T
+from cpp_fluid_particles_tpu_torch.models import dense_step as tds
 from cpp_fluid_particles_tpu_torch.ops import box as tbox
 from cpp_fluid_particles_tpu_torch.ops import column_pass_cuda as tcc
 from cpp_fluid_particles_tpu_torch.ops import dense as tdense
@@ -55,7 +59,7 @@ PLAIN_NAMES = tuple(dict.fromkeys(NAMES + ("pbd_lambda", "stiffness_accel")))
 # viscosity's lap / rho0 round
 RHO0 = 1.3
 # the record passes whose terms do not read rho0
-RHO0_FREE = ("stiffness_accel",)
+RHO0_FREE = ("stiffness_accel", "pressure_force", "density_alpha")
 # what the plain pack holds in a record no walk reads, as int32 bits
 UNWRITTEN_BITS = torch.tensor(tcc.UNWRITTEN).view(torch.int32)
 
@@ -108,7 +112,8 @@ def _rows(name, fl):
             "surface": np.concatenate([fl[:4], fl[6:9]]),
             "xsph_colorgrad": np.concatenate([fl[:4], fl[9:12]]),
             "viscosity": np.concatenate([fl[:4], fl[9:12]]),
-            "pbd_lambda": fl[:4],
+            "pbd_lambda": fl[:4], "density_alpha": fl[:4],
+            "pressure_force": fl[:6],
             # p (negative for some slots) as stiffness_accel's s
             "stiffness_accel": np.concatenate([fl[:4], fl[5:6]])}[name]
 
@@ -325,7 +330,8 @@ def test_plain_pass_and_pack_at_another_rho0(dam, name):
     """At rho0 1.3, which divides m and lap with rounding, the plain
     executor still matches the JAX package's pass, and differs from its
     output at the dam's rho0 of 1 wherever rho0 enters the pass (in
-    stiffness_accel it does not: there the two are equal); a record pass's
+    stiffness_accel, pressure_force and density_alpha it does not: there
+    the two are equal); a record pass's
     plain pack still holds the layout and the bodies' j side bitwise (its m
     / rho0, a
     division by a tensor, rounds as the bodies' division by the Python
@@ -390,11 +396,23 @@ def test_record_wrappers_refuse_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="indexes in 32 bits"):
         tcc.record_pass_cuda("stiffness_accel", fl[:5], bd, islots, big, big,
                              TCFG)
+    # and so is an operand of 2^31 floats or more: pressure_force's six rows
+    # at a K*G whose four rows of pbd_lambda stay under it
+    wide = DenseDims(730, 730, 730, 1)
+    assert 4 * wide.k * wide.g < 2**31 <= 6 * wide.k * wide.g
+    with pytest.raises(ValueError, match="indexes in 32 bits"):
+        tcc.record_pass_cuda("pressure_force", fl[:6], bd, islots, wide,
+                             wide, TCFG)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tcc.record_pass_cuda("pbd_lambda", fl[:4], bd, islots, wide, wide,
+                             TCFG)
     assert tcc.LAUNCHES == before
     assert set(tcc.RECORD_IDS) == {"surface", "surface_pressure",
                                    "xsph_colorgrad", "viscosity",
-                                   "pbd_lambda", "stiffness_accel"}
-    assert set(tcc.COUNTED) == {"pbd_lambda", "stiffness_accel"}
+                                   "pbd_lambda", "stiffness_accel",
+                                   "pressure_force", "density_alpha"}
+    assert set(tcc.COUNTED) == {"pbd_lambda", "stiffness_accel",
+                                "pressure_force", "density_alpha"}
     assert set(tcc.SIDE_WIDTH) == set(tcc.RECORD_IDS)
     assert all((tcc.SIDE_WIDTH[n] == 0) == (n in tcc.COUNTED)
                for n in tcc.RECORD_IDS)
@@ -405,7 +423,7 @@ def test_record_wrappers_refuse_what_the_kernel_cannot_take():
     assert all(tcc.RECORD_DEFAULTS[n][2] in tcc.unrolls(n)
                and tcc.RECORD_DEFAULTS[n][:2] in tcc.variants(n)
                for n in tcc.RECORD_IDS)
-    # one position pack serves both counted passes; the others pack alone
+    # one position pack serves every counted pass; the others pack alone
     assert {tcc.pack_key(n) for n in tcc.COUNTED} == {"pack_positions"}
     assert all(tcc.pack_key(n) == f"pack_{n}" and tcc.pack_key(n)
                in tcc.LAUNCHES for n in tcc.RECORD_IDS
@@ -571,7 +589,10 @@ def test_counted_pack_counts_full_and_empty_cells(dam):
     bd = _t(bd)
     real = fl[0] < POS_PAD / 2
     for name in tcc.COUNTED:
-        op = fl if name == "pbd_lambda" else torch.cat([fl, fl[3:4]])
+        # the mass again as each further row (stiffness_accel's s,
+        # pressure_force's rho and p)
+        rows = tpp.PASSES[name].fi
+        op = torch.cat([fl] + [fl[3:4]] * (rows - 4))
         recs = tcc.pack_records(name, op, bd, box, dims_b, TCFG)
         assert torch.equal(recs.count, real.sum(0, dtype=torch.int32))
         assert bool((recs.count == k).any()) and bool((recs.count == 0).any())
@@ -611,3 +632,41 @@ def test_shared_pack_refuses_other_grids():
     with pytest.raises(ValueError, match="packed for"):
         pack.take((DenseDims(*BOX, 5),) + key[1:], make)
     assert pack.records is first and len(made) == 1
+
+
+@pytest.mark.parametrize("solver", ["dfsph", "wcsph"])
+def test_surface_off_steps_hand_their_counted_passes_one_pack_a_frame(
+        monkeypatch, solver):
+    """With surface effects off, each frame of DFSPH hands density_alpha a
+    SharedPack and every stiffness_accel of both Jacobi solves that same
+    pack, and each frame of WCSPH hands pressure_force one of its own; no
+    other pass gets one, and the next frame a new one. On the CPU every
+    pack stays empty (the plain executor runs)."""
+    cfg = TCFG.replace(surface_tension=0.0, air_pressure=0.0)
+    pos = T.block_positions((0.3, 0.1, 0.3), (6, 6, 6), cfg.spacing)
+    sim = T.Simulation(solver=solver, cfg=cfg, fluid_pos=pos, device="cpu")
+    calls = []
+    run = tpp.column_pass
+
+    def spy(name, *args, records=None, **kwargs):
+        calls.append((name, records))
+        return run(name, *args, records=records, **kwargs)
+    monkeypatch.setattr(tpp, "column_pass", spy)
+    dims, dims_b = sim._dims()
+    counted = {"dfsph": ("density_alpha", "stiffness_accel"),
+               "wcsph": ("pressure_force",)}[solver]
+    state, carry, packs = sim.state, sim.carry, []
+    for _ in range(2):
+        del calls[:]
+        state, carry, _ = tds.DENSE_STEPS[solver](
+            state, carry, sim.scene, cfg, T.BENCH_DT[solver], dims, dims_b,
+            sim.box)
+        names = [n for n, _ in calls]
+        assert counted[0] in names and names.count(counted[0]) == 1
+        if solver == "dfsph":
+            assert names.count("stiffness_accel") >= 2
+        pack = dict(calls)[counted[0]]
+        assert isinstance(pack, tpp.SharedPack) and pack.records is None
+        assert all(r is (pack if n in counted else None) for n, r in calls)
+        packs.append(pack)
+    assert packs[0] is not packs[1]
